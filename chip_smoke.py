@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (`tendermint_tpu_torch`).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases, in order; any mismatch or exception exits non-zero:
+
+1. build the four CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
+   (sm_90a) and print the card's name and power limit;
+2. hold each kernel against its plain PyTorch version on the card on small
+   edge-case inputs, bytes and bools exactly equal (K4 also against
+   hashlib, K3 also against the golden RFC 8032 signer, K1 on adversarial
+   lanes);
+3. the main path, with every launch count set to 0 just before it and
+   read just after it: replay a fast-sync chain at BASELINE config 3's
+   shape (100 validators, 625-block windows, ~12 KB blocks) through
+   `CudaBackend` (fixture signing, comb tables, one verify per window),
+   checking the final app hash against a host kvstore run; then one
+   Merkle `roots` call at BASELINE config 2's shape (2,048 trees x 1,024
+   leaves x 64 B);
+4. check that a tampered signature is rejected at the right height and
+   lane, sample the roots against the host tree and time `roots`;
+5. one `kernels` JSON line: per kernel its launches on the main path, its
+   time and its plain version's at the main path's shapes, the two
+   results held exactly equal there, and its bound.
+
+The last line printed is {"ok": true, "device": {...}}.  With no CUDA
+device, or outside the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks for the bounds in the kernels line: HBM bandwidth from
+# NVIDIA's data sheet; 32-bit integer operations (multiply-add, add, logic,
+# shift) at 64 per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0) x 132 SMs x 1.98 GHz
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+SEED = 20261017
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> tuple:
+    """(mean milliseconds of `fn()` on the card over `reps` runs after one
+    warm-up run, from CUDA events; the last run's result).  reps = 0: one
+    timed run, no warm-up."""
+    import torch
+    if reps == 0:
+        reps = 1
+    else:
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def max_abs_err(got, want) -> int:
+    """Largest |kernel - plain| over two integer (or bool) tensors."""
+    return int((got.long() - want.long()).abs().max().item()) \
+        if got.numel() else 0
+
+
+# -- build ---------------------------------------------------------------
+
+def phase_build() -> None:
+    from tendermint_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    so, report = kernels.build()
+    log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s -> "
+        f"{so.name}")
+    for line in report.splitlines():
+        if (line.startswith("==") or "registers" in line
+                or "spill" in line or "Compiling entry" in line):
+            log(f"[build] {line.strip()}")
+
+
+# -- kernels against their plain versions on edge cases ------------------
+
+def _keys(n: int, invalid: int | None = None):
+    """n deterministic keys (seed bytes [1, i+1] + 30 zeros); optionally one
+    replaced by an undecodable encoding (y >= p)."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    seeds = [bytes([1, i + 1]) + b"\0" * 30 for i in range(n)]
+    a = np.zeros((n, 32), np.uint8)
+    pre = np.zeros((n, 32), np.uint8)
+    pubs = np.zeros((n, 32), np.uint8)
+    for i, s in enumerate(seeds):
+        ai, pi, pb = ref.expand_seed(s)
+        a[i] = np.frombuffer(ai, np.uint8)
+        pre[i] = np.frombuffer(pi, np.uint8)
+        pubs[i] = np.frombuffer(pb, np.uint8)
+    set_pubs = pubs.copy()
+    if invalid is not None:
+        set_pubs[invalid] = np.frombuffer(
+            (2**255 - 19 + 5).to_bytes(32, "little"), np.uint8)
+    return seeds, a, pre, pubs, set_pubs
+
+
+def phase_check() -> None:
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import sha256 as s256
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+
+    # K4: leaves and inner nodes, kernel vs plain vs hashlib
+    for prefix, width in ((0x00, 64), (0x01, 64), (0x00, 1000)):
+        msgs = t(rng.integers(0, 256, (2048, width), dtype=np.uint8))
+        got = s256.sha256_prefixed(msgs, prefix)
+        want = s256.sha256_prefixed_plain(msgs, prefix)
+        require(torch.equal(got, want), f"K4 != plain (prefix {prefix})")
+        host = msgs[:64].cpu().numpy()
+        for i in range(64):
+            ref_h = hashlib.sha256(bytes([prefix]) + host[i].tobytes())
+            require(got[i].cpu().numpy().tobytes() == ref_h.digest(),
+                    "K4 != hashlib")
+    log("[check] K4 sha256_prefixed == plain == hashlib")
+
+    # K2 at V = 4, key 2 undecodable
+    seeds, a, pre, pubs, set_pubs = _keys(4, invalid=2)
+    tbl, ok = ed.build_neg_comb(t(set_pubs))
+    ptbl, pok = ed.build_neg_comb_plain(t(set_pubs))
+    require(torch.equal(ok, pok) and ok.tolist() == [True, True, False,
+                                                     True], "K2 ok mask")
+    require(torch.equal(tbl[:, :, ok], ptbl[:, :, pok]), "K2 table bytes")
+    log("[check] K2 build_neg_comb == plain (ok mask + valid-key bytes)")
+
+    # K3 on 256 lanes, 8 also against the golden signer
+    base = ed.base_table(dev)
+    n, T = 256, 8
+    templates = rng.integers(0, 256, (T, 128), dtype=np.uint8)
+    vi = rng.integers(0, 4, n).astype(np.int32)
+    ti = rng.integers(0, T, n).astype(np.int32)
+    sign_args = (t(a), t(pre), t(pubs), t(vi), t(ti), t(templates), base)
+    sigs = ed.sign_grouped_templated(*sign_args)
+    psigs = ed.sign_grouped_templated_plain(*sign_args)
+    require(torch.equal(sigs, psigs), "K3 != plain")
+    host_sigs = sigs.cpu().numpy()
+    for i in range(8):
+        want = ref.sign(seeds[vi[i]], templates[ti[i]].tobytes())
+        require(host_sigs[i].tobytes() == want, f"K3 lane {i} != golden")
+    log("[check] K3 sign_grouped_templated == plain == pure_ed25519.sign")
+
+    # K1 on adversarial lanes against the K2 tables (key 2 invalid)
+    tm = templates.copy()
+    tm[7] = tm[0]
+    tm[7, 3] ^= 0x01                        # template 7: template 0, one bit
+    lanes = []                              # (val, tmpl, sig bytes)
+    for i in range(12):
+        v, k = i % 4, i % 6
+        lanes.append((v, k, ref.sign(seeds[v], tm[k].tobytes())))
+    L = ref.L
+    v0, k0, s0 = lanes[0]
+    s_big = int.from_bytes(s0[32:], "little") + L
+    lanes += [
+        (v0, k0, s0[:32] + s_big.to_bytes(32, "little")),     # s >= L
+        (v0, k0, (2**255 - 19).to_bytes(32, "little") + s0[32:]),  # R >= p
+        (0, 7, ref.sign(seeds[0], tm[0].tobytes())),        # flipped msg bit
+        (1, 0, ref.sign(seeds[3], tm[0].tobytes())),        # wrong key
+        (v0, k0, (1).to_bytes(32, "little") + bytes(32)),   # R = identity
+    ]
+    nreal = len(lanes)
+    lanes += [lanes[0]] * (32 - nreal)      # bucket padding repeats lane 0
+    lv = np.asarray([x[0] for x in lanes], np.int32)
+    lt = np.asarray([x[1] for x in lanes], np.int32)
+    ls = np.frombuffer(b"".join(x[2] for x in lanes),
+                       np.uint8).reshape(-1, 64).copy()
+    args = (tbl, ok, t(pubs), t(lv), t(lt), t(tm), t(ls), base)
+    got = ed.verify_grouped_templated(*args)
+    want = ed.verify_grouped_templated_plain(*args)
+    require(torch.equal(got, want), "K1 != plain")
+    golden = [v != 2 and ref.verify(pubs[v].tobytes(), tm[k].tobytes(), s)
+              for v, k, s in lanes]
+    require(got.tolist() == golden, "K1 != golden")
+    require(not any(got[12:nreal].tolist()), "K1 accepted an adversarial lane")
+    log(f"[check] K1 verify_grouped_templated == plain == golden on "
+        f"{len(lanes)} lanes ({nreal - 12} adversarial, key 2 invalid, "
+        f"{32 - nreal} padding)")
+
+
+# -- the main path: replay, then the tamper check ------------------------
+
+N_VALS, N_BLOCKS, WINDOW = 100, 2500, 625        # BASELINE config 3 shape
+TAMPER_HEIGHT, TAMPER_LANE = 1388, 41
+
+
+def phase_replay() -> dict:
+    """The main path's replay: sign the fixture chain (K3), build the set's
+    comb tables (K2) and replay every window (K1 once per window)."""
+    import torch
+    from tendermint_tpu_torch.abci.app import create_app
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+
+    be = CudaBackend()
+    t0 = time.perf_counter()
+    chain = rp.build_chain(N_VALS, N_BLOCKS, be)
+    log(f"[replay] fixture: {N_BLOCKS} blocks x {N_VALS} validators, "
+        f"{N_BLOCKS * N_VALS} seen-commit signatures signed on the card "
+        f"(K3), built in {time.perf_counter() - t0:.2f} s")
+    state = get_state(MemDB(), chain.genesis)
+    conns = ClientCreator("kvstore").new_app_conns()
+    vals = state.validators
+    t0 = time.perf_counter()
+    tbl = be.tables(vals.set_key(), vals.pubs_matrix())[0]
+    torch.cuda.synchronize()
+    log(f"[replay] comb tables for {N_VALS} validators (Vb "
+        f"{tbl.shape[2]}, {tbl.numel() / 1e6:.1f} MB on the card) built in "
+        f"{time.perf_counter() - t0:.3f} s (K2)")
+    t0 = time.perf_counter()
+    res = rp.replay(state, conns.consensus, chain.blocks, chain.commits, be,
+                    window=WINDOW)
+    wall = time.perf_counter() - t0
+    for w in res.windows:
+        log(f"[replay] window @{w.first_height}: {w.blocks} blocks, "
+            f"{w.lanes} sigs; prepare {w.prepare_s:.4f} s, verify "
+            f"{w.verify_s:.4f} s, apply {w.apply_s:.4f} s")
+    steady = res.windows[1:]
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    log(f"[replay] first window: prepare {res.windows[0].prepare_s:.4f} s, "
+        f"verify {res.windows[0].verify_s:.4f} s, apply "
+        f"{res.windows[0].apply_s:.4f} s")
+    log(f"[replay] steady window (mean of {len(steady)}): prepare "
+        f"{mean([w.prepare_s for w in steady]):.4f} s, verify "
+        f"{mean([w.verify_s for w in steady]):.4f} s, apply "
+        f"{mean([w.apply_s for w in steady]):.4f} s")
+    verify_s = sum(w.verify_s for w in res.windows)
+    log(f"[replay] {res.sigs} sigs in {wall:.3f} s: "
+        f"{res.sigs / wall:.0f} sigs/s end to end, "
+        f"{res.sigs / verify_s:.0f} sigs/s in the verify step, "
+        f"{N_BLOCKS / wall:.1f} blocks/s")
+    require(res.height == N_BLOCKS and res.sigs == N_BLOCKS * N_VALS,
+            "replay did not verify and apply every block")
+    app = create_app("kvstore")
+    for b in chain.blocks:
+        for tx in b.txs:
+            app.deliver_tx(tx)
+        host_hash = app.commit().data
+    require(res.app_hash == host_hash, "app hash != host kvstore run")
+    log(f"[replay] final height {res.height}, app hash "
+        f"{res.app_hash.hex()} == host kvstore run")
+    return {"backend": be, "chain": chain, "vals": vals,
+            "set_key": vals.set_key()}
+
+
+def phase_tamper(rp_ctx: dict) -> None:
+    """Tamper one signature of the third window and re-verify it: the
+    error must name the tampered height and lane."""
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.types.block import CompactCommit
+    from tendermint_tpu_torch.types.validator import (CommitSignatureError,
+                                                      verify_commits_batched)
+    be, chain, vals = rp_ctx["backend"], rp_ctx["chain"], rp_ctx["vals"]
+    lo = 2 * WINDOW
+    blocks = chain.blocks[lo:lo + WINDOW]
+    commits = list(chain.commits[lo:lo + WINDOW])
+    j = TAMPER_HEIGHT - 1 - lo
+    c = commits[j]
+    sigs = c.sigs.copy()
+    sigs[TAMPER_LANE, 7] ^= 0x01
+    commits[j] = CompactCommit(block_id=c.block_id, height_=c.height_,
+                               round_=c.round_, sigs=sigs, present=c.present)
+    _, _, items = rp.prepare_window(blocks, commits, vals.hash(), be)
+    try:
+        verify_commits_batched(vals, chain.genesis.chain_id, items, be)
+    except CommitSignatureError as e:
+        require((e.height, e.lane) == (TAMPER_HEIGHT, TAMPER_LANE),
+                f"tamper blamed height {e.height} lane {e.lane}")
+        log(f"[replay] tampered window rejected: {e}")
+    else:
+        raise AssertionError("tampered window verified")
+
+
+# -- the main path: Merkle roots, then their check ----------------------
+
+TREES, LEAVES, LEAF_LEN = 2048, 1024, 64          # BASELINE config 2 shape
+
+
+def phase_merkle() -> dict:
+    """The main path's Merkle roots: one `roots` call at config 2's shape
+    (K4 for the leaves and each level)."""
+    import torch
+    from tendermint_tpu_torch.ops import merkle
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    data = torch.randint(0, 256, (TREES, LEAVES, LEAF_LEN), generator=g,
+                         device="cuda", dtype=torch.uint8)
+    roots = merkle.roots(data)
+    torch.cuda.synchronize()
+    return {"data": data, "roots": roots}
+
+
+def check_merkle(mk_ctx: dict) -> None:
+    """Sample the roots against the host tree and time `roots`."""
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.types import merkle as host_merkle
+    data, roots = mk_ctx["data"], mk_ctx["roots"]
+    host = data[:8].cpu().numpy()
+    for b in range(len(host)):
+        want = host_merkle.root([host[b, i].tobytes() for i in range(LEAVES)])
+        require(roots[b].cpu().numpy().tobytes() == want,
+                f"tree {b}: device root != host tree")
+    ms, _ = cuda_ms(lambda: merkle.roots(data), 3)
+    log(f"[merkle] {TREES} trees x {LEAVES} leaves x {LEAF_LEN} B: "
+        f"{ms:.3f} ms per batch, {TREES / ms * 1e3:.0f} trees/s; "
+        f"{len(host)} roots == host tree")
+
+
+# -- the kernels line ----------------------------------------------------
+
+# Bounds count the operations each function needs, not those of the
+# kernels' design: a field multiplication is 100 32x32->64 multiply-adds
+# (10 x 10 limbs), a squaring 55; point operations are counted in
+# (multiplications, squarings); the encode of a batch of points uses
+# Montgomery's batch inversion (3 multiplications per point and one
+# inversion per call).  The mod-L scalar work (< 1 % of a lane) is left
+# out, which can only lower a bound.
+MACS_MUL, MACS_SQR = 100, 55
+MIXED_ADD = (7, 0)      # extended + cached affine (y+x, y-x, 2dxy)
+ADD = (9, 0)            # extended + extended
+DBL = (4, 4)
+INVERT = (11, 254)      # z^(p-2)
+DECOMPRESS = (19, 254)  # sqrt by z^((p-5)/8) and its checks
+BATCH_INV = (3, 0)      # per point, beside one INVERT per call
+# 32-bit integer instructions per SHA-256 block with 3-input adds and logic
+# (IADD3, LOP3) and one-instruction rotates: 14 per round, 10 per
+# scheduled word, 8 for the final state add
+SHA256_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8
+# per SHA-512 block on 32-bit halves: a 64-bit rotate or shift is 2
+# funnel shifts, a 3-input 64-bit add 2 IADD3, 3-input logic 2 LOP3:
+# 28 per round, 20 per scheduled word, 16 for the final state add
+SHA512_OPS_PER_BLOCK = 80 * 28 + 64 * 20 + 16
+
+
+def _macs(*terms) -> int:
+    """Multiply-adds of `count x (multiplications, squarings)` terms."""
+    return sum(n * (m * MACS_MUL + q * MACS_SQR) for n, (m, q) in terms)
+
+
+def _bound(nbytes: float, ops: float) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _mod_l_digits(digests: list, width: int, windows: int):
+    """Comb digits of SHA-512 digests reduced mod L -> int64[N, windows]."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    mask = (1 << width) - 1
+    out = np.zeros((len(digests), windows), np.int64)
+    for i, d in enumerate(digests):
+        k = int.from_bytes(d, "little") % ref.L
+        for w in range(windows):
+            out[i, w] = (k >> (width * w)) & mask
+    return out
+
+
+def _byte_digits(rows, width: int, windows: int):
+    import numpy as np
+    mask = (1 << width) - 1
+    out = np.zeros((len(rows), windows), np.int64)
+    for i, r in enumerate(rows):
+        k = int.from_bytes(r.tobytes(), "little")
+        for w in range(windows):
+            out[i, w] = (k >> (width * w)) & mask
+    return out
+
+
+def _distinct_rows(digits, extra=None) -> int:
+    """Distinct (window, digit[, key]) table rows a batch gathers."""
+    import numpy as np
+    n, windows = digits.shape
+    cols = [np.broadcast_to(np.arange(windows), (n, windows)).ravel(),
+            digits.ravel()]
+    if extra is not None:
+        cols.append(np.repeat(extra, windows))
+    return len(np.unique(np.stack(cols, axis=1), axis=0))
+
+
+def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict) -> list:
+    """Time each kernel and its plain version at the main path's shapes,
+    hold the two results equal, and work out each kernel's bound."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import sha256 as s256
+    from tendermint_tpu_torch.types import canonical
+    from tendermint_tpu_torch.types.validator import window_commit_lanes
+    be, chain, vals = rp_ctx["backend"], rp_ctx["chain"], rp_ctx["vals"]
+    rows = []
+
+    # K1 at one replay window's shape
+    _, _, items = rp.prepare_window(chain.blocks[:WINDOW],
+                                    chain.commits[:WINDOW], vals.hash(), be)
+    templates, tmpl_idx, sigs, idxs, *_ = window_commit_lanes(
+        vals, chain.genesis.chain_id, items)
+    args = be.templated_args(rp_ctx["set_key"], vals.pubs_matrix(), idxs,
+                             tmpl_idx, templates, sigs)
+    n = args[3].shape[0]
+    ms, got = cuda_ms(lambda: ed.verify_grouped_templated(*args), 10)
+    plain_ms, want = cuda_ms(
+        lambda: ed.verify_grouped_templated_plain(*args), 1)
+    require(torch.equal(got, want), "K1 != plain at the main path's shape")
+    require(bool(got[:len(idxs)].all()), "K1 rejected a valid replay lane")
+    err = max_abs_err(got, want)
+    # args: tables, pub_ok, key matrix, val_idx, tmpl_idx, templates, sigs
+    h_vp, h_vi, h_ti, h_tm, h_sg = (a.cpu().numpy() for a in args[2:7])
+    digests = [hashlib.sha512(h_sg[i, :32].tobytes() + h_vp[h_vi[i]].tobytes()
+                              + h_tm[h_ti[i]].tobytes()).digest()
+               for i in range(n)]
+    kd = _mod_l_digits(digests, 10, 26)
+    sd = _byte_digits(h_sg[:, 32:], 12, 22)
+    nbytes = (n * (64 + 4 + 4 + 1) + h_tm.nbytes + h_vp.nbytes
+              + args[1].numel() + 96 * (_distinct_rows(sd)
+                                        + _distinct_rows(kd, h_vi)))
+    # per lane: SHA-512 of R || A || M (192 B, 2 blocks); 21 + 25 mixed adds
+    # onto the first entry of each comb (1 multiplication to extend it);
+    # one add of the two sums; encode (batch inversion, x and y)
+    ops = (n * 2 * SHA512_OPS_PER_BLOCK
+           + _macs((n * 46, MIXED_ADD), (n * 2, (1, 0)), (n, ADD),
+                   (n, BATCH_INV), (n * 2, (1, 0)), (1, INVERT)))
+    rows.append(("verify_grouped_templated", "verify_grouped.cu",
+                 "tendermint_tpu/ops/ed25519.py:153", "K1", ms, plain_ms,
+                 err, nbytes, ops, f"{n} lanes, {h_tm.shape[0]} templates"))
+
+    # K2 at the replay set's shape (100 keys; padding copies column 0)
+    pubs = be._t(vals.pubs_matrix())
+    v = pubs.shape[0]
+    ms, (tbl, ok) = cuda_ms(lambda: ed.build_neg_comb(pubs), 3)
+    plain_ms, (ptbl, pok) = cuda_ms(lambda: ed.build_neg_comb_plain(pubs), 0)
+    require(torch.equal(ok, pok) and bool(ok.all()),
+            "K2 ok mask != plain at the main path's shape")
+    require(torch.equal(tbl, ptbl), "K2 table != plain at the main path's "
+            "shape")
+    err = max(max_abs_err(ok, pok), max_abs_err(tbl, ptbl))
+    del tbl, ptbl
+    # per key: decompress, 25 x 10 doublings for the window bases; per
+    # entry (1,023 of 1,024 per window; digit 0 is a constant): one add
+    # onto entry j - 1, the batch inversion, and the affine pack (x, y,
+    # x*y, *2d)
+    entries = v * 26 * 1023
+    ops = _macs((v, DECOMPRESS), (v * 250, DBL), (entries, ADD),
+                (entries, BATCH_INV), (entries, (4, 0)), (1, INVERT))
+    nbytes = v * 32 + v * 1 + 26 * 1024 * v * 96
+    rows.append(("build_neg_comb", "build_neg_comb.cu",
+                 "tendermint_tpu/ops/ed25519.py:60", "K2", ms, plain_ms,
+                 err, nbytes, ops, f"{v} keys"))
+
+    # K3 at one fixture signing call's shape (655 blocks x 100 lanes)
+    nb = rp.SIGN_CHUNK_BLOCKS
+    val_idx = np.tile(np.arange(N_VALS, dtype=np.int32), nb)
+    tmpl_idx = np.repeat(np.arange(nb, dtype=np.int32), N_VALS)
+    bids = [c.block_id for c in chain.commits[:nb]]
+    templates = canonical.batch_sign_bytes(
+        chain.genesis.chain_id,
+        np.full(nb, canonical.TYPE_PRECOMMIT, np.int64),
+        np.arange(1, nb + 1, dtype=np.int64), np.zeros(nb, np.int64),
+        np.frombuffer(b"".join(b.hash for b in bids), np.uint8).reshape(nb, 32),
+        np.frombuffer(b"".join(b.parts.hash for b in bids),
+                      np.uint8).reshape(nb, 32),
+        np.array([b.parts.total for b in bids], np.int64))
+    sargs = be.sign_args(chain.seeds, val_idx, tmpl_idx, templates)
+    n = sargs[3].shape[0]
+    ms, got = cuda_ms(lambda: ed.sign_grouped_templated(*sargs), 10)
+    plain_ms, want = cuda_ms(
+        lambda: ed.sign_grouped_templated_plain(*sargs), 1)
+    require(torch.equal(got, want), "K3 != plain at the main path's shape")
+    err = max_abs_err(got, want)
+    # sargs: a, prefixes, pubkeys, val_idx, tmpl_idx, templates, base
+    h_pre, _, h_vi, h_ti, h_tm = (a.cpu().numpy() for a in sargs[1:6])
+    rd = _mod_l_digits([hashlib.sha512(h_pre[h_vi[i]].tobytes()
+                                       + h_tm[h_ti[i]].tobytes()).digest()
+                        for i in range(n)], 12, 22)
+    nbytes = n * (4 + 4 + 64) + h_tm.nbytes + 3 * N_VALS * 32 \
+        + 96 * _distinct_rows(rd)
+    # per lane: SHA-512 of prefix || M (160 B) and of R || A || M (192 B),
+    # 2 blocks each; 21 mixed adds onto the first entry; encode
+    ops = (n * 4 * SHA512_OPS_PER_BLOCK
+           + _macs((n * 21, MIXED_ADD), (n, (1, 0)), (n, BATCH_INV),
+                   (n * 2, (1, 0)), (1, INVERT)))
+    rows.append(("sign_grouped_templated", "sign_grouped.cu",
+                 "tendermint_tpu/ops/ed25519.py:117", "K3", ms, plain_ms,
+                 err, nbytes, ops, f"{n} lanes, {h_tm.shape[0]} templates"))
+
+    # K4 at the Merkle phase's leaf level (2,097,152 x 64 B)
+    leaves = mk_ctx["data"].reshape(-1, LEAF_LEN)
+    ms, got = cuda_ms(lambda: s256.sha256_prefixed(leaves, 0), 10)
+    plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(leaves, 0), 1)
+    require(torch.equal(got, want), "K4 != plain at the main path's shape")
+    err = max_abs_err(got, want)
+    n = leaves.shape[0]
+    nblocks = (LEAF_LEN + 1 + 9 + 63) // 64
+    rows.append(("sha256_prefixed", "sha256_prefixed.cu",
+                 "tendermint_tpu/ops/sha256.py:114", "K4", ms, plain_ms,
+                 err, n * (LEAF_LEN + 32), n * nblocks * SHA256_OPS_PER_BLOCK,
+                 f"{n} messages x {LEAF_LEN} B"))
+
+    out = []
+    for (name, src, replaces, key, ms, plain_ms, err, nbytes, ops,
+         shape) in rows:
+        bound_ms, bound_by = _bound(nbytes, ops)
+        log(f"[kernels] {key} {name} at {shape}: {ms:.3f} ms == plain "
+            f"(max abs err {err}; plain {plain_ms:.1f} ms), bound "
+            f"{bound_ms:.4f} ms by {bound_by}: {nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} G int ops; {launches[key]} launches on the "
+            f"main path")
+        out.append({"name": name, "route": "cuda",
+                    "source": f"tendermint_tpu_torch/csrc/{src}",
+                    "replaces": replaces, "launches": launches[key],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None})
+    return out
+
+
+KERNEL_KEYS = {"verify_grouped": "K1", "build_neg_comb": "K2",
+               "sign_grouped": "K3", "sha256_prefixed": "K4"}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import tendermint_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: run from the repository root "
+              "(tendermint_tpu_torch not importable)", file=sys.stderr)
+        return 2
+    from tendermint_tpu_torch.ops import kernels
+    card = card_line()
+    log(card)
+    phase_build()
+    phase_check()
+    kernels.reset_launches()                # the main path starts here
+    rp_ctx = phase_replay()
+    mk_ctx = phase_merkle()
+    launches = {KERNEL_KEYS[k]: n for k, n in kernels.LAUNCHES.items()}
+    for key, n in launches.items():         # ... and ends here
+        require(n > 0, f"{key} was not launched on the main path")
+    phase_tamper(rp_ctx)
+    check_merkle(mk_ctx)
+    line = phase_kernels(launches, rp_ctx, mk_ctx)
+    log(card)
+    print(json.dumps({"kernels": line}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

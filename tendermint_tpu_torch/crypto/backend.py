@@ -1,0 +1,270 @@
+"""Pluggable crypto backends: the seam between consensus and the card.
+
+Port of `tendermint_tpu/crypto/backend.py`, trimmed to two backends behind
+the reference's `Backend` protocol: `PythonBackend` (the golden bigint
+verifier) and `CudaBackend` (the hand-written CUDA kernels of
+`ops.ed25519`, named "cuda").  Batches are padded to power-of-two buckets
+by repeating lane 0, and padded lanes are trimmed from every result.
+
+`CudaBackend` runs on the card unless the caller passes device="cpu", in
+which case every kernel wrapper runs its plain PyTorch version; with no
+card it refuses to start.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import threading
+from typing import Protocol
+
+import numpy as np
+import torch
+
+from tendermint_tpu_torch.crypto import pure_ed25519 as _ref
+from tendermint_tpu_torch.ops import curve
+from tendermint_tpu_torch.ops import ed25519 as ed
+from tendermint_tpu_torch.ops import merkle
+
+MIN_BUCKET = 16
+
+
+class Backend(Protocol):
+    name: str
+
+    def verify_batch(self, pubkeys: np.ndarray, msgs: np.ndarray,
+                     sigs: np.ndarray) -> np.ndarray:
+        """uint8 [N,32] pubkeys, [N,M] msgs (equal-length), [N,64] sigs
+        -> bool[N]."""
+        ...
+
+    def verify_grouped(self, set_key: bytes, val_pubs: np.ndarray,
+                       val_idx: np.ndarray, msgs: np.ndarray,
+                       sigs: np.ndarray) -> np.ndarray:
+        """Verify N signatures made by members of a FIXED key set: lane i
+        was signed by val_pubs[val_idx[i]].  set_key identifies the set so
+        device backends can cache per-set comb tables across calls.
+        Semantics identical to verify_batch(val_pubs[val_idx], ...)."""
+        ...
+
+
+def _bucket(n: int) -> int:
+    b = MIN_BUCKET
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_rows(a: np.ndarray, b: int) -> np.ndarray:
+    """Pad the leading axis to b rows by repeating row 0."""
+    if b == len(a):
+        return a
+    return np.concatenate([a, np.repeat(a[:1], b - len(a), 0)])
+
+
+class PythonBackend:
+    """Golden bigint implementation — slow, obviously correct."""
+    name = "python"
+
+    def verify_batch(self, pubkeys, msgs, sigs):
+        from tendermint_tpu_torch.types.keys import _verify_memo
+        out = np.zeros(len(pubkeys), dtype=bool)
+        for i in range(len(pubkeys)):
+            out[i] = _verify_memo(pubkeys[i].tobytes(), msgs[i].tobytes(),
+                                  sigs[i].tobytes())
+        return out
+
+    def verify_grouped(self, set_key, val_pubs, val_idx, msgs, sigs):
+        return self.verify_batch(val_pubs[val_idx], msgs, sigs)
+
+    def verify_grouped_templated(self, set_key, val_pubs, val_idx, tmpl_idx,
+                                 templates, sigs):
+        return self.verify_grouped(set_key, val_pubs, val_idx,
+                                   templates[tmpl_idx], sigs)
+
+
+class CudaBackend:
+    """The port's CUDA kernels (`ops.ed25519`, `ops.merkle`) with shape
+    bucketing and a per-validator-set comb-table cache."""
+    name = "cuda"
+
+    # Comb tables are ~2.5 MB per validator (uint8), so the cache is
+    # bounded in bytes (FIFO eviction), as in the reference: a 128-validator
+    # set costs ~327 MB, an 8-validator light chain ~41 MB.
+    TABLE_CACHE_BYTES = 4 << 30
+
+    def __init__(self, device: str | torch.device = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CudaBackend: no CUDA device available (pass device='cpu' "
+                "to run the plain PyTorch versions of the kernels)")
+        self._base = ed.base_table(self.device)
+        # set_key -> (tables, pub_ok, real set size, padded key matrix)
+        self._tables: dict[bytes, tuple] = {}
+        # digest of the seed set -> (a, prefix, pubkey) matrices
+        self._sign_keys: dict[bytes, tuple] = {}
+        self._lock = threading.Lock()
+
+    def _t(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.asarray(a), device=self.device)
+
+    # -- comb tables -----------------------------------------------------
+    def tables_cached(self, set_key: bytes) -> bool:
+        with self._lock:
+            return set_key in self._tables
+
+    def _install(self, set_key: bytes, tbl: torch.Tensor, ok: torch.Tensor,
+                 v: int, padded_pubs: np.ndarray) -> tuple:
+        ent = (tbl, ok, v, self._t(padded_pubs))
+        with self._lock:
+            resident = sum(e[0].numel() for e in self._tables.values())
+            while (self._tables and
+                   resident + tbl.numel() > self.TABLE_CACHE_BYTES):
+                oldest = next(iter(self._tables))
+                resident -= self._tables.pop(oldest)[0].numel()
+            self._tables[set_key] = ent
+        return ent
+
+    def tables(self, set_key: bytes, val_pubs: np.ndarray) -> tuple:
+        """Fetch or build the comb tables for a key set: (tables, pub_ok,
+        set size, padded key matrix), all on the device.  The set is padded
+        to a power of two by repeating key 0 (so a handful of table shapes
+        cover any set size); the padded columns are copies of column 0, so
+        only the real keys are built."""
+        with self._lock:
+            ent = self._tables.get(set_key)
+        if ent is not None:
+            if ent[2] != len(val_pubs):
+                raise ValueError(
+                    f"set_key reused for a different set size ({ent[2]} != "
+                    f"{len(val_pubs)})")
+            return ent
+        v = len(val_pubs)
+        vb = _bucket(v)
+        tbl, ok = ed.build_neg_comb(self._t(val_pubs))
+        if vb > v:
+            tbl = torch.cat([tbl, tbl[:, :, :1].expand(
+                -1, -1, vb - v, -1, -1)], dim=2).contiguous()
+            ok = torch.cat([ok, ok[:1].expand(vb - v)])
+        return self._install(set_key, tbl, ok, v, _pad_rows(val_pubs, vb))
+
+    def tables_from_numpy(self, set_key: bytes, val_pubs: np.ndarray,
+                          tbl: np.ndarray, ok: np.ndarray,
+                          pubs_sha256: np.ndarray | None = None) -> None:
+        """Install comb tables built elsewhere — the reference's
+        `build_neg_comb` output or the arrays of its `.npz` table cache
+        (keys `tbl`, `ok`, `pubs_sha256`) — as this backend's tables for
+        `set_key`.  `tbl` is uint8[26, 1024, Vb, 3, 32] with Vb >= the set
+        size; `val_pubs` are the set's real keys, padded here to Vb by
+        repeating key 0 (the reference's padding), and `pubs_sha256`, when
+        given, must be the SHA-256 of that padded key matrix."""
+        v = len(val_pubs)
+        want = (curve.COMB_WINDOWS, curve.COMB_DIGITS)
+        if tbl.dtype != np.uint8 or tbl.ndim != 5 or tbl.shape[:2] != want \
+                or tbl.shape[3:] != (3, 32):
+            raise ValueError(f"tables: bad shape/dtype {tbl.shape} "
+                             f"{tbl.dtype}")
+        vb = tbl.shape[2]
+        if vb < v or ok.shape != (vb,):
+            raise ValueError(f"tables hold {vb} keys, ok {ok.shape}, set "
+                             f"has {v}")
+        padded = _pad_rows(np.asarray(val_pubs, np.uint8), vb)
+        if pubs_sha256 is not None and \
+                np.asarray(pubs_sha256, np.uint8).tobytes() != \
+                hashlib.sha256(padded.tobytes()).digest():
+            raise ValueError("pubs_sha256 does not match the key set")
+        self._install(set_key, self._t(tbl), self._t(ok.astype(bool)), v,
+                      padded)
+
+    # -- verification ----------------------------------------------------
+    @staticmethod
+    def _check_idx(name: str, idx: np.ndarray, bound: int) -> np.ndarray:
+        idx = np.asarray(idx, dtype=np.int32)
+        if len(idx) and (idx.min() < 0 or idx.max() >= bound):
+            raise ValueError(f"{name} out of range [0, {bound})")
+        return idx
+
+    def _templates(self, templates: np.ndarray) -> torch.Tensor:
+        """Templates padded with zero rows to a power-of-two count."""
+        tb = _bucket(len(templates))
+        return self._t(np.concatenate(
+            [templates, np.zeros((tb - len(templates), templates.shape[1]),
+                                 np.uint8)]))
+
+    def templated_args(self, set_key, val_pubs, val_idx, tmpl_idx,
+                       templates, sigs) -> tuple:
+        """Device arguments of `ed25519.verify_grouped_templated` for one
+        batch: the set's tables (built on first use), its padded key
+        matrix, and lanes padded to a power of two by repeating lane 0."""
+        tbl, ok, _, vp = self.tables(set_key, val_pubs)
+        val_idx = self._check_idx("val_idx", val_idx, len(val_pubs))
+        tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx, len(templates))
+        b = _bucket(len(val_idx))
+        return (tbl, ok, vp, self._t(_pad_rows(val_idx, b)),
+                self._t(_pad_rows(tmpl_idx, b)), self._templates(templates),
+                self._t(_pad_rows(sigs, b)), self._base)
+
+    def verify_grouped_templated(self, set_key, val_pubs, val_idx, tmpl_idx,
+                                 templates, sigs) -> np.ndarray:
+        """Grouped verify shipping only (sig, val_idx, tmpl_idx) lanes plus
+        T message templates; messages and keys are gathered on the device
+        (kernel K1)."""
+        n = len(val_idx)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        out = ed.verify_grouped_templated(*self.templated_args(
+            set_key, val_pubs, val_idx, tmpl_idx, templates, sigs))
+        return out.cpu().numpy()[:n]
+
+    def verify_grouped(self, set_key, val_pubs, val_idx, msgs,
+                       sigs) -> np.ndarray:
+        raise NotImplementedError(
+            "CudaBackend verifies commits with verify_grouped_templated; "
+            "verify_grouped on whole messages waits for the raw-lane verify "
+            "(ROADMAP queue B row 7)")
+
+    def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:
+        raise NotImplementedError(
+            "the raw-lane verify is not ported yet (ROADMAP queue B row 7)")
+
+    # -- signing ---------------------------------------------------------
+    def sign_args(self, seeds, val_idx, tmpl_idx, templates) -> tuple:
+        """Device arguments of `ed25519.sign_grouped_templated`: the seed
+        set's (clamped scalar, prefix, pubkey) matrices, derived on the host
+        once per set, and lanes padded to a power of two."""
+        key = hashlib.sha256(b"".join(bytes(s) for s in seeds)).digest()
+        with self._lock:
+            ent = self._sign_keys.get(key)
+        if ent is None:
+            mats = np.zeros((3, len(seeds), 32), np.uint8)
+            for i, seed in enumerate(seeds):
+                for m, part in zip(mats, _ref.expand_seed(bytes(seed))):
+                    m[i] = np.frombuffer(part, np.uint8)
+            ent = tuple(self._t(m) for m in mats)
+            with self._lock:
+                while len(self._sign_keys) >= 16:    # rotating fixture sets
+                    self._sign_keys.pop(next(iter(self._sign_keys)))
+                self._sign_keys[key] = ent
+        val_idx = self._check_idx("val_idx", val_idx, len(seeds))
+        tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx, len(templates))
+        b = _bucket(len(val_idx))
+        return ent + (self._t(_pad_rows(val_idx, b)),
+                      self._t(_pad_rows(tmpl_idx, b)),
+                      self._templates(templates), self._base)
+
+    def sign_grouped_templated(self, seeds, val_idx, tmpl_idx,
+                               templates) -> np.ndarray:
+        """Lane i signs templates[tmpl_idx[i]] with seeds[val_idx[i]]
+        (kernel K3).  Returns uint8[N, 64]."""
+        n = len(val_idx)
+        if n == 0:
+            return np.zeros((0, 64), dtype=np.uint8)
+        out = ed.sign_grouped_templated(*self.sign_args(
+            seeds, val_idx, tmpl_idx, templates))
+        return out.cpu().numpy()[:n]
+
+    # -- hashing ---------------------------------------------------------
+    def leaf_hashes(self, chunks: np.ndarray) -> np.ndarray:
+        """Merkle leaf hashes SHA-256(0x00 || chunk) of equal-size chunks
+        uint8[n, L] -> uint8[n, 32] (kernel K4)."""
+        return merkle.leaf_hashes(self._t(chunks)).cpu().numpy()

@@ -1,0 +1,181 @@
+"""Pure-Python ed25519 — the golden reference implementation.
+
+A verbatim copy of `tendermint_tpu/crypto/pure_ed25519.py`: the port's
+correctness anchor.  It derives keys, builds the host fixed-base table
+(`ops.curve._base_table`) and spot-checks the CUDA kernels' signatures.
+
+Semantics: cofactorless verification, enc([s]B - [H(R,A,M)]A) == R, plus
+the malleability check s < L.  Python big ints — slow, simple, obviously
+correct.  Do not use on any hot path.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+# --- field / group parameters (RFC 8032) ---------------------------------
+P = 2**255 - 19
+L = 2**252 + 27742317777372353535851937790883648493
+D = (-121665 * pow(121666, P - 2, P)) % P
+SQRT_M1 = pow(2, (P - 1) // 4, P)  # sqrt(-1) mod p
+
+# Base point: y = 4/5, x recovered with even sign.
+_BY = (4 * pow(5, P - 2, P)) % P
+
+
+def _recover_x(y: int, sign: int) -> int | None:
+    """x from y via x^2 = (y^2-1)/(d y^2+1); None if not on curve."""
+    if y >= P:
+        return None
+    x2 = (y * y - 1) * pow(D * y * y + 1, P - 2, P) % P
+    if x2 == 0:
+        return None if sign else 0
+    x = pow(x2, (P + 3) // 8, P)
+    if (x * x - x2) % P != 0:
+        x = x * SQRT_M1 % P
+    if (x * x - x2) % P != 0:
+        return None
+    if x & 1 != sign:
+        x = P - x
+    return x
+
+
+_BX = _recover_x(_BY, 0)
+assert _BX is not None
+
+# Points are extended homogeneous (X, Y, Z, T) with x=X/Z, y=Y/Z, T=XY/Z.
+IDENT = (0, 1, 1, 0)
+BASE = (_BX, _BY, 1, _BX * _BY % P)
+
+
+def pt_add(Q, R):
+    """Complete twisted-Edwards addition (a=-1), add-2008-hwcd-3 shape."""
+    x1, y1, z1, t1 = Q
+    x2, y2, z2, t2 = R
+    a = (y1 - x1) * (y2 - x2) % P
+    b = (y1 + x1) * (y2 + x2) % P
+    c = 2 * t1 * t2 * D % P
+    dd = 2 * z1 * z2 % P
+    e, f, g, h = b - a, dd - c, dd + c, b + a
+    return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
+def pt_dbl(Q):
+    return pt_add(Q, Q)
+
+
+def pt_mul(s: int, Q):
+    acc = IDENT
+    while s > 0:
+        if s & 1:
+            acc = pt_add(acc, Q)
+        Q = pt_dbl(Q)
+        s >>= 1
+    return acc
+
+
+def pt_neg(Q):
+    x, y, z, t = Q
+    return ((P - x) % P, y, z, (P - t) % P)
+
+
+def pt_eq(Q, R) -> bool:
+    """Projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+    x1, y1, z1, _ = Q
+    x2, y2, z2, _ = R
+    return (x1 * z2 - x2 * z1) % P == 0 and (y1 * z2 - y2 * z1) % P == 0
+
+
+def pt_encode(Q) -> bytes:
+    x, y, z, _ = Q
+    zi = pow(z, P - 2, P)
+    x, y = x * zi % P, y * zi % P
+    return int.to_bytes(y | ((x & 1) << 255), 32, "little")
+
+
+def pt_decode(s: bytes):
+    """Decode 32 bytes to a point, or None if invalid."""
+    if len(s) != 32:
+        return None
+    n = int.from_bytes(s, "little")
+    sign = n >> 255
+    y = n & ((1 << 255) - 1)
+    x = _recover_x(y, sign)
+    if x is None:
+        return None
+    return (x, y, 1, x * y % P)
+
+
+def is_on_curve(Q) -> bool:
+    x, y, z, t = Q
+    zi = pow(z, P - 2, P)
+    x, y = x * zi % P, y * zi % P
+    return (-x * x + y * y - 1 - D * x * x % P * y % P * y) % P == 0
+
+
+# --- signing / verification ----------------------------------------------
+
+def _h512_int(*parts: bytes) -> int:
+    h = hashlib.sha512()
+    for pp in parts:
+        h.update(pp)
+    return int.from_bytes(h.digest(), "little")
+
+
+def _clamp(a: bytes) -> int:
+    n = int.from_bytes(a, "little")
+    n &= (1 << 254) - 8
+    n |= 1 << 254
+    return n
+
+
+def pubkey_from_seed(seed: bytes) -> bytes:
+    assert len(seed) == 32
+    a = _clamp(hashlib.sha512(seed).digest()[:32])
+    return pt_encode(pt_mul(a, BASE))
+
+
+def expand_seed(seed: bytes) -> tuple[bytes, bytes, bytes]:
+    """RFC 8032 key expansion: seed -> (clamped scalar a as little-endian
+    bytes, prefix, pubkey A).  The ONE home of the clamp layout for
+    byte-level consumers (the device batch signer stages these arrays);
+    `sign`/`pubkey_from_seed` share the same `_clamp`."""
+    assert len(seed) == 32
+    h = hashlib.sha512(seed).digest()
+    a = _clamp(h[:32])
+    return (int.to_bytes(a, 32, "little"), h[32:],
+            pt_encode(pt_mul(a, BASE)))
+
+
+def sign(seed: bytes, msg: bytes) -> bytes:
+    """RFC 8032 deterministic signature: 64 bytes R || S."""
+    h = hashlib.sha512(seed).digest()
+    a = _clamp(h[:32])
+    prefix = h[32:]
+    A = pt_encode(pt_mul(a, BASE))
+    r = _h512_int(prefix, msg) % L
+    R = pt_encode(pt_mul(r, BASE))
+    k = _h512_int(R, A, msg) % L
+    s = (r + k * a) % L
+    return R + int.to_bytes(s, 32, "little")
+
+
+def verify(pubkey: bytes, msg: bytes, sig: bytes) -> bool:
+    """Cofactorless verify: enc([s]B - [k]A) == R, with s < L enforced."""
+    if len(sig) != 64 or len(pubkey) != 32:
+        return False
+    A = pt_decode(pubkey)
+    if A is None:
+        return False
+    Rb, sb = sig[:32], sig[32:]
+    s = int.from_bytes(sb, "little")
+    if s >= L:
+        return False
+    Rpt = pt_decode(Rb)
+    if Rpt is None:
+        return False
+    k = _h512_int(Rb, pubkey, msg) % L
+    Rprime = pt_add(pt_mul(s, BASE), pt_mul(k, pt_neg(A)))
+    # Byte-encoding comparison == (y, sign x) comparison == full affine
+    # comparison for on-curve points; projective compare avoids the invert.
+    return pt_eq(Rprime, Rpt)

@@ -1,0 +1,239 @@
+// GF(2^255 - 19) arithmetic for the port's CUDA kernels.
+//
+// Replaces the limb layer of tendermint_tpu/ops/field.py.  The TPU version
+// holds 32 limbs of 8 bits and multiplies with an f32 convolution because
+// the TPU has no 64-bit integer multiply; Hopper has 32x32->64 multiplies
+// (IMAD.WIDE), so an element here is 10 limbs in radix 2^25.5 (the ref10
+// layout: limb i has weight 2^ceil(25.5 i), 26 bits for even i, 25 for
+// odd), and a product is 100 wide multiplies folded by 19 (2^255 = 19).
+//
+// Invariant: every limb of every element is NONNEGATIVE and below 2^26
+// (odd limbs below 2^25 + 2^17).  Products then stay below 2^57.3 and a
+// column of ten below 2^61, exact in int64; carries are floor shifts of
+// nonnegative values, so no signed-shift corner cases arise.  Subtraction
+// adds 2p first to keep values nonnegative.  Only fe_tobytes reduces to the
+// canonical representative in [0, p).
+#pragma once
+#include <stdint.h>
+
+#define TM_DEV static __device__ __forceinline__
+
+struct fe {
+  int32_t v[10];
+};
+
+// limb widths: 26 bits for even limbs, 25 for odd ones
+#define FE_BITS(i) (((i) & 1) ? 25 : 26)
+#define FE_MASK(i) (((i) & 1) ? 0x1ffffff : 0x3ffffff)
+
+// Carry a column vector into the invariant: one floor-carry pass over the
+// limbs, limb 9's carry folded into limb 0 by 19, then limb 0 -> limb 1.
+TM_DEV fe fe_carry(int64_t h[10]) {
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    int64_t c = h[i] >> FE_BITS(i);
+    h[i] &= FE_MASK(i);
+    if (i < 9) h[i + 1] += c;
+    else h[0] += 19 * c;
+  }
+  int64_t c = h[0] >> 26;
+  h[0] &= 0x3ffffff;
+  h[1] += c;
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = (int32_t)h[i];
+  return r;
+}
+
+TM_DEV fe fe_zero() {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = 0;
+  return r;
+}
+
+TM_DEV fe fe_one() {
+  fe r = fe_zero();
+  r.v[0] = 1;
+  return r;
+}
+
+TM_DEV fe fe_add(const fe& f, const fe& g) {
+  int64_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) h[i] = (int64_t)f.v[i] + g.v[i];
+  return fe_carry(h);
+}
+
+// f - g + 2p: 2p's limbs exceed every limb the invariant allows in g
+TM_DEV fe fe_sub(const fe& f, const fe& g) {
+  int64_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    int64_t two_p = (i == 0) ? 2 * (0x3ffffff - 18) : 2 * (int64_t)FE_MASK(i);
+    h[i] = (int64_t)f.v[i] + two_p - g.v[i];
+  }
+  return fe_carry(h);
+}
+
+TM_DEV fe fe_neg(const fe& f) { return fe_sub(fe_zero(), f); }
+
+// Kept out of line: a verify lane runs ~600 products, and one shared body
+// keeps the kernels' code (and nvcc's time) small.  Arguments by value pass
+// in registers.
+static __device__ __noinline__ fe fe_mul(fe f, fe g) {
+  int32_t g19[10], f2[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    g19[i] = 19 * g.v[i];
+    f2[i] = 2 * f.v[i];
+  }
+  int64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = 0; j < 10; j++) {
+      // odd x odd limbs overshoot the product's weight by one bit; limbs
+      // past 2^255 wrap with a factor 19
+      int32_t a = (i & j & 1) ? f2[i] : f.v[i];
+      int32_t b = (i + j >= 10) ? g19[j] : g.v[j];
+      h[(i + j) % 10] += (int64_t)a * b;
+    }
+  }
+  return fe_carry(h);
+}
+
+TM_DEV fe fe_sq(fe f) { return fe_mul(f, f); }
+
+static __device__ __noinline__ fe fe_sqn(fe f, int n) {
+  for (int i = 0; i < n; i++) f = fe_mul(f, f);
+  return f;
+}
+
+// Little-endian 32 bytes -> element (all 256 bits: bit 255 folds as 19).
+TM_DEV fe fe_frombytes(const uint8_t* s) {
+  fe r;
+  uint64_t acc = 0;
+  int nbits = 0, byte = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    while (nbits < FE_BITS(i)) {
+      acc |= (uint64_t)s[byte++] << nbits;
+      nbits += 8;
+    }
+    r.v[i] = (int32_t)(acc & FE_MASK(i));
+    acc >>= FE_BITS(i);
+    nbits -= FE_BITS(i);
+  }
+  // 255 bits consumed from 256 loaded: acc holds bit 255
+  r.v[0] += 19 * (int32_t)(acc & 1);
+  return r;
+}
+
+// Canonical little-endian encoding of f mod p.
+static __device__ __noinline__ void fe_tobytes(uint8_t* s, fe f) {
+  int64_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) h[i] = f.v[i];
+  // two carry passes: limbs 1..9 exact, value x < 2^255 + 19*2
+#pragma unroll
+  for (int pass = 0; pass < 2; pass++) {
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      int64_t c = h[i] >> FE_BITS(i);
+      h[i] &= FE_MASK(i);
+      if (i < 9) h[i + 1] += c;
+      else h[0] += 19 * c;
+    }
+  }
+  // q = floor((x + 19) / 2^255) is 1 exactly when x >= p
+  int64_t q = (h[0] + 19) >> 26;
+#pragma unroll
+  for (int i = 1; i < 10; i++) q = (h[i] + q) >> FE_BITS(i);
+  h[0] += 19 * q;
+  // final pass drops the carry out of limb 9: subtracts q * 2^255
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    int64_t c = h[i] >> FE_BITS(i);
+    h[i] &= FE_MASK(i);
+    h[i + 1] += c;
+  }
+  h[9] &= FE_MASK(9);
+  uint64_t acc = 0;
+  int nbits = 0, byte = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    acc |= (uint64_t)h[i] << nbits;
+    nbits += FE_BITS(i);
+    while (nbits >= 8) {
+      s[byte++] = (uint8_t)acc;
+      acc >>= 8;
+      nbits -= 8;
+    }
+  }
+  s[31] = (uint8_t)acc;  // the last 7 bits
+}
+
+TM_DEV bool fe_iszero(const fe& f) {
+  uint8_t s[32];
+  fe_tobytes(s, f);
+  uint8_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 32; i++) acc |= s[i];
+  return acc == 0;
+}
+
+TM_DEV bool fe_eq(const fe& f, const fe& g) { return fe_iszero(fe_sub(f, g)); }
+
+TM_DEV int fe_parity(const fe& f) {
+  uint8_t s[32];
+  fe_tobytes(s, f);
+  return s[0] & 1;
+}
+
+// z^(2^250 - 1) and z^11 by the ref10 addition chain
+static __device__ __noinline__ void fe_pow_2_250_1(fe z, fe* t250, fe* z11) {
+  fe t0 = fe_sq(z);                      // 2
+  fe t1 = fe_mul(z, fe_sqn(t0, 2));      // 9
+  fe z_11 = fe_mul(t0, t1);              // 11
+  *z11 = z_11;
+  t1 = fe_mul(t1, fe_sq(z_11));          // 2^5 - 1
+  t1 = fe_mul(fe_sqn(t1, 5), t1);        // 2^10 - 1
+  fe t2 = fe_mul(fe_sqn(t1, 10), t1);    // 2^20 - 1
+  t2 = fe_mul(fe_sqn(t2, 20), t2);       // 2^40 - 1
+  t1 = fe_mul(fe_sqn(t2, 10), t1);       // 2^50 - 1
+  t2 = fe_mul(fe_sqn(t1, 50), t1);       // 2^100 - 1
+  t2 = fe_mul(fe_sqn(t2, 100), t2);      // 2^200 - 1
+  *t250 = fe_mul(fe_sqn(t2, 50), t1);    // 2^250 - 1
+}
+
+// z^(p - 2) = z^(2^255 - 21); 0 maps to 0
+TM_DEV fe fe_invert(fe z) {
+  fe t, z11;
+  fe_pow_2_250_1(z, &t, &z11);
+  return fe_mul(fe_sqn(t, 5), z11);
+}
+
+// z^((p - 5) / 8) = z^(2^252 - 3)
+TM_DEV fe fe_pow22523(fe z) {
+  fe t, z11;
+  fe_pow_2_250_1(z, &t, &z11);
+  return fe_mul(fe_sqn(t, 2), z);
+}
+
+TM_DEV fe fe_d() {  // d = -121665/121666
+  return fe{{56195235, 13857412, 51736253, 6949390, 114729, 24766616,
+             60832955, 30306712, 48412415, 21499315}};
+}
+
+TM_DEV fe fe_d2() {  // 2d
+  return fe{{45281625, 27714825, 36363642, 13898781, 229458, 15978800,
+             54557047, 27058993, 29715967, 9444199}};
+}
+
+TM_DEV fe fe_sqrt_m1() {  // sqrt(-1) = 2^((p-1)/4)
+  return fe{{34513072, 25610706, 9377949, 3500415, 12389472, 33281959,
+             41962654, 31548777, 326685, 11406482}};
+}

@@ -1,0 +1,173 @@
+"""The replicated-state header: what consensus agrees on between blocks.
+
+Reference: `state/state.go` — ChainID, LastBlockHeight/ID/Time,
+Validators + LastValidators, AppHash (`:28-50`), persisted per height
+(`Save/LoadState` `:52-97`), ABCIResponses persisted before app commit for
+crash replay (`:101-120`), `SetBlockAndValidators` (`:137-168`), genesis
+bootstrap (`MakeGenesisState` `:237-272`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from tendermint_tpu_torch.types import BlockID, GenesisDoc, ValidatorSet, ZERO_BLOCK_ID
+from tendermint_tpu_torch.types.codec import Reader, i64, lp_bytes, u32, u64
+from tendermint_tpu_torch.abci.types import Result
+
+_STATE_KEY = b"stateKey"
+
+
+def _abci_responses_key(height: int) -> bytes:
+    return b"abciResponsesKey:%d" % height
+
+
+def _validators_key(height: int) -> bytes:
+    return b"validatorsKey:%d" % height
+
+
+@dataclass
+class ABCIResponses:
+    """Results of executing one block, persisted *before* the app commits
+    so a crash between app-commit and state-save replays against a mock
+    app (reference `state/state.go:101-120`, `consensus/replay.go:310-316`)."""
+    height: int
+    deliver_txs: list[Result] = field(default_factory=list)
+    end_block_diffs: list[tuple[bytes, int]] = field(default_factory=list)
+
+    def encode(self) -> bytes:
+        out = u64(self.height) + u32(len(self.deliver_txs))
+        for r in self.deliver_txs:
+            out += r.encode()
+        out += u32(len(self.end_block_diffs))
+        for pub, power in self.end_block_diffs:
+            out += lp_bytes(pub) + i64(power)
+        return out
+
+    @classmethod
+    def decode_bytes(cls, data: bytes) -> "ABCIResponses":
+        r = Reader(data)
+        height = r.u64()
+        txs = [Result.decode(r) for _ in range(r.u32())]
+        diffs = [(r.lp_bytes(), r.i64()) for _ in range(r.u32())]
+        r.expect_done()
+        return cls(height=height, deliver_txs=txs, end_block_diffs=diffs)
+
+
+@dataclass
+class State:
+    chain_id: str
+    last_block_height: int
+    last_block_id: BlockID
+    last_block_time_ns: int
+    validators: ValidatorSet          # signs block at height+1
+    last_validators: ValidatorSet     # signed LastCommit (height)
+    app_hash: bytes
+    genesis_doc: GenesisDoc | None = None
+    db: object = None                 # utils.db store, not serialized
+
+    # -- persistence ----------------------------------------------------
+    def encode(self) -> bytes:
+        return (lp_bytes(self.chain_id.encode()) +
+                u64(self.last_block_height) + self.last_block_id.encode() +
+                i64(self.last_block_time_ns) + self.validators.encode() +
+                self.last_validators.encode() + lp_bytes(self.app_hash))
+
+    @classmethod
+    def decode_bytes(cls, data: bytes, db=None,
+                     genesis_doc: GenesisDoc | None = None) -> "State":
+        r = Reader(data)
+        st = cls(chain_id=r.lp_bytes().decode(), last_block_height=r.u64(),
+                 last_block_id=BlockID.decode(r), last_block_time_ns=r.i64(),
+                 validators=ValidatorSet.decode(r),
+                 last_validators=ValidatorSet.decode(r),
+                 app_hash=r.lp_bytes(), genesis_doc=genesis_doc, db=db)
+        r.expect_done()
+        return st
+
+    def save(self) -> None:
+        assert self.db is not None
+        self.db.set(_STATE_KEY, self.encode())
+        # validator-set history: the set that signs votes AT height
+        # last_block_height+1 (for evidence/light verification against
+        # the right era's keys; modern tendermint's LoadValidators)
+        self.db.set(_validators_key(self.last_block_height + 1),
+                    self.validators.encode())
+
+    def load_validators(self, height: int) -> ValidatorSet | None:
+        """The set that signed votes at `height`, from saved history."""
+        if self.db is None:
+            return None
+        raw = self.db.get(_validators_key(height))
+        return ValidatorSet.decode(Reader(raw)) if raw else None
+
+    def save_abci_responses(self, resp: ABCIResponses) -> None:
+        assert self.db is not None
+        self.db.set(_abci_responses_key(resp.height), resp.encode())
+
+    def load_abci_responses(self, height: int) -> ABCIResponses | None:
+        raw = self.db.get(_abci_responses_key(height))
+        return ABCIResponses.decode_bytes(raw) if raw else None
+
+    # -- transitions ----------------------------------------------------
+    def copy(self) -> "State":
+        return State(chain_id=self.chain_id,
+                     last_block_height=self.last_block_height,
+                     last_block_id=self.last_block_id,
+                     last_block_time_ns=self.last_block_time_ns,
+                     validators=self.validators.copy(),
+                     last_validators=self.last_validators.copy(),
+                     app_hash=self.app_hash, genesis_doc=self.genesis_doc,
+                     db=self.db)
+
+    def set_block_and_validators(self, header, block_id: BlockID,
+                                 diffs: list[tuple[bytes, int]]) -> None:
+        """Advance past one block (reference `state/state.go:137-168`):
+        Validators shift to LastValidators; EndBlock diffs apply to the
+        next set, which also rotates proposer priority."""
+        # the outgoing set is aliased, not copied: every mutation site in
+        # the tree (increment_accum / apply_updates callers) copies first,
+        # so the object is frozen once it becomes last_validators
+        prev_vals = self.validators
+        next_vals = self.validators.copy()
+        if diffs:
+            next_vals.apply_updates(diffs)
+        next_vals.increment_accum(1)
+        self.last_block_height = header.height
+        self.last_block_id = block_id
+        self.last_block_time_ns = header.time_ns
+        self.validators = next_vals
+        self.last_validators = prev_vals
+
+    def __str__(self):
+        return (f"State[{self.chain_id} h={self.last_block_height} "
+                f"vals={self.validators.size()} "
+                f"app={self.app_hash.hex()[:12]}]")
+
+
+def make_genesis_state(db, genesis_doc: GenesisDoc) -> State:
+    """Bootstrap height-0 state (reference `state/state.go:237-272`)."""
+    genesis_doc.validate()
+    vals = genesis_doc.validator_set()
+    return State(chain_id=genesis_doc.chain_id, last_block_height=0,
+                 last_block_id=ZERO_BLOCK_ID,
+                 last_block_time_ns=genesis_doc.genesis_time_ns,
+                 validators=vals, last_validators=ValidatorSet([]),
+                 app_hash=genesis_doc.app_hash, genesis_doc=genesis_doc,
+                 db=db)
+
+
+def get_state(db, genesis_doc: GenesisDoc) -> State:
+    """Load from the DB or bootstrap from genesis
+    (reference `state/state.go:176-184`)."""
+    raw = db.get(_STATE_KEY)
+    if raw is not None:
+        st = State.decode_bytes(raw, db=db, genesis_doc=genesis_doc)
+        if st.chain_id != genesis_doc.chain_id:
+            raise ValueError(
+                f"state chain_id {st.chain_id!r} != genesis "
+                f"{genesis_doc.chain_id!r}")
+        return st
+    st = make_genesis_state(db, genesis_doc)
+    st.save()
+    return st

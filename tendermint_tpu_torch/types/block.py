@@ -1,0 +1,353 @@
+"""Block, Header, Commit, BlockID — the replicated data structures.
+
+Reference: `types/block.go` — Block = Header + Data(Txs) + LastCommit
+(`:23-27`), `Header.Hash` = Merkle-of-map over fields (`:178-193`),
+`Commit.Hash` = Merkle over precommit signatures (`:345-354`),
+`ValidateBasic` structural checks (`:53-90`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+from tendermint_tpu_torch.types import merkle
+from tendermint_tpu_torch.types.codec import (Reader, i64, lp_bytes, u32, u64, u8)
+from tendermint_tpu_torch.types.part_set import PartSet, PartSetHeader, ZERO_PSH
+from tendermint_tpu_torch.types.tx import txs_hash
+from tendermint_tpu_torch.types.vote import Vote
+
+MAX_BLOCK_SIZE_TXS = 10_000   # reference config/config.go:373
+
+
+@dataclass(frozen=True)
+class BlockID:
+    hash: bytes = b""
+    parts: PartSetHeader = ZERO_PSH
+
+    def is_zero(self) -> bool:
+        return not self.hash and self.parts.is_zero()
+
+    def key(self) -> tuple:
+        return (self.hash, self.parts.total, self.parts.hash)
+
+    def encode(self) -> bytes:
+        return lp_bytes(self.hash) + self.parts.encode()
+
+    @classmethod
+    def decode(cls, r: Reader) -> "BlockID":
+        return cls(hash=r.lp_bytes(), parts=PartSetHeader.decode(r))
+
+    def __str__(self):
+        return f"{self.hash.hex()[:12]}@{self.parts}"
+
+
+ZERO_BLOCK_ID = BlockID()
+
+
+@dataclass(frozen=True)
+class Header:
+    chain_id: str
+    height: int
+    time_ns: int                    # unix nanos; proposer's clock
+    num_txs: int
+    last_block_id: BlockID
+    last_commit_hash: bytes
+    data_hash: bytes
+    validators_hash: bytes
+    app_hash: bytes
+
+    def hash(self) -> bytes:
+        """Merkle-of-map over the fields (reference `types/block.go:178-193`).
+        Empty for the pre-genesis header (no validators hash yet)."""
+        if not self.validators_hash:
+            return b""
+        return merkle.root_of_map({
+            "app": self.app_hash,
+            "chain_id": self.chain_id.encode(),
+            "data": self.data_hash,
+            "height": u64(self.height),
+            "last_block_id": self.last_block_id.encode(),
+            "last_commit": self.last_commit_hash,
+            "num_txs": u64(self.num_txs),
+            "time": i64(self.time_ns),
+            "validators": self.validators_hash,
+        })
+
+    def encode(self) -> bytes:
+        cid = self.chain_id.encode()
+        return (lp_bytes(cid) + u64(self.height) + i64(self.time_ns) +
+                u64(self.num_txs) + self.last_block_id.encode() +
+                lp_bytes(self.last_commit_hash) + lp_bytes(self.data_hash) +
+                lp_bytes(self.validators_hash) + lp_bytes(self.app_hash))
+
+    @classmethod
+    def decode(cls, r: Reader) -> "Header":
+        return cls(chain_id=r.lp_bytes().decode(), height=r.u64(),
+                   time_ns=r.i64(), num_txs=r.u64(),
+                   last_block_id=BlockID.decode(r),
+                   last_commit_hash=r.lp_bytes(), data_hash=r.lp_bytes(),
+                   validators_hash=r.lp_bytes(), app_hash=r.lp_bytes())
+
+
+@dataclass
+class Commit:
+    """+2/3 precommits for one block (reference `types/block.go:288-354`).
+
+    `precommits` is validator-index-aligned with the validator set that
+    signed it; absent votes are None.
+    """
+    block_id: BlockID
+    precommits: list[Vote | None]
+
+    _hash: bytes | None = field(default=None, repr=False, compare=False)
+    _bit_array: list[bool] | None = field(default=None, repr=False,
+                                          compare=False)
+
+    def height(self) -> int:
+        for v in self.precommits:
+            if v is not None:
+                return v.height
+        return 0
+
+    def round(self) -> int:
+        for v in self.precommits:
+            if v is not None:
+                return v.round
+        return 0
+
+    def size(self) -> int:
+        return len(self.precommits)
+
+    def num_sigs(self) -> int:
+        return sum(1 for v in self.precommits if v is not None)
+
+    def is_commit(self) -> bool:
+        return bool(self.precommits)
+
+    def bit_array(self) -> list[bool]:
+        if self._bit_array is None:
+            self._bit_array = [v is not None for v in self.precommits]
+        return self._bit_array
+
+    def hash(self) -> bytes:
+        """Merkle over the precommit signatures
+        (reference `types/block.go:345-354`)."""
+        if self._hash is None:
+            items = [(v.signature if v is not None else b"")
+                     for v in self.precommits]
+            self._hash = merkle.root(items)
+        return self._hash
+
+    def validate_basic(self) -> None:
+        """Structural checks (reference `types/block.go:307-331`)."""
+        if self.block_id.is_zero():
+            raise ValueError("commit with zero block id")
+        if not self.precommits:
+            raise ValueError("commit with no precommits")
+        height, round_ = self.height(), self.round()
+        from tendermint_tpu_torch.types.canonical import TYPE_PRECOMMIT
+        for i, v in enumerate(self.precommits):
+            if v is None:
+                continue
+            if v.type != TYPE_PRECOMMIT:
+                raise ValueError(f"commit vote {i} is not a precommit")
+            if v.height != height or v.round != round_:
+                raise ValueError(f"commit vote {i} has wrong height/round")
+
+    def encode(self) -> bytes:
+        out = self.block_id.encode() + u32(len(self.precommits))
+        for v in self.precommits:
+            if v is None:
+                out += u8(0)
+            else:
+                out += u8(1) + v.encode()
+        return out
+
+    @classmethod
+    def decode(cls, r: Reader) -> "Commit":
+        block_id = BlockID.decode(r)
+        n = r.u32()
+        votes: list[Vote | None] = []
+        for _ in range(n):
+            votes.append(Vote.decode(r) if r.u8() else None)
+        return cls(block_id=block_id, precommits=votes)
+
+
+EMPTY_COMMIT = Commit(block_id=ZERO_BLOCK_ID, precommits=[])
+
+
+@dataclass
+class CompactCommit:
+    """Array-native commit: the device plane's representation.
+
+    A +2/3 commit whose signatures live as ONE uint8[V, 64] matrix with
+    a presence bitmap instead of V `Vote` objects — the form the batched
+    verifier consumes directly (`ValidatorSet.commit_verify_lanes`
+    accepts either).  At fast-sync scale the object form is real cost:
+    100k blocks x 100 validators is 10M Vote objects (~5 GB of heap and
+    tens of seconds of construction) whose fields the verify plane
+    immediately re-flattens into exactly these arrays.  All lanes share
+    the commit's (height, round, block_id) — the common case fast-sync
+    stores; commits with stray foreign/nil votes keep the object form.
+
+    Conversions are lossless both ways for same-block commits; the wire
+    codec stays `Commit` (this is an in-memory/device layout, not a new
+    wire type).
+    """
+    block_id: "BlockID"
+    height_: int
+    round_: int
+    sigs: "object"           # np.uint8[V, 64]
+    present: "object"        # np.bool_[V]
+
+    def height(self) -> int:
+        return self.height_
+
+    def round(self) -> int:
+        return self.round_
+
+    def size(self) -> int:
+        return len(self.present)
+
+    def num_sigs(self) -> int:
+        return int(self.present.sum())
+
+    def is_commit(self) -> bool:
+        return self.num_sigs() > 0
+
+    def bit_array(self) -> list[bool]:
+        return [bool(b) for b in self.present]
+
+    def validate_basic(self) -> None:
+        if self.block_id.is_zero():
+            raise ValueError("commit with zero block id")
+        if self.size() == 0:
+            raise ValueError("commit with no precommits")
+        if self.sigs.shape != (self.size(), 64):
+            raise ValueError("sigs matrix shape mismatch")
+
+    def to_commit(self, val_set) -> Commit:
+        """Expand to the Vote-object form (for wire encoding / stores)."""
+        from tendermint_tpu_torch.types.canonical import TYPE_PRECOMMIT
+        votes: list[Vote | None] = []
+        for i in range(self.size()):
+            if not self.present[i]:
+                votes.append(None)
+                continue
+            votes.append(Vote(
+                validator_address=val_set.validators[i].address,
+                validator_index=i, height=self.height_, round=self.round_,
+                type=TYPE_PRECOMMIT, block_id=self.block_id,
+                signature=self.sigs[i].tobytes()))
+        return Commit(block_id=self.block_id, precommits=votes)
+
+    @classmethod
+    def from_commit(cls, commit: Commit) -> "CompactCommit | None":
+        """Compact a same-block commit; None if any vote targets a
+        different block (foreign/nil strays need the object form)."""
+        import numpy as np
+        n = commit.size()
+        if n == 0:
+            return None
+        key = commit.block_id.key()
+        sigs = np.zeros((n, 64), dtype=np.uint8)
+        present = np.zeros(n, dtype=bool)
+        for i, v in enumerate(commit.precommits):
+            if v is None:
+                continue
+            if v.block_id.key() != key or len(v.signature) != 64:
+                return None
+            sigs[i] = np.frombuffer(v.signature, np.uint8)
+            present[i] = True
+        return cls(block_id=commit.block_id, height_=commit.height(),
+                   round_=commit.round(), sigs=sigs, present=present)
+
+
+@dataclass
+class Block:
+    header: Header
+    txs: list[bytes]
+    last_commit: Commit
+
+    _hash: bytes | None = field(default=None, repr=False, compare=False)
+    # blocks are value objects: the serialization is cached (and seeded
+    # with the wire bytes on decode) so fast-sync's part-set re-hash does
+    # not re-encode a 100-vote commit per block
+    _encoded: bytes | None = field(default=None, repr=False, compare=False)
+
+    @classmethod
+    def make(cls, chain_id: str, height: int, time_ns: int, txs: list[bytes],
+             last_commit: Commit, last_block_id: BlockID,
+             validators_hash: bytes, app_hash: bytes) -> "Block":
+        """Assemble a block with derived hashes
+        (reference `types/block.go:31-50` MakeBlock)."""
+        header = Header(
+            chain_id=chain_id, height=height, time_ns=time_ns,
+            num_txs=len(txs), last_block_id=last_block_id,
+            last_commit_hash=(last_commit.hash() if last_commit.is_commit()
+                              else b""),
+            data_hash=txs_hash(txs), validators_hash=validators_hash,
+            app_hash=app_hash)
+        return cls(header=header, txs=list(txs), last_commit=last_commit)
+
+    def hash(self) -> bytes:
+        if self._hash is None:
+            self._hash = self.header.hash()
+        return self._hash
+
+    @property
+    def height(self) -> int:
+        return self.header.height
+
+    def validate_basic(self) -> None:
+        """Structural self-consistency (reference `types/block.go:53-90`)."""
+        h = self.header
+        if h.height < 1:
+            raise ValueError("block height < 1")
+        if h.num_txs != len(self.txs):
+            raise ValueError("num_txs mismatch")
+        if h.data_hash != txs_hash(self.txs):
+            raise ValueError("data hash mismatch")
+        if h.height == 1:
+            if self.last_commit.is_commit():
+                raise ValueError("first block must have empty last commit")
+            if h.last_commit_hash:
+                raise ValueError("first block last_commit_hash must be empty")
+        else:
+            if h.last_commit_hash != self.last_commit.hash():
+                raise ValueError("last_commit_hash mismatch")
+            self.last_commit.validate_basic()
+
+    def encode(self) -> bytes:
+        if self._encoded is None:
+            out = self.header.encode()
+            out += u32(len(self.txs))
+            for tx in self.txs:
+                out += lp_bytes(tx)
+            out += self.last_commit.encode()
+            self._encoded = out
+        return self._encoded
+
+    @classmethod
+    def decode_bytes(cls, data: bytes) -> "Block":
+        r = Reader(data)
+        header = Header.decode(r)
+        txs = [r.lp_bytes() for _ in range(r.u32())]
+        last_commit = Commit.decode(r)
+        r.expect_done()
+        blk = cls(header=header, txs=txs, last_commit=last_commit)
+        blk._encoded = data   # deterministic codec: decode/encode roundtrip
+        return blk
+
+    def make_part_set(self, part_size: int | None = None) -> PartSet:
+        """Serialize and chunk (reference `types/block.go:115-117`)."""
+        from tendermint_tpu_torch.types.part_set import PART_SIZE
+        return PartSet.from_data(self.encode(), part_size or PART_SIZE)
+
+    def block_id(self, part_set: PartSet | None = None) -> BlockID:
+        ps = part_set or self.make_part_set()
+        return BlockID(hash=self.hash(), parts=ps.header)
+
+    def __str__(self):
+        return (f"Block#{self.header.height}"
+                f"[{len(self.txs)} txs, hash {self.hash().hex()[:12]}]")

@@ -1,0 +1,86 @@
+"""Deterministic binary codec for consensus-critical serialization.
+
+The reference signs canonical JSON produced by reflection (reference
+`types/canonical_json.go:44-58`, go-wire).  This framework is not
+wire-compatible with Tendermint; it defines its own *fixed-layout* binary
+encoding so that (a) any two nodes produce bit-identical bytes for the same
+value and (b) the hot records (vote sign-bytes) have static width and can be
+reconstructed device-side without per-item host serialization.
+
+Conventions: big-endian fixed-width integers, u32 length prefixes for
+variable bytes, version byte first in every top-level record.  Encoders are
+pure functions bytes-in/bytes-out; decoding is only needed host-side.
+"""
+
+from __future__ import annotations
+
+import struct
+
+CODEC_VERSION = 1
+
+
+def u8(x: int) -> bytes:
+    return struct.pack(">B", x)
+
+
+def u32(x: int) -> bytes:
+    return struct.pack(">I", x)
+
+
+def u64(x: int) -> bytes:
+    return struct.pack(">Q", x)
+
+
+def i64(x: int) -> bytes:
+    return struct.pack(">q", x)
+
+
+def lp_bytes(b: bytes) -> bytes:
+    """Length-prefixed variable bytes."""
+    return u32(len(b)) + b
+
+
+def fixed(b: bytes, n: int) -> bytes:
+    """Exactly-n bytes (zero is a legal value, e.g. an absent hash)."""
+    assert len(b) == n, (len(b), n)
+    return b
+
+
+class Reader:
+    """Sequential decoder over one buffer; raises on truncation."""
+
+    def __init__(self, buf: bytes):
+        self.buf = buf
+        self.pos = 0
+
+    def _take(self, n: int) -> bytes:
+        if self.pos + n > len(self.buf):
+            raise ValueError("truncated record")
+        out = self.buf[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def u8(self) -> int:
+        return self._take(1)[0]
+
+    def u32(self) -> int:
+        return struct.unpack(">I", self._take(4))[0]
+
+    def u64(self) -> int:
+        return struct.unpack(">Q", self._take(8))[0]
+
+    def i64(self) -> int:
+        return struct.unpack(">q", self._take(8))[0]
+
+    def lp_bytes(self) -> bytes:
+        return self._take(self.u32())
+
+    def fixed(self, n: int) -> bytes:
+        return self._take(n)
+
+    def done(self) -> bool:
+        return self.pos == len(self.buf)
+
+    def expect_done(self):
+        if not self.done():
+            raise ValueError(f"{len(self.buf) - self.pos} trailing bytes")

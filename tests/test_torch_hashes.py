@@ -1,0 +1,107 @@
+"""The port's SHA-512, SHA-256 and Merkle twins against hashlib and the
+host trees.
+
+Digests and roots are compared byte for byte with `hashlib` and with the
+host Merkle tree of both packages (`tendermint_tpu.types.merkle`, the tree
+the JAX package's device roots are held against), at the padding edges
+and tree shapes where the level schedule changes.  The static level
+schedule `_plan(n)` must equal the JAX package's.
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu.ops import merkle as jax_merkle
+from tendermint_tpu.types import merkle as jax_host_merkle
+from tendermint_tpu_torch.ops import kernels, merkle, sha256, sha512
+from tendermint_tpu_torch.types import merkle as host_merkle
+
+RNG = np.random.default_rng(17)
+
+
+def _msgs(n, length):
+    return RNG.integers(0, 256, (n, length), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("length", [0, 111, 112, 127, 128, 192])
+def test_sha512_padding_edges(length):
+    m = _msgs(3, length)
+    got = sha512.sha512(torch.as_tensor(m)).numpy()
+    for i in range(3):
+        assert got[i].tobytes() == hashlib.sha512(m[i].tobytes()).digest()
+
+
+@pytest.mark.parametrize("length", [0, 55, 56, 63, 64, 111, 112, 127, 128,
+                                    192])
+def test_sha256_padding_edges(length):
+    m = _msgs(3, length)
+    got = sha256.sha256(torch.as_tensor(m)).numpy()
+    for i in range(3):
+        assert got[i].tobytes() == hashlib.sha256(m[i].tobytes()).digest()
+
+
+def test_sha256_prefixed_cpu_is_plain():
+    """On a CPU tensor the K4 wrapper runs the plain twin and launches
+    nothing."""
+    kernels.reset_launches()
+    m = torch.as_tensor(_msgs(5, 65))
+    got = sha256.sha256_prefixed(m, 0x01)
+    assert torch.equal(got, sha256.sha256_prefixed_plain(m, 0x01))
+    assert got[2].numpy().tobytes() == hashlib.sha256(
+        b"\x01" + m[2].numpy().tobytes()).digest()
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    with pytest.raises(TypeError):
+        sha256.sha256_prefixed(m.to(torch.int32), 0)
+    with pytest.raises(ValueError):
+        sha256.sha256_prefixed(m, 256)
+
+
+def test_leaf_hashes():
+    data = _msgs(12, 64).reshape(3, 4, 64)
+    got = merkle.leaf_hashes(torch.as_tensor(data)).numpy()
+    for b in range(3):
+        for i in range(4):
+            assert got[b, i].tobytes() == host_merkle.leaf_hash(
+                data[b, i].tobytes())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 64])
+def test_roots_match_host_trees(n):
+    data = RNG.integers(0, 256, (2, n, 24), dtype=np.uint8)
+    got = merkle.roots(torch.as_tensor(data)).numpy()
+    for b in range(2):
+        items = [data[b, i].tobytes() for i in range(n)]
+        assert got[b].tobytes() == host_merkle.root(items)
+        assert got[b].tobytes() == jax_host_merkle.root(items)
+    # the level schedule is the reference's, step by step
+    for (pairs, singles), (jpairs, jsingles) in zip(
+            merkle._plan(n), jax_merkle._plan(n), strict=True):
+        assert np.array_equal(pairs, jpairs)
+        assert np.array_equal(singles, jsingles)
+
+
+def test_root_from_leaf_hashes_empty_raises():
+    with pytest.raises(ValueError):
+        merkle.root_from_leaf_hashes(torch.zeros((1, 0, 32), dtype=torch.uint8))
+
+
+def test_part_sets_device_gate_matches_host():
+    """`from_data_batched` leaf-hashes full chunks through the "cuda"
+    backend once a window has DEVICE_MIN_CHUNKS of them; the part sets
+    (root, proofs) equal the host path's."""
+    from tendermint_tpu_torch.crypto.backend import CudaBackend, PythonBackend
+    from tendermint_tpu_torch.types import part_set
+    datas = [RNG.integers(0, 256, n, dtype=np.uint8).tobytes()
+             for n in (64 * 9, 64 * 7 + 5, 64 * 3)]
+    host = part_set.from_data_batched(datas, part_size=64,
+                                      backend=PythonBackend())
+    dev = part_set.from_data_batched(datas, part_size=64,
+                                     backend=CudaBackend(device="cpu"))
+    assert [p.header for p in dev] == [p.header for p in host]
+    assert [p.get_part(1).proof for p in dev] == \
+        [p.get_part(1).proof for p in host]
+    assert all(p.get_part(i).verify(p.header)
+               for p in dev for i in range(p.total))
