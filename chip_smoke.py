@@ -7,23 +7,32 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any mismatch or exception exits non-zero:
 
-1. build the four CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
+1. build the five CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
    (sm_90a) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
    hashlib, K3 also against the golden RFC 8032 signer, K1 on adversarial
-   lanes);
-3. the main path, with every launch count set to 0 just before it and
-   read just after it: replay a fast-sync chain at BASELINE config 3's
-   shape (100 validators, 625-block windows, ~12 KB blocks) through
-   `CudaBackend` (fixture signing, comb tables, one verify per window),
-   checking the final app hash against a host kvstore run; then one
-   Merkle `roots` call at BASELINE config 2's shape (2,048 trees x 1,024
-   leaves x 64 B);
+   lanes and on a vote burst with per-lane keys, K5 on edge lanes at
+   32- and 96-byte messages against the golden verifier);
+3. the main paths, each with every launch count set to 0 just before it
+   and read just after it:
+   a. replay a fast-sync chain at BASELINE config 3's shape (100
+      validators, 625-block windows, ~12 KB blocks) through `CudaBackend`
+      (fixture signing, comb tables, one verify per window), checking the
+      final app hash against a host kvstore run; then one Merkle `roots`
+      call at BASELINE config 2's shape (2,048 trees x 1,024 leaves x
+      64 B);
+   b. mempool admission: a seeded ~12.4k-submission corpus through
+      `Mempool.check_tx` from 1,024 threads, signature lanes coalesced by
+      the batch plane onto K5 (with the validators' prevotes riding the
+      consensus class on K1), and one block per 2,048-entry round applied
+      with the real mempool;
 4. check that a tampered signature is rejected at the right height and
-   lane, sample the roots against the host tree and time `roots`;
-5. one `kernels` JSON line: per kernel its launches on the main path, its
-   time and its plain version's at the main path's shapes, the two
+   lane, sample the roots against the host tree and time `roots`, and
+   check the mempool's accounting, commits, app hash and verdicts (every
+   signed entry re-verified by the plain version);
+5. one `kernels` JSON line: per kernel its launches on the main paths,
+   its time and its plain version's at the main path's shapes, the two
    results held exactly equal there, and its bound.
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
@@ -211,6 +220,115 @@ def phase_check() -> None:
         f"{len(lanes)} lanes ({nreal - 12} adversarial, key 2 invalid, "
         f"{32 - nreal} padding)")
 
+    # K1 with per-lane keys and messages: a consensus vote burst
+    args, golden = vote_burst(dev)
+    got = ed.verify_grouped(*args)
+    require(torch.equal(got, ed.verify_grouped_plain(*args)),
+            "K1 (per-lane keys) != plain")
+    require(got.tolist() == golden, "K1 (per-lane keys) != golden")
+    log(f"[check] K1 verify_grouped (per-lane keys) == plain == golden on a "
+        f"vote burst: {len(golden)} lanes, {sum(golden)} valid, Vb "
+        f"{args[0].shape[2]}")
+
+    # K5 on edge lanes, at both message lengths, N = 1 and a ragged N
+    for msg_len in (32, 96):
+        lanes = edge_lanes(msg_len, rng)
+        golden = [ref.verify(*x) for x in lanes]
+        for n in (len(lanes), 1, 200):
+            rows = [lanes[i % len(lanes)] for i in range(n)]
+            raw = tuple(t(np.frombuffer(b"".join(x[k] for x in rows),
+                                        np.uint8).reshape(n, -1).copy())
+                        for k in range(3))
+            got = ed.verify_batch(*raw, base)
+            require(torch.equal(got, ed.verify_batch_plain(*raw, base)),
+                    f"K5 != plain (M {msg_len}, N {n})")
+            require(got.tolist() == [golden[i % len(lanes)]
+                                     for i in range(n)],
+                    f"K5 != golden (M {msg_len}, N {n})")
+        log(f"[check] K5 verify_raw == plain == golden on {len(lanes)} edge "
+            f"lanes x M {msg_len} at N = {len(lanes)}, 1, 200 "
+            f"({sum(golden)} valid)")
+
+
+def edge_lanes(msg_len: int, rng) -> list:
+    """Raw-lane (pubkey, msg, sig) triples: valid lanes, each single
+    mutation, malleated s, non-canonical and undecodable encodings, and
+    the cofactorless identity case the golden verifier accepts."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    seeds = [rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+             for _ in range(4)]
+    pubs = [ref.pubkey_from_seed(x) for x in seeds]
+    msgs = [rng.integers(0, 256, msg_len, dtype=np.uint8).tobytes()
+            for _ in range(4)]
+    sigs = [ref.sign(x, m) for x, m in zip(seeds, msgs)]
+    flip = lambda b, i: b[:i] + bytes([b[i] ^ 1]) + b[i + 1:]  # noqa: E731
+    y = 2                                   # smallest y that is no point
+    while ref.pt_decode(y.to_bytes(32, "little")) is not None:
+        y += 1
+    s_big = int.from_bytes(sigs[0][32:], "little") + ref.L
+    ident = (1).to_bytes(32, "little")
+    return [
+        (pubs[0], msgs[0], sigs[0]),                          # valid
+        (pubs[1], flip(msgs[1], 0), sigs[1]),                 # message bit
+        (pubs[2], msgs[2], flip(sigs[2], 0)),                 # R bit
+        (pubs[3], msgs[3], flip(sigs[3], 40)),                # s bit
+        (pubs[1], msgs[0], sigs[0]),                          # wrong key
+        (pubs[0], msgs[0], sigs[0][:32] + s_big.to_bytes(32, "little")),
+        (pubs[1], msgs[1], ref.P.to_bytes(32, "little") + sigs[1][32:]),
+        ((ref.P + 3).to_bytes(32, "little"), msgs[2], sigs[2]),  # A y >= p
+        (y.to_bytes(32, "little"), msgs[3], sigs[3]),         # A no point
+        (ident[:31] + b"\x80", msgs[0], sigs[0]),             # x = 0, sign
+        (ident, msgs[1], ident + bytes(32)),                  # identity
+        (pubs[2], msgs[2], sigs[2]),                          # valid
+    ]
+
+
+VOTE_VALS = 100                             # the replay's validator count
+
+
+def vote_burst(dev):
+    """Arguments of `ed25519.verify_grouped` for one consensus vote burst
+    and each lane's golden verdict: 100 validators (Vb 128), 128 lanes of
+    128-byte canonical prevote sign-bytes — one valid vote per validator,
+    then adversarial lanes (s + L, R >= p, a flipped message bit, a wrong
+    key, R = identity) and valid repeats."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.types import canonical
+    seeds, _, _, pubs, _ = _keys(VOTE_VALS)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    tbl, ok, _, _ = CudaBackend(dev).tables(b"vote-burst", pubs)  # K2
+    tmpl = canonical.batch_sign_bytes(
+        "vote-chain", np.array([canonical.TYPE_PREVOTE]), np.array([7]),
+        np.array([0]), np.full((1, 32), 0x5A, np.uint8),
+        np.full((1, 32), 0xA5, np.uint8), np.array([1]))[0]
+    msg = tmpl.tobytes()
+    lanes = [(v, msg, ref.sign(seeds[v], msg)) for v in range(VOTE_VALS)]
+    flipped = bytearray(msg)
+    flipped[60] ^= 0x01
+    s_big = int.from_bytes(lanes[0][2][32:], "little") + ref.L
+    lanes += [
+        (0, msg, lanes[0][2][:32] + s_big.to_bytes(32, "little")),
+        (1, msg, (2**255 - 19).to_bytes(32, "little") + lanes[1][2][32:]),
+        (2, bytes(flipped), lanes[2][2]),
+        (3, msg, lanes[4][2]),
+        (5, msg, (1).to_bytes(32, "little") + bytes(32)),
+    ]
+    lanes += [lanes[i] for i in range(128 - len(lanes))]
+    vi = np.asarray([x[0] for x in lanes], np.int32)
+    msgs = np.frombuffer(b"".join(x[1] for x in lanes),
+                         np.uint8).reshape(128, -1)
+    sigs = np.frombuffer(b"".join(x[2] for x in lanes),
+                         np.uint8).reshape(128, 64)
+    golden = [ref.verify(pubs[v].tobytes(), m, sg) for v, m, sg in lanes]
+    args = (tbl, ok, t(vi), t(pubs[vi]), t(msgs.copy()), t(sigs.copy()),
+            ed.base_table(dev))
+    return args, golden
+
 
 # -- the main path: replay, then the tamper check ------------------------
 
@@ -327,8 +445,11 @@ def phase_merkle() -> dict:
 
 
 def check_merkle(mk_ctx: dict) -> None:
-    """Sample the roots against the host tree and time `roots`."""
+    """Sample the roots against the host tree, time `roots`, and time and
+    hold equal the same call with K4's plain version at every level."""
+    import torch
     from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.ops import sha256 as s256
     from tendermint_tpu_torch.types import merkle as host_merkle
     data, roots = mk_ctx["data"], mk_ctx["roots"]
     host = data[:8].cpu().numpy()
@@ -337,9 +458,185 @@ def check_merkle(mk_ctx: dict) -> None:
         require(roots[b].cpu().numpy().tobytes() == want,
                 f"tree {b}: device root != host tree")
     ms, _ = cuda_ms(lambda: merkle.roots(data), 3)
+    merkle.sha256_prefixed = s256.sha256_prefixed_plain
+    try:
+        plain_ms, plain = cuda_ms(lambda: merkle.roots(data), 0)
+    finally:
+        merkle.sha256_prefixed = s256.sha256_prefixed
+    require(torch.equal(plain, roots), "roots with K4 != roots with plain")
+    # the whole call: SHA-256 of 0x00 || leaf for every leaf and of
+    # 0x01 || left || right for every inner node (65 B each, as the leaves
+    # are 64 B); the leaves read once, the roots written once
+    hashes = TREES * LEAVES + TREES * (LEAVES - 1)
+    blocks = (LEAF_LEN + 1 + 9 + 63) // 64
+    bound_ms, bound_by = _bound(data.numel() + TREES * 32,
+                                hashes * blocks * SHA256_OPS_PER_BLOCK)
     log(f"[merkle] {TREES} trees x {LEAVES} leaves x {LEAF_LEN} B: "
-        f"{ms:.3f} ms per batch, {TREES / ms * 1e3:.0f} trees/s; "
-        f"{len(host)} roots == host tree")
+        f"{ms:.3f} ms per batch, {TREES / ms * 1e3:.0f} trees/s, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({hashes} hashes); plain "
+        f"{plain_ms:.1f} ms, == K4 roots; {len(host)} roots == host tree")
+
+
+# -- the main path: mempool admission of signed txs ---------------------
+
+# the JAX package's defaults (`scenarios/ingress.py`): kvstore app,
+# MempoolConfig(), the batch plane's 1,024-lane target and 4,096-lane
+# flush cap, and Tendermint's MaxBlockSizeTxs (tendermint_tpu/config.py:126)
+MEMPOOL_MIX = dict(unsigned=2048, signed=8192, bad_sig=512, dup_frac=0.15,
+                   payload_bytes=64, priorities=(0, 1, 2, 5, 9))
+MEMPOOL_ROUND, MEMPOOL_WORKERS = 2048, 1024
+
+
+def _pctl(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+class _TimedVerify:
+    """The backend, with the wall time of each raw-lane verify call
+    (padding, H2D, K5, D2H) summed."""
+
+    def __init__(self, be):
+        self.be = be
+        self.seconds = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.be, name)
+
+    def verify_batch(self, pubkeys, msgs, sigs):
+        t0 = time.perf_counter()
+        out = self.be.verify_batch(pubkeys, msgs, sigs)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def phase_mempool(be, mix: dict = MEMPOOL_MIX, round_size: int =
+                  MEMPOOL_ROUND, workers: int = MEMPOOL_WORKERS,
+                  n_vals: int = VOTE_VALS) -> dict:
+    """The main path's mempool admission: a seeded corpus (signed on the
+    card, K3) through `scenarios.ingress.run_ingress` — every entry offered
+    once via a `broadcast_tx_sync`-shaped handler into `Mempool.check_tx`
+    from `workers` threads, the batch plane coalescing signature lanes onto
+    K5 while the validators' prevotes ride its consensus class (K1 with
+    per-lane keys), and one block per round applied with the real
+    mempool."""
+    import random
+    from tendermint_tpu_torch.scenarios import ingress, loadgen
+    t0 = time.perf_counter()
+    corpus = loadgen.build_corpus(random.Random(SEED), loadgen.Mix(**mix),
+                                  backend=be)
+    corpus_s = time.perf_counter() - t0
+    timed = _TimedVerify(be)
+    run = ingress.run_ingress(timed, corpus, round_size=round_size,
+                              workers=workers, n_vals=n_vals)
+    lat = [x[1] for x in run.results]
+    admitted = sum(x[0] == "admitted" for x in run.results)
+    raw = [(r, n) for k, r, n in run.flushes if k == "raw"]
+    sizes = sorted(n for _, n in raw) or [0]
+    log(f"[mempool] corpus of {len(corpus)} submissions ({mix['signed']} "
+        f"signed, {mix['bad_sig']} bad-signature, {mix['unsigned']} "
+        f"unsigned, {mix['dup_frac']} duplicated) signed on the card (K3) "
+        f"in {corpus_s:.2f} s")
+    log(f"[mempool] {len(run.results)} submissions by {workers} threads in "
+        f"{len(run.blocks)} rounds: "
+        f"{len(run.results) / run.ingress_s:.0f} submissions/s, "
+        f"{admitted / run.ingress_s:.0f} admissions/s; check_tx p50 "
+        f"{_pctl(lat, 0.5) * 1e3:.3f} ms, p99 {_pctl(lat, 0.99) * 1e3:.3f} "
+        f"ms; stages: ingress {run.ingress_s:.3f} s, block apply "
+        f"{run.apply_s:.3f} s ({len(run.blocks)} blocks)")
+    log(f"[mempool] {len(raw)} K5 flushes ("
+        f"{sum(r == 'full' for r, _ in raw)} full, "
+        f"{sum(r == 'deadline' for r, _ in raw)} deadline), lanes per "
+        f"flush min {sizes[0]} / p50 {_pctl(sizes, 0.5)} / p99 "
+        f"{_pctl(sizes, 0.99)} / max {sizes[-1]}; the plane's raw verify "
+        f"calls (pad, H2D, K5, D2H) took {timed.seconds:.3f} s of the "
+        f"ingress, {timed.seconds / len(raw) * 1e3:.3f} ms each")
+    return {"corpus": corpus, "run": run, "backend": be}
+
+
+def check_mempool(mp_ctx: dict, launches: dict) -> None:
+    """The mempool phase's accounting, commit, app-hash and verify
+    checks (every signed entry re-verified by the plain version)."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.abci.app import create_app
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.mempool.mempool import (_priority_digest,
+                                                      parse_signed_tx)
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.scenarios.loadgen import OUTCOMES
+    corpus, run = mp_ctx["corpus"], mp_ctx["run"]
+    results = run.results
+    txs = [bytes.fromhex(e["tx"]) for e in corpus]
+    outcomes = [r[0] for r in results]
+    counts = {k: outcomes.count(k) for k in OUTCOMES}
+    require(sum(counts.values()) == len(corpus),
+            "outcomes do not sum to the offered count")
+    for k in ("full", "backpressure", "encoding", "app", "error"):
+        require(counts[k] == 0, f"{counts[k]} submissions ended {k!r}")
+    first = {}
+    for tx, out in zip(txs, outcomes):
+        first.setdefault(tx, []).append(out)
+    signed = {tx: parse_signed_tx(tx) for tx in first}
+    uniq = list(first)
+    # the plain version re-verifies every distinct signed tx on the card
+    lanes = [tx for tx in uniq if signed[tx] is not None]
+    dev = mp_ctx["backend"].device
+    rows = lambda k, w: np.frombuffer(  # noqa: E731
+        b"".join(k(signed[tx]) for tx in lanes), np.uint8).reshape(-1, w)
+    pubs, sigs = rows(lambda p: p[1], 32), rows(lambda p: p[2], 64)
+    digests = rows(lambda p: _priority_digest(p[4], p[3]), 32)
+    base = ed.base_table(dev)
+    valid = []
+    for lo in range(0, len(lanes), 4096):
+        valid += ed.verify_batch_plain(
+            *(torch.as_tensor(a[lo:lo + 4096].copy(), device=dev)
+              for a in (pubs, digests, sigs)), base).tolist()
+    valid = dict(zip(lanes, valid))
+    n_gold = min(64, len(lanes))
+    for i, tx in enumerate(lanes[:n_gold]):
+        require(ref.verify(pubs[i].tobytes(), digests[i].tobytes(),
+                           sigs[i].tobytes()) == valid[tx],
+                "plain verify != pure_ed25519")
+    for tx in uniq:
+        outs = first[tx]
+        if signed[tx] is None or valid[tx]:
+            require(outs.count("admitted") == 1 and
+                    outs.count("dup") == len(outs) - 1,
+                    f"valid tx outcomes {outs}")
+        else:
+            require(outs.count("bad_sig") >= 1 and
+                    outs.count("bad_sig") + outs.count("dup") == len(outs),
+                    f"bad-signature tx outcomes {outs}")
+    admitted = [tx for tx in uniq if "admitted" in first[tx]]
+    committed = [tx for b in run.blocks for tx in b.txs]
+    require(sorted(committed) == sorted(admitted),
+            "committed txs != admitted txs (each exactly once)")
+    require(run.mempool.size() == 0, "pool not empty after the last block")
+    state = run.state
+    app = create_app("kvstore")
+    for b in run.blocks:
+        for tx in b.txs:
+            app.deliver_tx(tx)
+        host_hash = app.commit().data
+    require(state.app_hash == host_hash, "app hash != host kvstore run")
+    raw = [n for k, _, n in run.flushes if k == "raw"]
+    verified = sum(1 for tx, o in zip(txs, outcomes)
+                   if signed[tx] is not None and o in ("admitted", "bad_sig"))
+    require(launches["K5"] == len(raw) > 0,
+            "K5 launches != raw flushes of the plane")
+    require(sum(raw) == verified,
+            f"K5 saw {sum(raw)} lanes, {verified} signed submissions "
+            f"reached the verify")
+    votes = run.votes
+    require(len(votes) == len(run.blocks) - 1 and
+            all(bool(v.all()) for v in votes), "a valid vote was rejected")
+    log(f"[mempool] outcomes {counts}; {len(admitted)} admitted txs "
+        f"committed once each in {len(run.blocks)} blocks, pool "
+        f"empty; app hash {state.app_hash.hex()} == host kvstore run; "
+        f"{len(lanes)} signed txs re-verified by the plain version == "
+        f"admission ({n_gold} also by pure_ed25519); K5 {launches['K5']} "
+        f"launches over {sum(raw)} lanes; {len(votes)} vote bursts valid")
 
 
 # -- the kernels line ----------------------------------------------------
@@ -414,7 +711,61 @@ def _distinct_rows(digits, extra=None) -> int:
     return len(np.unique(np.stack(cols, axis=1), axis=0))
 
 
-def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict) -> list:
+def _grouped_verify_cost(sigs, lane_pubs, lane_msgs, val_idx,
+                         lane_bytes: int, fixed_bytes: int) -> tuple:
+    """(bytes, operations) of a grouped verify (K1) over these lanes:
+    `lane_bytes` moved per lane and `fixed_bytes` once, plus the distinct
+    base and comb table rows the lanes' digits gather.  Per lane: SHA-512
+    of R || A || M; 21 + 25 mixed adds onto the first entry of each comb
+    (1 multiplication to extend it); one add of the two sums; encode
+    (batch inversion, x and y)."""
+    n, m = lane_msgs.shape
+    digests = [hashlib.sha512(sigs[i, :32].tobytes() + lane_pubs[i].tobytes()
+                              + lane_msgs[i].tobytes()).digest()
+               for i in range(n)]
+    kd = _mod_l_digits(digests, 10, 26)
+    sd = _byte_digits(sigs[:, 32:], 12, 22)
+    nbytes = n * lane_bytes + fixed_bytes + 96 * (
+        _distinct_rows(sd) + _distinct_rows(kd, val_idx))
+    blocks = (64 + m + 17 + 127) // 128
+    ops = (n * blocks * SHA512_OPS_PER_BLOCK
+           + _macs((n * 46, MIXED_ADD), (n * 2, (1, 0)), (n, ADD),
+                   (n, BATCH_INV), (n * 2, (1, 0)), (1, INVERT)))
+    return nbytes, ops
+
+
+def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
+    """(bytes, operations) of a raw-lane verify (K5) over these lanes.
+    Per lane: SHA-512 of R || A || M; two decompressions; [s]B as 21 mixed
+    adds onto the first entry (1 multiplication to extend it); the window
+    table T[2..15] of -A (14 adds); from the top nonzero 4-bit window of
+    k down, 4 doublings per window and one add per nonzero digit; the add
+    of the two sums; the comparison with R (Z_R = 1: 2 multiplications).
+    Bytes: each lane's key, message, signature and result once, and the
+    distinct base-table rows its digits gather."""
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    n, m = msgs.shape
+    dbl = adds = 0
+    for i in range(n):
+        k = int.from_bytes(hashlib.sha512(
+            sigs[i, :32].tobytes() + pubs[i].tobytes()
+            + msgs[i].tobytes()).digest(), "little") % ref.L
+        nib = [(k >> (4 * w)) & 15 for w in range(64)]
+        top = max((w for w in range(64) if nib[w]), default=0)
+        dbl += 4 * top
+        adds += sum(1 for w in range(top) if nib[w])
+    blocks = (64 + m + 17 + 127) // 128
+    ops = (n * blocks * SHA512_OPS_PER_BLOCK
+           + _macs((n * 2, DECOMPRESS), (n * 21, MIXED_ADD), (n, (1, 0)),
+                   (n * 14, ADD), (dbl, DBL), (adds, ADD), (n, ADD),
+                   (n * 2, (1, 0))))
+    nbytes = n * (32 + m + 64 + 1) + 96 * _distinct_rows(
+        _byte_digits(sigs[:, 32:], 12, 22))
+    return nbytes, ops
+
+
+def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
+                  mp_ctx: dict) -> list:
     """Time each kernel and its plain version at the main path's shapes,
     hold the two results equal, and work out each kernel's bound."""
     import numpy as np
@@ -425,6 +776,7 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict) -> list:
     from tendermint_tpu_torch.types import canonical
     from tendermint_tpu_torch.types.validator import window_commit_lanes
     be, chain, vals = rp_ctx["backend"], rp_ctx["chain"], rp_ctx["vals"]
+    dev = be.device
     rows = []
 
     # K1 at one replay window's shape
@@ -443,23 +795,63 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict) -> list:
     err = max_abs_err(got, want)
     # args: tables, pub_ok, key matrix, val_idx, tmpl_idx, templates, sigs
     h_vp, h_vi, h_ti, h_tm, h_sg = (a.cpu().numpy() for a in args[2:7])
-    digests = [hashlib.sha512(h_sg[i, :32].tobytes() + h_vp[h_vi[i]].tobytes()
-                              + h_tm[h_ti[i]].tobytes()).digest()
-               for i in range(n)]
-    kd = _mod_l_digits(digests, 10, 26)
-    sd = _byte_digits(h_sg[:, 32:], 12, 22)
-    nbytes = (n * (64 + 4 + 4 + 1) + h_tm.nbytes + h_vp.nbytes
-              + args[1].numel() + 96 * (_distinct_rows(sd)
-                                        + _distinct_rows(kd, h_vi)))
-    # per lane: SHA-512 of R || A || M (192 B, 2 blocks); 21 + 25 mixed adds
-    # onto the first entry of each comb (1 multiplication to extend it);
-    # one add of the two sums; encode (batch inversion, x and y)
-    ops = (n * 2 * SHA512_OPS_PER_BLOCK
-           + _macs((n * 46, MIXED_ADD), (n * 2, (1, 0)), (n, ADD),
-                   (n, BATCH_INV), (n * 2, (1, 0)), (1, INVERT)))
+    nbytes, ops = _grouped_verify_cost(
+        h_sg, h_vp[h_vi], h_tm[h_ti], h_vi, 64 + 4 + 4 + 1,
+        h_tm.nbytes + h_vp.nbytes + args[1].numel())
     rows.append(("verify_grouped_templated", "verify_grouped.cu",
                  "tendermint_tpu/ops/ed25519.py:153", "K1", ms, plain_ms,
                  err, nbytes, ops, f"{n} lanes, {h_tm.shape[0]} templates"))
+
+    # K1 with per-lane keys and messages at a vote burst's shape
+    vargs, _ = vote_burst(dev)
+    ms, got = cuda_ms(lambda: ed.verify_grouped(*vargs), 10)
+    plain_ms, want = cuda_ms(lambda: ed.verify_grouped_plain(*vargs), 1)
+    require(torch.equal(got, want), "K1 (per-lane keys) != plain at the "
+            "vote burst's shape")
+    err = max_abs_err(got, want)
+    # vargs: tables, pub_ok, val_idx, pubkeys, msgs, sigs
+    h_vi, h_pk, h_ms, h_sg = (a.cpu().numpy() for a in vargs[2:6])
+    n = len(h_vi)
+    nbytes, ops = _grouped_verify_cost(h_sg, h_pk, h_ms, h_vi,
+                                       64 + 4 + 32 + h_ms.shape[1] + 1,
+                                       vargs[1].numel())
+    rows.append(("verify_grouped", "verify_grouped.cu",
+                 "tendermint_tpu/ops/ed25519.py:78", "K1p", ms, plain_ms,
+                 err, nbytes, ops, f"{n} lanes x {h_ms.shape[1]} B, Vb "
+                 f"{vargs[0].shape[2]}"))
+
+    # K5 at the plane's largest flush (4,096 of the mempool's signed
+    # lanes), timed also at its target (1,024) and at 65,536 lanes
+    from tendermint_tpu_torch.mempool.mempool import (_priority_digest,
+                                                      parse_signed_tx)
+    parsed = [parse_signed_tx(bytes.fromhex(e["tx"]))
+              for e in mp_ctx["corpus"]]
+    parsed = [p for p in parsed if p is not None]
+    lane = lambda k, w: np.frombuffer(  # noqa: E731
+        b"".join(k(p) for p in parsed), np.uint8).reshape(-1, w)
+    raw = (lane(lambda p: p[1], 32),
+           lane(lambda p: _priority_digest(p[4], p[3]), 32),
+           lane(lambda p: p[2], 64))
+    base = ed.base_table(dev)
+    lanes = {n: tuple(np.tile(a, (-(-n // len(a)), 1))[:n] for a in raw)
+             for n in (1024, 4096, 65536)}
+    k5_ms = {}
+    for n, h in lanes.items():
+        rargs = tuple(torch.as_tensor(a.copy(), device=dev) for a in h)
+        k5_ms[n], got = cuda_ms(lambda: ed.verify_batch(*rargs, base), 10)
+        if n == 4096:
+            plain_ms, want = cuda_ms(
+                lambda: ed.verify_batch_plain(*rargs, base), 1)
+            require(torch.equal(got, want), "K5 != plain at 4,096 lanes")
+            err = max_abs_err(got, want)
+    for n in (1024, 65536):
+        b_ms, b_by = _bound(*_raw_verify_cost(*lanes[n]))
+        log(f"[kernels] K5 verify_raw at {n} lanes x 32 B: {k5_ms[n]:.3f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by}")
+    nbytes, ops = _raw_verify_cost(*lanes[4096])
+    rows.append(("verify_raw", "verify_raw.cu",
+                 "tendermint_tpu/ops/ed25519.py:46", "K5", k5_ms[4096],
+                 plain_ms, err, nbytes, ops, "4096 lanes x 32 B"))
 
     # K2 at the replay set's shape (100 keys; padding copies column 0)
     pubs = be._t(vals.pubs_matrix())
@@ -552,7 +944,19 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict) -> list:
 
 
 KERNEL_KEYS = {"verify_grouped": "K1", "build_neg_comb": "K2",
-               "sign_grouped": "K3", "sha256_prefixed": "K4"}
+               "sign_grouped": "K3", "sha256_prefixed": "K4",
+               "verify_raw": "K5"}
+
+
+def read_launches(path: str, needed: tuple) -> dict:
+    """The launch counts of one main path, read just after it; each of
+    the path's kernels must have launched."""
+    from tendermint_tpu_torch.ops import kernels
+    got = {KERNEL_KEYS[k]: n for k, n in kernels.LAUNCHES.items()}
+    for key in needed:
+        require(got[key] > 0, f"{key} was not launched on the {path} path")
+    log(f"[{path}] launches on the main path: {got}")
+    return got
 
 
 def main() -> int:
@@ -570,20 +974,27 @@ def main() -> int:
         print("chip_smoke: run from the repository root "
               "(tendermint_tpu_torch not importable)", file=sys.stderr)
         return 2
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
     from tendermint_tpu_torch.ops import kernels
     card = card_line()
     log(card)
     phase_build()
     phase_check()
-    kernels.reset_launches()                # the main path starts here
+    kernels.reset_launches()                # the replay path starts here
     rp_ctx = phase_replay()
     mk_ctx = phase_merkle()
-    launches = {KERNEL_KEYS[k]: n for k, n in kernels.LAUNCHES.items()}
-    for key, n in launches.items():         # ... and ends here
-        require(n > 0, f"{key} was not launched on the main path")
+    replay = read_launches("replay", ("K1", "K2", "K3", "K4"))
+    kernels.reset_launches()                # the mempool path starts here
+    mp_ctx = phase_mempool(CudaBackend())
+    mempool = read_launches("mempool", ("K1", "K2", "K3", "K5"))
     phase_tamper(rp_ctx)
     check_merkle(mk_ctx)
-    line = phase_kernels(launches, rp_ctx, mk_ctx)
+    check_mempool(mp_ctx, mempool)
+    # per kernel, its launches on the paths that run it; K1 with per-lane
+    # keys runs on the mempool path only, templated K1 on the replay path
+    launches = {k: replay[k] + mempool[k] for k in replay}
+    launches["K1"], launches["K1p"] = replay["K1"], mempool["K1"]
+    line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

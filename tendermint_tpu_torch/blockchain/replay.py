@@ -78,6 +78,25 @@ def payload_txs(height: int, payload: int) -> list[bytes]:
     return [b"p=%d:" % height + b"\xaa" * payload]
 
 
+def make_block(chain_id: str, height: int, txs: list[bytes],
+               last_block_id: BlockID, n_vals: int, vals_hash: bytes,
+               app_hash: bytes) -> tuple[Block, BlockID]:
+    """The block at `height` carrying `txs`, hash-linked to
+    `last_block_id`, with an unsigned embedded last commit of `n_vals`
+    slots (callers verify seen commits, or none) and the fixture's clock
+    (1 s + height ns).  Returns (block, its BlockID with the part-set
+    header)."""
+    last_commit = (EMPTY_COMMIT if height == 1 else
+                   Commit(block_id=last_block_id,
+                          precommits=[None] * n_vals))
+    block = Block.make(chain_id=chain_id, height=height,
+                       time_ns=1_000_000_000 + height, txs=txs,
+                       last_commit=last_commit,
+                       last_block_id=last_block_id,
+                       validators_hash=vals_hash, app_hash=app_hash)
+    return block, BlockID(block.hash(), block.make_part_set().header)
+
+
 def build_chain(n_vals: int, n_blocks: int, backend, payload: int = 12 * 1024,
                 chain_id: str = "bench-chain", power: int = 10) -> Chain:
     """Deterministic chain of `n_blocks` blocks signed by `n_vals`
@@ -110,19 +129,10 @@ def build_chain(n_vals: int, n_blocks: int, backend, payload: int = 12 * 1024,
         vals_hash = vs.hash()
         blocks, bids = [], []
         last_block_id = ZERO_BLOCK_ID
-        unsigned = [None] * n_vals
         for h in range(1, n_blocks + 1):
-            last_commit = (EMPTY_COMMIT if h == 1 else
-                           Commit(block_id=last_block_id,
-                                  precommits=unsigned))
-            block = Block.make(chain_id=chain_id, height=h,
-                               time_ns=1_000_000_000 + h,
-                               txs=payload_txs(h, payload),
-                               last_commit=last_commit,
-                               last_block_id=last_block_id,
-                               validators_hash=vals_hash,
-                               app_hash=app_hashes[h - 1])
-            bid = BlockID(block.hash(), block.make_part_set().header)
+            block, bid = make_block(chain_id, h, payload_txs(h, payload),
+                                    last_block_id, n_vals, vals_hash,
+                                    app_hashes[h - 1])
             blocks.append(block)
             bids.append(bid)
             last_block_id = bid

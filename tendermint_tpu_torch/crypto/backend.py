@@ -218,20 +218,38 @@ class CudaBackend:
 
     def verify_grouped(self, set_key, val_pubs, val_idx, msgs,
                        sigs) -> np.ndarray:
-        raise NotImplementedError(
-            "CudaBackend verifies commits with verify_grouped_templated; "
-            "verify_grouped on whole messages waits for the raw-lane verify "
-            "(ROADMAP queue B row 7)")
+        """Lane i checks sigs[i] on msgs[i] by val_pubs[val_idx[i]] against
+        the set's comb tables (kernel K1 with per-lane keys and messages);
+        lanes padded to a power of two by repeating lane 0."""
+        n = len(val_idx)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        tbl, ok, _, _ = self.tables(set_key, val_pubs)
+        val_idx = self._check_idx("val_idx", val_idx, len(val_pubs))
+        b = _bucket(n)
+        out = ed.verify_grouped(
+            tbl, ok, self._t(_pad_rows(val_idx, b)),
+            self._t(_pad_rows(val_pubs[val_idx], b)),
+            self._t(_pad_rows(msgs, b)), self._t(_pad_rows(sigs, b)),
+            self._base)
+        return out.cpu().numpy()[:n]
 
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:
-        raise NotImplementedError(
-            "the raw-lane verify is not ported yet (ROADMAP queue B row 7)")
+        """Raw lanes, each with its own key (kernel K5); lanes padded to a
+        power of two by repeating lane 0."""
+        n = len(pubkeys)
+        if n == 0:
+            return np.zeros(0, dtype=bool)
+        b = _bucket(n)
+        out = ed.verify_batch(self._t(_pad_rows(pubkeys, b)),
+                              self._t(_pad_rows(msgs, b)),
+                              self._t(_pad_rows(sigs, b)), self._base)
+        return out.cpu().numpy()[:n]
 
     # -- signing ---------------------------------------------------------
-    def sign_args(self, seeds, val_idx, tmpl_idx, templates) -> tuple:
-        """Device arguments of `ed25519.sign_grouped_templated`: the seed
-        set's (clamped scalar, prefix, pubkey) matrices, derived on the host
-        once per set, and lanes padded to a power of two."""
+    def signing_keys(self, seeds) -> tuple:
+        """The seed set's (clamped scalar, prefix, pubkey) uint8[V, 32]
+        matrices on the device, derived on the host once per set."""
         key = hashlib.sha256(b"".join(bytes(s) for s in seeds)).digest()
         with self._lock:
             ent = self._sign_keys.get(key)
@@ -245,12 +263,17 @@ class CudaBackend:
                 while len(self._sign_keys) >= 16:    # rotating fixture sets
                     self._sign_keys.pop(next(iter(self._sign_keys)))
                 self._sign_keys[key] = ent
+        return ent
+
+    def sign_args(self, seeds, val_idx, tmpl_idx, templates) -> tuple:
+        """Device arguments of `ed25519.sign_grouped_templated`: the seed
+        set's `signing_keys` and lanes padded to a power of two."""
         val_idx = self._check_idx("val_idx", val_idx, len(seeds))
         tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx, len(templates))
         b = _bucket(len(val_idx))
-        return ent + (self._t(_pad_rows(val_idx, b)),
-                      self._t(_pad_rows(tmpl_idx, b)),
-                      self._templates(templates), self._base)
+        return self.signing_keys(seeds) + (
+            self._t(_pad_rows(val_idx, b)), self._t(_pad_rows(tmpl_idx, b)),
+            self._templates(templates), self._base)
 
     def sign_grouped_templated(self, seeds, val_idx, tmpl_idx,
                                templates) -> np.ndarray:

@@ -76,6 +76,21 @@ def pt_neg(Q):
     return (fe.neg(x), y, z, fe.neg(t))
 
 
+def pt_eq(Q, R) -> torch.Tensor:
+    """Projective equality mask: X1*Z2 == X2*Z1 and Y1*Z2 == Y2*Z1."""
+    x1, y1, z1, _ = Q
+    x2, y2, z2, _ = R
+    ex = fe.eq(fe.mul(x1, z2), fe.mul(x2, z1))
+    ey = fe.eq(fe.mul(y1, z2), fe.mul(y2, z1))
+    return ex & ey
+
+
+def pt_select(mask, Q, R):
+    """Elementwise select: mask[...] ? Q : R."""
+    m = mask[..., None]
+    return tuple(torch.where(m, q, r) for q, r in zip(Q, R))
+
+
 def _lt_p(b: torch.Tensor) -> torch.Tensor:
     """Canonical-encoding check: little-endian bytes [..., 32] < p."""
     return sc.lt_const(b, fe._P_LIMBS)
@@ -117,6 +132,33 @@ def encode_batch(Q) -> tuple:
     yb = fe.to_bytes(fe.mul(y, zi))
     yb[..., 31] |= (xb << 7).to(torch.uint8)
     return yb, nz
+
+
+def _build_window_table(Q) -> tuple:
+    """Per-lane window tables: T[j] = j*Q for j in [0, 16), coords
+    [..., 16, 32], T[0] the identity, by 15 chained adds (reference
+    `curve._build_window_table`)."""
+    rows = [identity(Q[0].shape[:-1], Q[0].device)]
+    for _ in range(15):
+        rows.append(pt_add(rows[-1], Q))
+    return tuple(torch.stack([r[i] for r in rows], dim=-2) for i in range(4))
+
+
+def scalar_mul(s: torch.Tensor, Q) -> tuple:
+    """[s]Q for s = little-endian bytes/limbs [..., 32]: 4-bit windows
+    MSB first, 4 doublings and one table add per window (reference
+    `curve.scalar_mul`)."""
+    tbl = _build_window_table(Q)
+    wins = sc.nibbles(s)
+    acc = identity(s.shape[:-1], s.device)
+    for w in range(63, -1, -1):
+        for _ in range(4):
+            acc = pt_dbl(acc)
+        idx = wins[..., w, None, None].expand(
+            wins.shape[:-1] + (1, fe.NLIMBS))
+        acc = pt_add(acc, tuple(torch.gather(t, -2, idx)[..., 0, :]
+                                for t in tbl))
+    return acc
 
 
 COMB_WBITS = 10                       # per-validator comb window width

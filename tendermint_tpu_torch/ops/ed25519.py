@@ -1,14 +1,17 @@
-"""Batched ed25519 against a fixed key set — the crypto hot plane of the
-port, with the wrappers of kernels K1-K3 beside their plain twins.
+"""Batched ed25519 — the crypto hot plane of the port, with the wrappers
+of kernels K1-K3 and K5 beside their plain twins.
 
-Twin of `tendermint_tpu/ops/ed25519.py`'s grouped entry points:
+Twin of `tendermint_tpu/ops/ed25519.py`'s entry points:
 
 * `build_neg_comb` (K2, `csrc/build_neg_comb.cu`): per-validator-set comb
   tables of the NEGATED keys, uint8[26, 1024, V, 3, 32] + ok[V];
 * `verify_grouped` / `verify_grouped_templated` (K1,
   `csrc/verify_grouped.cu`): cofactorless verify enc([s]B + [k](-A)) == R
   with k = SHA-512(R || A || M) mod L, s < L, masked by pub_ok[val_idx];
-* `sign_grouped_templated` (K3, `csrc/sign_grouped.cu`): RFC 8032 signing.
+* `sign_grouped_templated` (K3, `csrc/sign_grouped.cu`): RFC 8032 signing;
+* `verify_batch` (K5, `csrc/verify_raw.cu`): raw lanes, each with its own
+  key: decompress A and R, [s]B + [k](-A) by a 4-bit-window ladder, and a
+  projective comparison with R, masked by both decompressions and s < L.
 
 Each wrapper validates its arguments and, on CUDA tensors, launches its
 kernel (or raises); on CPU tensors it runs the plain twin, which follows
@@ -41,6 +44,26 @@ def build_neg_comb_plain(pubkeys: torch.Tensor) -> tuple:
     A, ok = curve.decompress(pubkeys)
     tbl, tbl_ok = curve.build_affine_comb(curve.pt_neg(A))
     return tbl, ok & tbl_ok
+
+
+def verify_core(pubkeys, sigs, k_scalars, base_tbl) -> torch.Tensor:
+    """Verify with a precomputed challenge k = H(R || A || M) mod L
+    (reference `ed25519.verify_core`) -> bool[...]."""
+    A, ok_a = curve.decompress(pubkeys)
+    R, ok_r = curve.decompress(sigs[..., :32])
+    s_bytes = sigs[..., 32:]
+    ok_s = sc.lt_L(s_bytes)
+    sB = curve.scalar_mul_base(s_bytes, base_tbl)
+    kA = curve.scalar_mul(k_scalars, curve.pt_neg(A))
+    return ok_a & ok_r & ok_s & curve.pt_eq(curve.pt_add(sB, kA), R)
+
+
+def verify_batch_plain(pubkeys, msgs, sigs, base_tbl) -> torch.Tensor:
+    """Reference `ed25519.verify`: k = SHA-512(R || A || M) mod L, then
+    `verify_core`."""
+    challenge = torch.cat([sigs[..., :32], pubkeys, msgs], dim=-1)
+    k = sc.reduce512(s512.sha512(challenge))
+    return verify_core(pubkeys, sigs, k, base_tbl)
 
 
 def verify_grouped_plain(tables, pub_ok, val_idx, pubkeys, msgs, sigs,
@@ -164,6 +187,26 @@ def verify_grouped(tables, pub_ok, val_idx, pubkeys, msgs, sigs,
     lanes = torch.arange(n, dtype=I32, device=sigs.device)
     return _launch_verify(tables, pub_ok, pubkeys, lanes, val_idx, msgs,
                           lanes, sigs, base_tbl)
+
+
+def verify_batch(pubkeys, msgs, sigs, base_tbl) -> torch.Tensor:
+    """Lane i checks sigs[i] on msgs[i] by its own key pubkeys[i] ->
+    bool[N].  K5 on CUDA tensors; the plain twin on CPU tensors."""
+    _check_base(base_tbl)
+    kernels.check(sigs, "sigs", U8, 2)
+    kernels.check(pubkeys, "pubkeys", U8, 2)
+    kernels.check(msgs, "msgs", U8, 2)
+    n = sigs.shape[0]
+    if sigs.shape[1] != 64 or pubkeys.shape != (n, 32) or msgs.shape[0] != n:
+        raise ValueError("verify_batch: expected pubkeys [N, 32], msgs "
+                         "[N, M], sigs [N, 64]")
+    if sigs.device.type == "cpu":
+        return verify_batch_plain(pubkeys, msgs, sigs, base_tbl)
+    out = torch.empty(n, dtype=torch.bool, device=sigs.device)
+    if n:
+        kernels.launch("verify_raw", pubkeys, msgs, msgs.shape[1], sigs,
+                       base_tbl, out, n)
+    return out
 
 
 def verify_grouped_templated(tables, pub_ok, val_pubs, val_idx, tmpl_idx,

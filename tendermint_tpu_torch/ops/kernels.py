@@ -37,6 +37,7 @@ _ENTRY = {
     "build_neg_comb": ("tm_build_neg_comb", "pippp"),
     "sign_grouped": ("tm_sign_grouped", "pppipppiippi"),
     "sha256_prefixed": ("tm_sha256_prefixed", "piipi"),
+    "verify_raw": ("tm_verify_raw", "ppipppi"),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}

@@ -4,9 +4,9 @@ twin of `tendermint_tpu/ops/scalar.py`.
 L = 2^252 + 27742317777372353535851937790883648493.  Little-endian
 radix-2^8 limbs (bytes == limbs) held in int64; the same signed fold
 2^256 = -16c (mod L), Kogge-Stone carry and conditional-subtraction
-ladder as the reference, so `reduce512`, `lt_L` and `muladd_mod_L`
-return the reference's bytes.  The CUDA kernels reduce on 64-bit words
-(`csrc/tm_scalar.cuh`).
+ladder as the reference, so `reduce512`, `lt_L`, `muladd_mod_L` and
+`nibbles` return the reference's bytes.  The CUDA kernels reduce on
+64-bit words (`csrc/tm_scalar.cuh`).
 """
 
 from __future__ import annotations
@@ -107,6 +107,14 @@ def muladd_mod_L(k: torch.Tensor, a: torch.Tensor,
         acc[..., i:i + 32] += k * a[..., i:i + 1]
     acc[..., :32] += r
     return reduce512(_carry(_pad_to(acc, 64))[..., :64])
+
+
+def nibbles(s: torch.Tensor) -> torch.Tensor:
+    """Limbs/bytes [..., 32] -> 64 little-endian 4-bit windows int64[..., 64]
+    (reference `scalar.nibbles`)."""
+    x = s.to(torch.int64)
+    return torch.stack([x & 0xF, (x >> 4) & 0xF], dim=-1).reshape(
+        s.shape[:-1] + (64,))
 
 
 def limbs_to_int(limbs) -> int:
