@@ -7,13 +7,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any mismatch or exception exits non-zero:
 
-1. build the five CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
+1. build the six CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
    (sm_90a) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
    hashlib, K3 also against the golden RFC 8032 signer, K1 on adversarial
    lanes and on a vote burst with per-lane keys, K5 on edge lanes at
-   32- and 96-byte messages against the golden verifier);
+   32- and 96-byte messages against the golden verifier, K6 on edge lanes
+   with mixed powers at 4,096 lanes in one row and 40 rows of 100);
 3. the main paths, each with every launch count set to 0 just before it
    and read just after it:
    a. replay a fast-sync chain at BASELINE config 3's shape (100
@@ -27,13 +28,27 @@ Phases, in order; any mismatch or exception exits non-zero:
       the batch plane onto K5 (with the validators' prevotes riding the
       consensus class on K1), and one block per 2,048-entry round applied
       with the real mempool;
+   c. the multi-device crypto plane (`parallel/sharding.py`) on two
+      meshes, `make_mesh()` (every visible card) and four virtual shards
+      of card 0 (and card 0 alone when more than one card is visible):
+      `sharded_verify_fn` over a 100,000-signature vote-set batch with
+      int64 powers (K6 per shard), `sharded_merkle_fn` over the Merkle
+      call's trees (K4), `training_step_fn` over 1,000 blocks x 100
+      validators with 1,024 leaves per block (K6 and K4), the replay's
+      chain again through `CudaBackend(mesh=...)` (templated K1 per
+      shard) and one of its windows through that backend's
+      `verify_grouped` with the messages assembled on the host (K1 with
+      per-lane keys and messages per shard);
 4. check that a tampered signature is rejected at the right height and
-   lane, sample the roots against the host tree and time `roots`, and
-   check the mempool's accounting, commits, app hash and verdicts (every
-   signed entry re-verified by the plain version);
+   lane, sample the roots against the host tree and time `roots`, check
+   the mempool's accounting, commits, app hash and verdicts (every signed
+   entry re-verified by the plain version), and hold each mesh's results
+   against K5's mask, numpy int64 tallies and quorums, the single-device
+   roots and the single-device replay's masks and app hash;
 5. one `kernels` JSON line: per kernel its launches on the main paths,
    its time and its plain version's at the main path's shapes, the two
-   results held exactly equal there, and its bound.
+   results held exactly equal there, and its bound; per mesh, the whole
+   call of each mesh function likewise.
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -142,6 +157,7 @@ def phase_check() -> None:
     from tendermint_tpu_torch.crypto import pure_ed25519 as ref
     from tendermint_tpu_torch.ops import ed25519 as ed
     from tendermint_tpu_torch.ops import sha256 as s256
+    from tendermint_tpu_torch.types import canonical
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
@@ -248,6 +264,39 @@ def phase_check() -> None:
         log(f"[check] K5 verify_raw == plain == golden on {len(lanes)} edge "
             f"lanes x M {msg_len} at N = {len(lanes)}, 1, 200 "
             f"({sum(golden)} valid)")
+
+    # K6 on the edge lanes (128-byte sign-bytes) with mixed powers: 4,096
+    # lanes in one row and 40 rows of 100, each against quorums that pass
+    # and fail; in every other row the invalid lanes have power 0, so
+    # those rows pass the all-signed check
+    lanes = edge_lanes(canonical.SIGN_BYTES_LEN, rng)
+    golden = [ref.verify(*x) for x in lanes]
+    for n, rows in ((4096, 1), (4000, 40)):
+        grid = [lanes[i % len(lanes)] for i in range(n)]
+        raw = tuple(t(np.frombuffer(b"".join(x[k] for x in grid),
+                                    np.uint8).reshape(n, -1).copy())
+                    for k in range(3))
+        pw = rng.integers(0, 2**40, n).astype(np.int64)
+        pw[rng.random(n) < 0.3] = 0
+        valid = np.array([golden[i % len(lanes)] for i in range(n)])
+        even_row = (np.arange(n) // (n // rows)) % 2 == 0
+        pw[even_row & ~valid] = 0
+        pw = t(pw)
+        k5 = ed.verify_batch(*raw, base)
+        passed = 0
+        for total in (0, int(pw.sum()) // rows, 2**62):
+            got = ed.verify_tally(*raw, pw, rows, total, base)
+            want = ed.verify_tally_plain(*raw, pw, rows, total, base)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"K6 != plain ({n} lanes, {rows} rows, total {total})")
+            require(torch.equal(got[0], k5), "K6 mask != K5 mask")
+            passed += int(got[2].sum())
+        require(got[0].tolist() == [golden[i % len(lanes)]
+                                    for i in range(n)], "K6 != golden")
+        log(f"[check] K6 verify_tally == plain (mask, int64 tallies, "
+            f"quorums) == K5 == golden on {n} edge lanes x M "
+            f"{canonical.SIGN_BYTES_LEN} in {rows} rows, mixed powers, 3 totals "
+            f"({passed} row quorums passed)")
 
 
 def edge_lanes(msg_len: int, rng) -> list:
@@ -395,7 +444,7 @@ def phase_replay() -> dict:
     log(f"[replay] final height {res.height}, app hash "
         f"{res.app_hash.hex()} == host kvstore run")
     return {"backend": be, "chain": chain, "vals": vals,
-            "set_key": vals.set_key()}
+            "set_key": vals.set_key(), "app_hash": res.app_hash}
 
 
 def phase_tamper(rp_ctx: dict) -> None:
@@ -458,23 +507,40 @@ def check_merkle(mk_ctx: dict) -> None:
         require(roots[b].cpu().numpy().tobytes() == want,
                 f"tree {b}: device root != host tree")
     ms, _ = cuda_ms(lambda: merkle.roots(data), 3)
-    merkle.sha256_prefixed = s256.sha256_prefixed_plain
-    try:
-        plain_ms, plain = cuda_ms(lambda: merkle.roots(data), 0)
-    finally:
-        merkle.sha256_prefixed = s256.sha256_prefixed
+    plain_ms, plain = plain_cuda_ms(lambda: merkle.roots(data),
+                                    ((merkle, "sha256_prefixed",
+                                      s256.sha256_prefixed_plain),))
     require(torch.equal(plain, roots), "roots with K4 != roots with plain")
-    # the whole call: SHA-256 of 0x00 || leaf for every leaf and of
-    # 0x01 || left || right for every inner node (65 B each, as the leaves
-    # are 64 B); the leaves read once, the roots written once
-    hashes = TREES * LEAVES + TREES * (LEAVES - 1)
-    blocks = (LEAF_LEN + 1 + 9 + 63) // 64
-    bound_ms, bound_by = _bound(data.numel() + TREES * 32,
-                                hashes * blocks * SHA256_OPS_PER_BLOCK)
+    bound_ms, bound_by = _bound(*_roots_cost(TREES, LEAVES, LEAF_LEN))
     log(f"[merkle] {TREES} trees x {LEAVES} leaves x {LEAF_LEN} B: "
         f"{ms:.3f} ms per batch, {TREES / ms * 1e3:.0f} trees/s, bound "
-        f"{bound_ms:.4f} ms by {bound_by} ({hashes} hashes); plain "
+        f"{bound_ms:.4f} ms by {bound_by}; plain "
         f"{plain_ms:.1f} ms, == K4 roots; {len(host)} roots == host tree")
+
+
+def plain_cuda_ms(fn, swaps) -> tuple:
+    """`cuda_ms(fn, 0)` with each (module, name, plain version) of `swaps`
+    put in place of the kernel wrapper for the run."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        return cuda_ms(fn, 0)
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def _roots_cost(trees: int, leaves: int, leaf_len: int) -> tuple:
+    """(bytes, operations) of `merkle.roots` over trees x leaves x
+    leaf_len: SHA-256 of 0x00 || leaf for every leaf and of 0x01 || left
+    || right for every inner node; the leaves read once, the roots written
+    once."""
+    leaf_blocks = (leaf_len + 1 + 9 + 63) // 64
+    inner_blocks = (64 + 1 + 9 + 63) // 64
+    ops = trees * (leaves * leaf_blocks + (leaves - 1) * inner_blocks) \
+        * SHA256_OPS_PER_BLOCK
+    return trees * leaves * leaf_len + trees * 32, ops
 
 
 # -- the main path: mempool admission of signed txs ---------------------
@@ -639,6 +705,269 @@ def check_mempool(mp_ctx: dict, launches: dict) -> None:
         f"launches over {sum(raw)} lanes; {len(votes)} vote bursts valid")
 
 
+# -- the main path: the multi-device crypto plane -----------------------
+
+# the training step's grid: the first 1,000 blocks of the replay chain x
+# 100 validators (BASELINE config 2's 100,000-signature vote-set batch
+# when flattened), with 1,024 leaves of 64 B per block
+MESH_BLOCKS, MESH_LEAVES = 1000, 1024
+FORGED_BLOCK, ZERO_POWER_BLOCK, QUORUM_BLOCK = 17, 523, 999
+FORGED_LANE, ZERO_POWER_LANE = 3, 42
+
+
+def mesh_inputs(rp_ctx: dict) -> dict:
+    """The mesh phase's inputs, from the replay fixture's signed chain: the
+    first 1,000 blocks' seen commits as a [1000, 100] grid of (key,
+    128-byte precommit sign-bytes, signature) lanes and seeded int64 powers
+    of the 100 validators.  `flat`: the 100,000 lanes with a seeded 1 % of
+    their signatures tampered; `grid`: one block with a forged lane of
+    nonzero power, one with a forged lane of power 0, one under quorum
+    (its largest powers zeroed); 1,024 random leaves per block."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.types import canonical
+    chain, vals = rp_ctx["chain"], rp_ctx["vals"]
+    dev = rp_ctx["backend"].device
+    nb, nv = MESH_BLOCKS, N_VALS
+    bids = [c.block_id for c in chain.commits[:nb]]
+    templates = canonical.batch_sign_bytes(
+        chain.genesis.chain_id,
+        np.full(nb, canonical.TYPE_PRECOMMIT, np.int64),
+        np.arange(1, nb + 1, dtype=np.int64), np.zeros(nb, np.int64),
+        np.frombuffer(b"".join(b.hash for b in bids), np.uint8).reshape(nb, 32),
+        np.frombuffer(b"".join(b.parts.hash for b in bids),
+                      np.uint8).reshape(nb, 32),
+        np.array([b.parts.total for b in bids], np.int64))
+    sigs = np.stack([c.sigs for c in chain.commits[:nb]])     # [nb, nv, 64]
+    pubs = np.broadcast_to(vals.pubs_matrix(), (nb, nv, 32))
+    msgs = np.broadcast_to(templates[:, None], (nb, nv, templates.shape[1]))
+    rng = np.random.default_rng(SEED)
+    vpow = rng.integers(1, 2**40, nv, dtype=np.int64)
+    total = int(vpow.sum())
+
+    n = nb * nv
+    flat_sigs = sigs.reshape(n, 64).copy()
+    bad = rng.choice(n, n // 100, replace=False)
+    flat_sigs[bad, rng.integers(0, 64, len(bad))] ^= np.left_shift(
+        1, rng.integers(0, 8, len(bad))).astype(np.uint8)
+    flat_ok = np.ones(n, bool)
+    flat_ok[bad] = False
+
+    grid_sigs = sigs.copy()
+    powers = np.broadcast_to(vpow, (nb, nv)).copy()
+    grid_ok = np.ones((nb, nv), bool)
+    grid_sigs[FORGED_BLOCK, FORGED_LANE, 40] ^= 0x01
+    grid_sigs[ZERO_POWER_BLOCK, ZERO_POWER_LANE, 7] ^= 0x01
+    powers[ZERO_POWER_BLOCK, ZERO_POWER_LANE] = 0
+    grid_ok[FORGED_BLOCK, FORGED_LANE] = False
+    grid_ok[ZERO_POWER_BLOCK, ZERO_POWER_LANE] = False
+    for j in np.argsort(-vpow):
+        if powers[QUORUM_BLOCK].sum() * 3 <= total * 2:
+            break
+        powers[QUORUM_BLOCK, j] = 0
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    leaves = torch.randint(0, 256, (nb, MESH_LEAVES, LEAF_LEN), generator=g,
+                           device=dev, dtype=torch.uint8)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x),  # noqa: E731
+                                  device=dev)
+    return {"flat": (t(pubs.reshape(n, 32)), t(msgs.reshape(n, -1)),
+                     t(flat_sigs), t(np.tile(vpow, nb))),
+            "flat_ok": flat_ok, "vpow": vpow, "total": total,
+            "grid": (t(pubs), t(msgs), t(grid_sigs), t(powers)),
+            "grid_ok": grid_ok, "powers": powers, "leaves": leaves}
+
+
+class _RecordedVerify:
+    """The backend, with each grouped templated verify's arguments and
+    mask kept."""
+
+    def __init__(self, be):
+        self.be = be
+        self.calls = []
+
+    def __getattr__(self, name):
+        return getattr(self.be, name)
+
+    def verify_grouped_templated(self, *args):
+        out = self.be.verify_grouped_templated(*args)
+        self.calls.append((args, out))
+        return out
+
+
+def _launched(fn):
+    """(fn(), the kernel launches it made, by kernel key)."""
+    import torch
+    from tendermint_tpu_torch.ops import kernels
+    before = dict(kernels.LAUNCHES)
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {KERNEL_KEYS[k]: n - before[k]
+                 for k, n in kernels.LAUNCHES.items() if n > before[k]}
+
+
+def _assembled(args) -> tuple:
+    """`verify_grouped` arguments of a `verify_grouped_templated` call:
+    each lane's message assembled on the host."""
+    set_key, val_pubs, val_idx, tmpl_idx, templates, sigs = args
+    return set_key, val_pubs, val_idx, templates[tmpl_idx], sigs
+
+
+def mesh_label(mesh) -> str:
+    from tendermint_tpu_torch.parallel.sharding import device_label
+    names = [device_label(d) for d in mesh.devices]
+    if len(set(names)) < len(names):
+        return f"{names[0]} x {len(names)} virtual shards"
+    return f"{len(names)} card{'s' * (len(names) > 1)} ({', '.join(names)})"
+
+
+def phase_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, mesh) -> dict:
+    """One mesh's pass over rows 8-11 of the multi-device plane:
+    `sharded_verify_fn` over the 100,000 flat lanes (K6 per shard),
+    `sharded_merkle_fn` over the Merkle cell's trees (K4 per shard),
+    `training_step_fn` over the 1,000 x 100 grid and its leaves (K6 and K4
+    per shard), the replay's chain again through `CudaBackend(mesh=mesh)`
+    (its 65,536-lane windows split over the mesh, templated K1 per shard),
+    and the first window once more through that backend's
+    `verify_grouped` with its messages assembled on the host (K1 with
+    per-lane keys and messages per shard)."""
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.parallel import sharding
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+    label = mesh_label(mesh)
+    ctx = {"mesh": mesh, "label": label, "launches": {}}
+    msg_len = mesh_in["flat"][1].shape[1]
+
+    ctx["verify_fn"] = sharding.sharded_verify_fn(mesh, msg_len)
+    (ctx["ok"], ctx["tallied"]), ctx["launches"]["verify"] = _launched(
+        lambda: ctx["verify_fn"](*mesh_in["flat"]))
+    ctx["merkle_fn"] = sharding.sharded_merkle_fn(mesh)
+    ctx["roots"], ctx["launches"]["merkle"] = _launched(
+        lambda: ctx["merkle_fn"](mk_ctx["data"]))
+    ctx["step_fn"] = sharding.training_step_fn(mesh, msg_len)
+    ctx["step"], ctx["launches"]["step"] = _launched(
+        lambda: ctx["step_fn"](*mesh_in["grid"], mesh_in["leaves"],
+                               mesh_in["total"]))
+
+    chain = rp_ctx["chain"]
+    rec = _RecordedVerify(CudaBackend(rp_ctx["backend"].device, mesh=mesh))
+    state = get_state(MemDB(), chain.genesis)
+    conns = ClientCreator("kvstore").new_app_conns()
+    t0 = time.perf_counter()
+    ctx["replay"], ctx["launches"]["replay"] = _launched(
+        lambda: rp.replay(state, conns.consensus, chain.blocks,
+                          chain.commits, rec, window=WINDOW))
+    wall = time.perf_counter() - t0
+    ctx["backend"], ctx["calls"] = rec.be, rec.calls
+    ctx["grouped_args"] = _assembled(ctx["calls"][0][0])
+    ctx["grouped"], ctx["launches"]["grouped"] = _launched(
+        lambda: rec.be.verify_grouped(*ctx["grouped_args"]))
+    res = ctx["replay"]
+    log(f"[mesh] {label}: sharded_verify_fn over {len(ctx['ok'])} lanes, "
+        f"sharded_merkle_fn over {len(ctx['roots'])} trees, "
+        f"training_step_fn over {len(ctx['step'][0])} blocks; replay of "
+        f"{res.height} blocks through CudaBackend(mesh) in {wall:.3f} s "
+        f"({res.sigs / wall:.0f} sigs/s end to end; verify per window "
+        f"{', '.join(f'{w.verify_s:.4f}' for w in res.windows)} s, the "
+        f"first with the set's tables); launches {ctx['launches']}")
+    return ctx
+
+
+def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
+    """Hold one mesh's results: row 8 against K5's mask on the same lanes
+    and a numpy int64 tally, row 9 against the single-device roots, row 10
+    against a host int64 recomputation and single-device roots, row 11's
+    per-window masks against the single-device K1 and its app hash against
+    the single-device replay's, and the host-assembled window's mask
+    against the templated one; each sharded kernel launched once per
+    shard."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.types import merkle as host_merkle
+    mesh, label, launched = ctx["mesh"], ctx["label"], ctx["launches"]
+    shards = mesh.size
+    # one K4 launch for the leaves and one per level, per `roots` call
+    k4_trees = 1 + len(merkle._plan(mk_ctx["data"].shape[1]))
+    k4_blocks = 1 + len(merkle._plan(MESH_LEAVES))
+    base = ed.base_table(rp_ctx["backend"].device)
+
+    # row 8
+    k5 = ed.verify_batch(*mesh_in["flat"][:3], base)
+    require(torch.equal(ctx["ok"], k5), f"{label}: sharded_verify_fn mask "
+            f"!= K5 mask")
+    require(ctx["ok"].cpu().numpy().tolist() == mesh_in["flat_ok"].tolist(),
+            f"{label}: sharded_verify_fn mask != the untampered lanes")
+    w_flat = int(np.where(mesh_in["flat_ok"], np.tile(mesh_in["vpow"],
+                                                      MESH_BLOCKS), 0).sum())
+    require(ctx["tallied"].dtype == torch.int64 and
+            int(ctx["tallied"]) == w_flat, f"{label}: tally "
+            f"{int(ctx['tallied'])} != numpy {w_flat}")
+    require(launched["verify"] == {"K6": shards}, f"{label}: row 8 "
+            f"launches {launched['verify']}")
+
+    # row 9
+    require(torch.equal(ctx["roots"], mk_ctx["roots"]),
+            f"{label}: sharded_merkle_fn != single-device roots")
+    require(launched["merkle"] == {"K4": k4_trees * shards},
+            f"{label}: row 9 launches {launched['merkle']}")
+
+    # row 10
+    block_ok, tallied, roots = ctx["step"]
+    grid_ok, powers = mesh_in["grid_ok"], mesh_in["powers"]
+    w_tally = np.where(grid_ok, powers, 0).sum(-1, dtype=np.int64)
+    w_block = (grid_ok | (powers == 0)).all(-1) & \
+        (w_tally * 3 > mesh_in["total"] * 2)
+    require(tallied.cpu().numpy().tolist() == w_tally.tolist(),
+            f"{label}: training_step tallies != host int64")
+    require(block_ok.cpu().numpy().tolist() == w_block.tolist(),
+            f"{label}: training_step block_ok != host")
+    require(np.flatnonzero(~w_block).tolist() ==
+            [FORGED_BLOCK, QUORUM_BLOCK], "grid: wrong failing blocks")
+    leaves = mesh_in["leaves"]
+    require(torch.equal(roots, merkle.roots(leaves)),
+            f"{label}: training_step roots != single-device roots")
+    for b in (0, MESH_BLOCKS - 1):
+        host = leaves[b].cpu().numpy()
+        require(roots[b].cpu().numpy().tobytes() == host_merkle.root(
+            [host[i].tobytes() for i in range(MESH_LEAVES)]),
+            f"{label}: block {b} root != host tree")
+    require(launched["step"] == {"K6": shards, "K4": k4_blocks * shards},
+            f"{label}: row 10 launches {launched['step']}")
+
+    # row 11
+    res, calls = ctx["replay"], ctx["calls"]
+    single = rp_ctx["backend"]
+    for args, mask in calls:
+        want = ed.verify_grouped_templated(
+            *single.templated_args(*args)).cpu().numpy()[:len(mask)]
+        require(mask.tolist() == want.tolist() and bool(mask.all()),
+                f"{label}: mesh replay mask != single-device K1")
+    require(res.app_hash == rp_ctx["app_hash"] and
+            res.height == N_BLOCKS, f"{label}: mesh replay app hash != "
+            f"single-device replay")
+    require(launched["replay"].get("K1") == len(calls) * shards,
+            f"{label}: replay K1 launches {launched['replay']} != "
+            f"{len(calls)} windows x {shards} shards")
+    require(ctx["grouped"].tolist() == calls[0][1].tolist(),
+            f"{label}: verify_grouped mask != the templated window's")
+    require(launched["grouped"] == {"K1": shards},
+            f"{label}: verify_grouped launches {launched['grouped']}")
+    log(f"[mesh] {label}: row 8 mask == K5 ({int(ctx['ok'].sum())} of "
+        f"{len(ctx['ok'])} valid), tally {w_flat} == numpy int64; row 9 "
+        f"== single-device roots; row 10 block_ok/tallies == host int64 "
+        f"(blocks {FORGED_BLOCK} and {QUORUM_BLOCK} fail, block "
+        f"{ZERO_POWER_BLOCK}'s zero-power forgery passes), roots == "
+        f"single-device and host; row 11 {len(calls)} window masks == "
+        f"single-device K1, app hash {res.app_hash.hex()} == single-device "
+        f"replay, the first window host-assembled == templated; each "
+        f"kernel launched once per shard")
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -734,6 +1063,18 @@ def _grouped_verify_cost(sigs, lane_pubs, lane_msgs, val_idx,
     return nbytes, ops
 
 
+def _templated_cost(args) -> tuple:
+    """(bytes, operations) of templated K1 over the device arguments of
+    `ed25519.verify_grouped_templated` (`CudaBackend.templated_args`):
+    per lane its signature, val_idx, tmpl_idx and result; the templates,
+    key matrix and pub_ok once."""
+    # args: tables, pub_ok, key matrix, val_idx, tmpl_idx, templates, sigs
+    h_vp, h_vi, h_ti, h_tm, h_sg = (a.cpu().numpy() for a in args[2:7])
+    return _grouped_verify_cost(
+        h_sg, h_vp[h_vi], h_tm[h_ti], h_vi, 64 + 4 + 4 + 1,
+        h_tm.nbytes + h_vp.nbytes + args[1].numel())
+
+
 def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
     """(bytes, operations) of a raw-lane verify (K5) over these lanes.
     Per lane: SHA-512 of R || A || M; two decompressions; [s]B as 21 mixed
@@ -793,14 +1134,10 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     require(torch.equal(got, want), "K1 != plain at the main path's shape")
     require(bool(got[:len(idxs)].all()), "K1 rejected a valid replay lane")
     err = max_abs_err(got, want)
-    # args: tables, pub_ok, key matrix, val_idx, tmpl_idx, templates, sigs
-    h_vp, h_vi, h_ti, h_tm, h_sg = (a.cpu().numpy() for a in args[2:7])
-    nbytes, ops = _grouped_verify_cost(
-        h_sg, h_vp[h_vi], h_tm[h_ti], h_vi, 64 + 4 + 4 + 1,
-        h_tm.nbytes + h_vp.nbytes + args[1].numel())
     rows.append(("verify_grouped_templated", "verify_grouped.cu",
                  "tendermint_tpu/ops/ed25519.py:153", "K1", ms, plain_ms,
-                 err, nbytes, ops, f"{n} lanes, {h_tm.shape[0]} templates"))
+                 err, *_templated_cost(args),
+                 f"{n} lanes, {args[5].shape[0]} templates"))
 
     # K1 with per-lane keys and messages at a vote burst's shape
     vargs, _ = vote_burst(dev)
@@ -943,9 +1280,143 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     return out
 
 
+def _entry(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops,
+           what) -> dict:
+    """One entry of the kernels line, logged with its bound."""
+    bound_ms, bound_by = _bound(nbytes, ops)
+    log(f"[kernels] {name} at {what}: {ms:.3f} ms == plain (max abs err "
+        f"{err}; plain {plain_ms:.1f} ms), bound {bound_ms:.4f} ms by "
+        f"{bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G int ops; "
+        f"{launches} launches on the main path")
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _tally_cost(pubs, msgs, sigs, rows: int) -> tuple:
+    """(bytes, operations) of K6: K5's lanes, plus each lane's int64 power
+    read and each row's tally and block_ok written."""
+    nbytes, ops = _raw_verify_cost(pubs, msgs, sigs)
+    return nbytes + 8 * len(pubs) + 9 * rows + 8, ops
+
+
+def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
+                       launches: dict) -> list:
+    """K6 at the flat batch's shape against its plain version, then per
+    mesh the whole call of each mesh function (rows 8-11) against the same
+    call with the kernels' plain versions swapped in."""
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.ops import sha256 as s256
+    sharding_py = "tendermint_tpu_torch/parallel/sharding.py"
+    jax_sharding = "tendermint_tpu/parallel/sharding.py"
+    base = ed.base_table(mesh_in["flat"][0].device)
+    flat, grid = mesh_in["flat"], mesh_in["grid"]
+    n = flat[0].shape[0]
+    host_flat = [a.cpu().numpy() for a in flat[:3]]
+    flat_cost = _tally_cost(*host_flat, 1)
+    nb = grid[0].shape[0]
+    host_grid = [a.cpu().numpy().reshape(n, -1) for a in grid[:3]]
+    k6_grid = _tally_cost(*host_grid, nb)
+    grid_cost = [a + b for a, b in zip(
+        k6_grid, _roots_cost(nb, MESH_LEAVES, LEAF_LEN))]
+    trees_cost = _roots_cost(TREES, LEAVES, LEAF_LEN)
+    k6 = (ed, "verify_tally", ed.verify_tally_plain)
+    k4 = (merkle, "sha256_prefixed", s256.sha256_prefixed_plain)
+    k1 = (ed, "verify_grouped", ed.verify_grouped_plain)
+    k1t = (ed, "verify_grouped_templated", ed.verify_grouped_templated_plain)
+
+    ms, got = cuda_ms(lambda: ed.verify_tally(*flat, 1, 0, base), 10)
+    plain_ms, want = cuda_ms(lambda: ed.verify_tally_plain(*flat, 1, 0,
+                                                           base), 0)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"K6 != plain at {n} lanes")
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    out = [_entry("verify_tally", "tendermint_tpu_torch/csrc/verify_tally.cu",
+                  f"{jax_sharding}:84", launches["K6"], err, ms, plain_ms,
+                  *flat_cost, f"{n} lanes x {flat[1].shape[1]} B, 1 row")]
+
+    # the mesh rows' reference: one replay window through the
+    # single-device path of `CudaBackend.verify_grouped_templated`
+    args, mask = mesh_ctxs[0]["calls"][0]
+    single = mesh_ctxs[0]["backend"]
+    ms, got = cuda_ms(lambda: ed.verify_grouped_templated(
+        *single.templated_args(*args)).cpu(), 3)
+    require(got[:len(mask)].tolist() == mask.tolist(),
+            "single-device window != the mesh's")
+    log(f"[kernels] one replay window ({len(mask)} lanes) on one device, "
+        f"single-device templated path, whole call: {ms:.3f} ms")
+
+    for ctx in mesh_ctxs:
+        label, lc = ctx["label"], ctx["launches"]
+        rows = (
+            ("sharded_verify_fn", 95, lambda: ctx["verify_fn"](*flat), (k6,),
+             lc["verify"]["K6"], flat_cost, f"{n} lanes"),
+            ("sharded_merkle_fn", 109, lambda: ctx["merkle_fn"](mk_ctx["data"]),
+             (k4,), lc["merkle"]["K4"], trees_cost,
+             f"{TREES} trees x {LEAVES} leaves"),
+            ("training_step_fn", 119, lambda: ctx["step_fn"](
+                *grid, mesh_in["leaves"], mesh_in["total"]), (k6, k4),
+             lc["step"]["K6"] + lc["step"]["K4"], grid_cost,
+             f"{nb} blocks x {N_VALS} lanes + {MESH_LEAVES} leaves"),
+        )
+        args, mask = ctx["calls"][0]
+        be, gargs = ctx["backend"], ctx["grouped_args"]
+        rows += (
+            ("sharded_grouped_verify_fn", 146,
+             lambda: be.verify_grouped(*gargs), (k1,),
+             lc["grouped"]["K1"], _window_cost(gargs),
+             f"one replay window via CudaBackend.verify_grouped, "
+             f"{len(mask)} lanes, messages assembled on the host"),
+            ("sharded_grouped_templated_verify_fn", 146,
+             lambda: be.verify_grouped_templated(*args), (k1t,),
+             lc["replay"]["K1"], _templated_cost(be.templated_args(*args)),
+             f"one replay window via CudaBackend.verify_grouped_"
+             f"templated, {len(mask)} lanes"),
+        )
+        for name, line, fn, swaps, n_launch, cost, what in rows:
+            ms, got = cuda_ms(fn, 3)
+            plain_ms, want = plain_cuda_ms(fn, swaps)
+            got, want = _flat_tuple(got), _flat_tuple(want)
+            require(all(_same(g, w) for g, w in zip(got, want)),
+                    f"{name} on {label}: kernels != plain")
+            err = max(max_abs_err(torch.as_tensor(g), torch.as_tensor(w))
+                      for g, w in zip(got, want))
+            out.append(_entry(f"{name} [{label}]", sharding_py,
+                              f"{jax_sharding}:{line}", n_launch, err, ms,
+                              plain_ms, *cost, what))
+    return out
+
+
+def _flat_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _same(a, b) -> bool:
+    import torch
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _window_cost(args) -> tuple:
+    """(bytes, operations) of K1 over one replay window with per-lane keys
+    and host-assembled messages (`verify_grouped`'s arguments), lanes
+    padded to the bucket by repeating lane 0."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto.backend import _bucket, _pad_rows
+    _, val_pubs, val_idx, msgs, sigs = args
+    b = _bucket(len(val_idx))
+    vi = _pad_rows(np.asarray(val_idx, np.int32), b)
+    msgs = _pad_rows(msgs, b)
+    return _grouped_verify_cost(_pad_rows(sigs, b), val_pubs[vi], msgs, vi,
+                                4 + 32 + msgs.shape[1] + 64 + 1,
+                                len(val_pubs))
+
+
 KERNEL_KEYS = {"verify_grouped": "K1", "build_neg_comb": "K2",
                "sign_grouped": "K3", "sha256_prefixed": "K4",
-               "verify_raw": "K5"}
+               "verify_raw": "K5", "verify_tally": "K6"}
 
 
 def read_launches(path: str, needed: tuple) -> dict:
@@ -976,6 +1447,7 @@ def main() -> int:
         return 2
     from tendermint_tpu_torch.crypto.backend import CudaBackend
     from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.parallel import sharding
     card = card_line()
     log(card)
     phase_build()
@@ -987,14 +1459,30 @@ def main() -> int:
     kernels.reset_launches()                # the mempool path starts here
     mp_ctx = phase_mempool(CudaBackend())
     mempool = read_launches("mempool", ("K1", "K2", "K3", "K5"))
+    mesh_in = mesh_inputs(rp_ctx)
+    card0 = torch.device("cuda", 0)
+    meshes = [sharding.make_mesh(), sharding.Mesh([card0] * 4)]
+    if torch.cuda.device_count() > 1:       # every card against card 0
+        meshes.insert(1, sharding.Mesh([card0]))
+    kernels.reset_launches()                # the mesh path starts here
+    mesh_ctxs = [phase_mesh(rp_ctx, mk_ctx, mesh_in, m) for m in meshes]
+    mesh = read_launches("mesh", ("K1", "K2", "K4", "K6"))
     phase_tamper(rp_ctx)
     check_merkle(mk_ctx)
     check_mempool(mp_ctx, mempool)
-    # per kernel, its launches on the paths that run it; K1 with per-lane
-    # keys runs on the mempool path only, templated K1 on the replay path
+    for ctx in mesh_ctxs:
+        check_mesh(rp_ctx, mk_ctx, mesh_in, ctx)
+    # per kernel, its launches on the paths that run it at the shapes its
+    # row is timed at: templated K1 on the replay path, K1 with per-lane
+    # keys on the mempool path, K4 on both; K2 at the replay set's shape
+    # on all three; K6 runs on the mesh path only.  The mesh's launches of
+    # K1 and K4, at the shards' shapes, stand in the mesh rows.
     launches = {k: replay[k] + mempool[k] for k in replay}
     launches["K1"], launches["K1p"] = replay["K1"], mempool["K1"]
+    launches["K2"] += mesh["K2"]
+    launches["K6"] = mesh["K6"]
     line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
+    line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

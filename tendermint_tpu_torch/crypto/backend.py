@@ -8,7 +8,13 @@ by repeating lane 0, and padded lanes are trimmed from every result.
 
 `CudaBackend` runs on the card unless the caller passes device="cpu", in
 which case every kernel wrapper runs its plain PyTorch version; with no
-card it refuses to start.
+card it refuses to start.  Given a `parallel.sharding.Mesh`, its large
+grouped verifies split their lanes over the mesh, with the comb tables
+replicated on every mesh device; a templated batch keeps its device-side
+gather of keys and messages on every shard.  Unlike the JAX package's
+`TpuBackend`, it builds no mesh of its own on a multi-card host: on four
+H100s one replay window verified more slowly split over the cards than
+on one.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from tendermint_tpu_torch.crypto import pure_ed25519 as _ref
 from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import ed25519 as ed
 from tendermint_tpu_torch.ops import merkle
+from tendermint_tpu_torch.parallel import sharding
 
 MIN_BUCKET = 16
 
@@ -84,7 +91,8 @@ class PythonBackend:
 
 class CudaBackend:
     """The port's CUDA kernels (`ops.ed25519`, `ops.merkle`) with shape
-    bucketing and a per-validator-set comb-table cache."""
+    bucketing, a per-validator-set comb-table cache and, with a mesh, the
+    sharded grouped verify (`parallel.sharding`)."""
     name = "cuda"
 
     # Comb tables are ~2.5 MB per validator (uint8), so the cache is
@@ -92,15 +100,29 @@ class CudaBackend:
     # set costs ~327 MB, an 8-validator light chain ~41 MB.
     TABLE_CACHE_BYTES = 4 << 30
 
-    def __init__(self, device: str | torch.device = "cuda"):
+    # below this many lanes per device the split costs more than the
+    # parallelism buys (single gossiped votes stay on one device)
+    MIN_LANES_PER_DEVICE = 1024
+
+    def __init__(self, device: str | torch.device = "cuda",
+                 mesh: sharding.Mesh | None = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CudaBackend: no CUDA device available (pass device='cpu' "
                 "to run the plain PyTorch versions of the kernels)")
+        self._mesh = mesh
         self._base = ed.base_table(self.device)
+        if mesh is not None:
+            self._base_mesh = sharding.replicate(mesh, self._base)
+            self._sharded_verify = sharding.sharded_grouped_verify_fn(mesh)
+            self._sharded_templated = \
+                sharding.sharded_grouped_templated_verify_fn(mesh)
         # set_key -> (tables, pub_ok, real set size, padded key matrix)
         self._tables: dict[bytes, tuple] = {}
+        # set_key -> (tables, pub_ok, padded key matrix) replicated over
+        # the mesh, installed and evicted with the `_tables` entry
+        self._replicas: dict[bytes, tuple] = {}
         # digest of the seed set -> (a, prefix, pubkey) matrices
         self._sign_keys: dict[bytes, tuple] = {}
         self._lock = threading.Lock()
@@ -115,15 +137,33 @@ class CudaBackend:
 
     def _install(self, set_key: bytes, tbl: torch.Tensor, ok: torch.Tensor,
                  v: int, padded_pubs: np.ndarray) -> tuple:
+        """Cache a set's tables (and, with a mesh, one replica per distinct
+        mesh device); FIFO eviction past TABLE_CACHE_BYTES per device."""
         ent = (tbl, ok, v, self._t(padded_pubs))
+        reps = self._replicate(ent) if self._mesh is not None else None
         with self._lock:
             resident = sum(e[0].numel() for e in self._tables.values())
             while (self._tables and
                    resident + tbl.numel() > self.TABLE_CACHE_BYTES):
                 oldest = next(iter(self._tables))
                 resident -= self._tables.pop(oldest)[0].numel()
+                self._replicas.pop(oldest, None)
             self._tables[set_key] = ent
+            if reps is not None:
+                self._replicas[set_key] = reps
         return ent
+
+    def _replicate(self, ent: tuple) -> tuple:
+        """A cache entry's tables, pub_ok and padded key matrix, one
+        replica per mesh shard (one copy per distinct device)."""
+        tbl, ok, _, vp = ent
+        return tuple(sharding.replicate(self._mesh, x) for x in (tbl, ok, vp))
+
+    def _mesh_tables(self, set_key: bytes, ent: tuple) -> tuple:
+        with self._lock:
+            reps = self._replicas.get(set_key)
+        # None: evicted since `tables` returned the entry
+        return reps if reps is not None else self._replicate(ent)
 
     def tables(self, set_key: bytes, val_pubs: np.ndarray) -> tuple:
         """Fetch or build the comb tables for a key set: (tables, pub_ok,
@@ -204,34 +244,60 @@ class CudaBackend:
                 self._t(_pad_rows(tmpl_idx, b)), self._templates(templates),
                 self._t(_pad_rows(sigs, b)), self._base)
 
+    def _mesh_eligible(self, bucket: int) -> bool:
+        if self._mesh is None:
+            return False
+        n_dev = self._mesh.size
+        return (bucket % n_dev == 0 and
+                bucket >= self.MIN_LANES_PER_DEVICE * n_dev)
+
     def verify_grouped_templated(self, set_key, val_pubs, val_idx, tmpl_idx,
                                  templates, sigs) -> np.ndarray:
         """Grouped verify shipping only (sig, val_idx, tmpl_idx) lanes plus
         T message templates; messages and keys are gathered on the device
-        (kernel K1)."""
+        (kernel K1).  A bucket of at least MIN_LANES_PER_DEVICE lanes per
+        mesh device splits its lanes over the mesh, with the templates
+        replicated (`sharding.sharded_grouped_templated_verify_fn`)."""
         n = len(val_idx)
         if n == 0:
             return np.zeros(0, dtype=bool)
-        out = ed.verify_grouped_templated(*self.templated_args(
-            set_key, val_pubs, val_idx, tmpl_idx, templates, sigs))
+        b = _bucket(n)
+        if not self._mesh_eligible(b):
+            out = ed.verify_grouped_templated(*self.templated_args(
+                set_key, val_pubs, val_idx, tmpl_idx, templates, sigs))
+            return out.cpu().numpy()[:n]
+        ent = self.tables(set_key, val_pubs)
+        val_idx = self._check_idx("val_idx", val_idx, len(val_pubs))
+        tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx, len(templates))
+        tbl, ok, vp = self._mesh_tables(set_key, ent)
+        out = self._sharded_templated(
+            tbl, ok, vp, _pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
+            sharding.replicate(self._mesh, self._templates(templates)),
+            _pad_rows(sigs, b), self._base_mesh)
         return out.cpu().numpy()[:n]
 
     def verify_grouped(self, set_key, val_pubs, val_idx, msgs,
                        sigs) -> np.ndarray:
         """Lane i checks sigs[i] on msgs[i] by val_pubs[val_idx[i]] against
         the set's comb tables (kernel K1 with per-lane keys and messages);
-        lanes padded to a power of two by repeating lane 0."""
+        lanes padded to a power of two by repeating lane 0.  With a mesh,
+        a bucket of at least MIN_LANES_PER_DEVICE lanes per device splits
+        over it (`sharding.sharded_grouped_verify_fn`: K1 per shard against
+        the replicated tables)."""
         n = len(val_idx)
         if n == 0:
             return np.zeros(0, dtype=bool)
-        tbl, ok, _, _ = self.tables(set_key, val_pubs)
+        ent = self.tables(set_key, val_pubs)
         val_idx = self._check_idx("val_idx", val_idx, len(val_pubs))
         b = _bucket(n)
-        out = ed.verify_grouped(
-            tbl, ok, self._t(_pad_rows(val_idx, b)),
-            self._t(_pad_rows(val_pubs[val_idx], b)),
-            self._t(_pad_rows(msgs, b)), self._t(_pad_rows(sigs, b)),
-            self._base)
+        lanes = tuple(_pad_rows(a, b) for a in (val_idx, val_pubs[val_idx],
+                                                msgs, sigs))
+        if not self._mesh_eligible(b):
+            out = ed.verify_grouped(*ent[:2], *map(self._t, lanes),
+                                    self._base)
+            return out.cpu().numpy()[:n]
+        tbl, ok, _ = self._mesh_tables(set_key, ent)
+        out = self._sharded_verify(tbl, ok, *lanes, self._base_mesh)
         return out.cpu().numpy()[:n]
 
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:

@@ -11,7 +11,10 @@ Twin of `tendermint_tpu/ops/ed25519.py`'s entry points:
 * `sign_grouped_templated` (K3, `csrc/sign_grouped.cu`): RFC 8032 signing;
 * `verify_batch` (K5, `csrc/verify_raw.cu`): raw lanes, each with its own
   key: decompress A and R, [s]B + [k](-A) by a 4-bit-window ladder, and a
-  projective comparison with R, masked by both decompressions and s < L.
+  projective comparison with R, masked by both decompressions and s < L;
+* `verify_tally` (K6, `csrc/verify_tally.cu`): K5's lanes over a grid of
+  rows, with each row's int64 voting-power tally of its valid lanes and
+  its quorum check (`parallel/sharding.py`'s verify and tally).
 
 Each wrapper validates its arguments and, on CUDA tensors, launches its
 kernel (or raises); on CPU tensors it runs the plain twin, which follows
@@ -64,6 +67,23 @@ def verify_batch_plain(pubkeys, msgs, sigs, base_tbl) -> torch.Tensor:
     challenge = torch.cat([sigs[..., :32], pubkeys, msgs], dim=-1)
     k = sc.reduce512(s512.sha512(challenge))
     return verify_core(pubkeys, sigs, k, base_tbl)
+
+
+def verify_tally_plain(pubkeys, msgs, sigs, powers, rows, total_power,
+                       base_tbl) -> tuple:
+    """`verify_batch_plain` over `rows` rows of N / rows lanes, then per
+    row, in int64: tallied = the powers of the valid lanes summed, and
+    block_ok = every lane valid or of power 0, and tallied * 3 >
+    total_power * 2 (reference `sharding.training_step_fn`'s step, whose
+    int32 sums the port does not copy) -> (ok[N], tallied[rows],
+    block_ok[rows])."""
+    ok = verify_batch_plain(pubkeys, msgs, sigs, base_tbl)
+    shape = (rows, ok.shape[0] // rows)
+    grid_ok, grid_pw = ok.view(shape), powers.view(shape)
+    tallied = torch.where(grid_ok, grid_pw, 0).sum(-1, dtype=torch.int64)
+    sig_ok = (grid_ok | (grid_pw == 0)).all(-1)
+    total = torch.tensor(int(total_power), dtype=torch.int64)
+    return ok, tallied, sig_ok & (tallied * 3 > total * 2)
 
 
 def verify_grouped_plain(tables, pub_ok, val_idx, pubkeys, msgs, sigs,
@@ -207,6 +227,44 @@ def verify_batch(pubkeys, msgs, sigs, base_tbl) -> torch.Tensor:
         kernels.launch("verify_raw", pubkeys, msgs, msgs.shape[1], sigs,
                        base_tbl, out, n)
     return out
+
+
+MAX_TALLY_ROWS = 65535          # the grid's y dimension
+
+
+def verify_tally(pubkeys, msgs, sigs, powers, rows, total_power,
+                 base_tbl) -> tuple:
+    """Lane i checks sigs[i] on msgs[i] by pubkeys[i] (as `verify_batch`),
+    over `rows` rows of N / rows lanes; each row's int64 `powers` of its
+    valid lanes are summed and its quorum checked against `total_power` ->
+    (ok bool[N], tallied int64[rows], block_ok bool[rows]).  K6 on CUDA
+    tensors; the plain twin on CPU tensors."""
+    _check_base(base_tbl)
+    kernels.check(sigs, "sigs", U8, 2)
+    kernels.check(pubkeys, "pubkeys", U8, 2)
+    kernels.check(msgs, "msgs", U8, 2)
+    kernels.check(powers, "powers", torch.int64, 1)
+    n = sigs.shape[0]
+    if sigs.shape[1] != 64 or pubkeys.shape != (n, 32) or \
+            msgs.shape[0] != n or powers.shape[0] != n:
+        raise ValueError("verify_tally: expected pubkeys [N, 32], msgs "
+                         "[N, M], sigs [N, 64], powers [N]")
+    if not 0 < rows <= MAX_TALLY_ROWS or n % rows:
+        raise ValueError(f"verify_tally: {n} lanes do not split into "
+                         f"{rows} rows (1 to {MAX_TALLY_ROWS})")
+    if sigs.device.type == "cpu":
+        return verify_tally_plain(pubkeys, msgs, sigs, powers, rows,
+                                  total_power, base_tbl)
+    dev = sigs.device
+    total = torch.tensor([int(total_power)], dtype=torch.int64, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    tallied = torch.zeros(rows, dtype=torch.int64, device=dev)
+    counts = torch.zeros((2, rows), dtype=I32, device=dev)  # bad, done
+    block_ok = torch.empty(rows, dtype=torch.bool, device=dev)
+    kernels.launch("verify_tally", pubkeys, msgs, msgs.shape[1], sigs,
+                   powers, base_tbl, total, rows, n // rows, ok, tallied,
+                   counts[0], counts[1], block_ok)
+    return ok, tallied, block_ok
 
 
 def verify_grouped_templated(tables, pub_ok, val_pubs, val_idx, tmpl_idx,

@@ -38,6 +38,7 @@ _ENTRY = {
     "sign_grouped": ("tm_sign_grouped", "pppipppiippi"),
     "sha256_prefixed": ("tm_sha256_prefixed", "piipi"),
     "verify_raw": ("tm_verify_raw", "ppipppi"),
+    "verify_tally": ("tm_verify_tally", "ppippppiippppp"),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}
