@@ -13,7 +13,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    edge-case inputs, bytes and bools exactly equal (K4 also against
    hashlib, K3 also against the golden RFC 8032 signer, K1 on adversarial
    lanes and on a vote burst with per-lane keys, K5 on edge lanes at
-   32- and 96-byte messages against the golden verifier, K6 on edge lanes
+   32- and 96-byte messages against the golden verifier at 1, 3, 7, 9,
+   12, 33 and 200 lanes (not multiples of its 4-thread quads or 32-lane
+   blocks), K6 on edge lanes
    with mixed powers at 4,096 lanes in one row and 40 rows of 100);
 3. the main paths, each with every launch count set to 0 just before it
    and read just after it:
@@ -45,10 +47,14 @@ Phases, in order; any mismatch or exception exits non-zero:
    entry re-verified by the plain version), and hold each mesh's results
    against K5's mask, numpy int64 tallies and quorums, the single-device
    roots and the single-device replay's masks and app hash;
-5. one `kernels` JSON line: per kernel its launches on the main paths,
-   its time and its plain version's at the main path's shapes, the two
-   results held exactly equal there, and its bound; per mesh, the whole
-   call of each mesh function likewise.
+5. one `kernels` JSON line: per kernel its launches on the main paths
+   at the shape its entry is timed at, its time and its plain version's
+   at the main path's shapes, the two results held exactly equal there,
+   and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
+   entry at the mempool's 64); per mesh, the whole call of each mesh
+   function likewise.  Logged beside it: a clock64 microkernel's cycles
+   per dependent field product and quad doubling in one warp, built with
+   K5's and with K6's settings.
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -126,6 +132,141 @@ def phase_build() -> None:
         if (line.startswith("==") or "registers" in line
                 or "spill" in line or "Compiling entry" in line):
             log(f"[build] {line.strip()}")
+
+
+# A diagnostic microkernel: one warp runs a chain of dependent field
+# products (where the kernel has field code) and of quad doublings (where
+# it has the quad lane body), timed with clock64() on the card.  It is
+# compiled in one translation unit with a kernel's source, so its
+# products and quad steps are built with that kernel's settings (inline
+# or out of line, and its launch bounds' register cap).
+MICRO_CU = r"""
+#include "%(kernel)s.cu"
+#ifdef FE_BITS
+#if defined(RAW_BLOCK) && defined(RAW_MIN_BLOCKS)
+#define MICRO_BOUNDS __launch_bounds__(RAW_BLOCK, RAW_MIN_BLOCKS)
+#else
+#define MICRO_BOUNDS
+#endif
+__global__ void MICRO_BOUNDS fe_mul_chain(const int32_t* in, int32_t* out,
+                                          long long* cycles, int n) {
+  int t = threadIdx.x;
+  fe f, g;
+  for (int i = 0; i < 10; i++) {
+    f.v[i] = in[20 * t + i];
+    g.v[i] = in[20 * t + 10 + i];
+  }
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++) f = fe_mul(f, g);
+  long long t1 = clock64();
+  for (int i = 0; i < 10; i++) out[10 * t + i] = f.v[i];
+  if (t == 0) cycles[0] = t1 - t0;
+}
+#ifdef RAW_QUAD
+__global__ void MICRO_BOUNDS quad_dbl_chain(const int32_t* in, int32_t* out,
+                                            long long* cycles, int n) {
+  int t = threadIdx.x;
+  quad_ctx c;
+  c.q = t & 3;
+  c.mask = 0xfu << (t & 28);
+  fe p;
+  for (int i = 0; i < 10; i++) p.v[i] = in[20 * t + i];
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++) p = quad_dbl(c, p);
+  long long t1 = clock64();
+  for (int i = 0; i < 10; i++) out[10 * t + i] = p.v[i];
+  if (t == 0) cycles[1] = t1 - t0;
+}
+#endif
+extern "C" int tm_micro(const int32_t* in, int32_t* out, long long* cycles,
+                        int n, void* stream) {
+  fe_mul_chain<<<1, 32, 0, (cudaStream_t)stream>>>(in, out, cycles, n);
+#ifdef RAW_QUAD
+  quad_dbl_chain<<<1, 32, 0, (cudaStream_t)stream>>>(in, out + 320, cycles,
+                                                     n);
+#endif
+  return (int)cudaGetLastError();
+}
+#else
+extern "C" int tm_micro(const int32_t*, int32_t*, long long*, int, void*) {
+  return 0;
+}
+#endif
+"""
+FE_OFFSETS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
+FE_P = 2**255 - 19
+
+
+def _fe_value(limbs) -> int:
+    return sum(int(v) << s for v, s in zip(limbs, FE_OFFSETS)) % FE_P
+
+
+def _dbl_hwcd(x, y, z):
+    """dbl-2008-hwcd on integers mod p (T is not read)."""
+    a, b, zz = x * x, y * y, z * z
+    e, g = (x + y) ** 2 - a - b, b - a
+    f, h = g - 2 * zz, -(a + b)
+    return tuple(v % FE_P for v in (e * f, g * h, f * g, e * h))
+
+
+def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
+    """Build the microkernel with `kernel`'s source (`csrc/<kernel>.cu`)
+    and extra nvcc `flags`, run it on card 0 and return cycles per
+    dependent `fe_mul` and per `quad_dbl` (None without field code or
+    without the quad body), each result checked against integers mod p."""
+    import ctypes
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import kernels
+    csrc = Path(csrc).resolve()
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="micro-", dir=kernels.BUILD_DIR))
+    (work / "micro.cu").write_text(MICRO_CU % {"kernel": kernel})
+    so = work / "micro.so"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", str(csrc),
+           "-shared", "-o", str(so), str(work / "micro.cu")]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"microkernel build failed:\n{out.stdout}"
+                           f"{out.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.tm_micro.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
+    rng = np.random.default_rng(SEED)
+    limbs = rng.integers(0, 1 << 25, (32, 20), dtype=np.int64)
+    dev = torch.device("cuda", 0)
+    inp = torch.as_tensor(limbs.astype(np.int32), device=dev)
+    res = torch.zeros((64, 10), dtype=torch.int32, device=dev)
+    cyc = torch.full((2,), -1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for _ in range(2):                      # the second run is timed
+        rc = lib.tm_micro(inp.data_ptr(), res.data_ptr(), cyc.data_ptr(), n,
+                          ctypes.c_void_p(stream))
+        require(rc == 0, f"microkernel launch failed, error {rc}")
+        torch.cuda.synchronize()
+    got, cycles = res.cpu().numpy(), cyc.cpu().tolist()
+    result = {"fe_mul_cycles": None, "quad_dbl_cycles": None}
+    if cycles[0] < 0:
+        return result
+    for t in range(32):
+        f, g = _fe_value(limbs[t, :10]), _fe_value(limbs[t, 10:])
+        require(_fe_value(got[t]) == f * pow(g, n, FE_P) % FE_P,
+                f"microkernel fe_mul chain wrong on thread {t}")
+    result["fe_mul_cycles"] = cycles[0] / n
+    if cycles[1] >= 0:
+        for b in range(0, 32, 4):
+            pt = [_fe_value(limbs[b + q, :10]) for q in range(3)]
+            for _ in range(n):
+                pt = _dbl_hwcd(*pt[:3])
+            require([_fe_value(got[32 + b + q]) for q in range(4)]
+                    == list(pt), f"microkernel quad_dbl chain wrong at "
+                    f"quad {b // 4}")
+        result["quad_dbl_cycles"] = cycles[1] / n
+    return result
 
 
 # -- kernels against their plain versions on edge cases ------------------
@@ -246,11 +387,12 @@ def phase_check() -> None:
         f"vote burst: {len(golden)} lanes, {sum(golden)} valid, Vb "
         f"{args[0].shape[2]}")
 
-    # K5 on edge lanes, at both message lengths, N = 1 and a ragged N
+    # K5 on edge lanes, at both message lengths, at lane counts that are
+    # not multiples of a quad (4 threads) or a block (32 lanes)
     for msg_len in (32, 96):
         lanes = edge_lanes(msg_len, rng)
         golden = [ref.verify(*x) for x in lanes]
-        for n in (len(lanes), 1, 200):
+        for n in K5_CHECK_LANES:
             rows = [lanes[i % len(lanes)] for i in range(n)]
             raw = tuple(t(np.frombuffer(b"".join(x[k] for x in rows),
                                         np.uint8).reshape(n, -1).copy())
@@ -262,7 +404,7 @@ def phase_check() -> None:
                                      for i in range(n)],
                     f"K5 != golden (M {msg_len}, N {n})")
         log(f"[check] K5 verify_raw == plain == golden on {len(lanes)} edge "
-            f"lanes x M {msg_len} at N = {len(lanes)}, 1, 200 "
+            f"lanes x M {msg_len} at N = {K5_CHECK_LANES} "
             f"({sum(golden)} valid)")
 
     # K6 on the edge lanes (128-byte sign-bytes) with mixed powers: 4,096
@@ -297,6 +439,9 @@ def phase_check() -> None:
             f"quorums) == K5 == golden on {n} edge lanes x M "
             f"{canonical.SIGN_BYTES_LEN} in {rows} rows, mixed powers, 3 totals "
             f"({passed} row quorums passed)")
+
+
+K5_CHECK_LANES = (12, 1, 3, 7, 9, 33, 200)
 
 
 def edge_lanes(msg_len: int, rng) -> list:
@@ -587,6 +732,7 @@ def phase_mempool(be, mix: dict = MEMPOOL_MIX, round_size: int =
     per-lane keys), and one block per round applied with the real
     mempool."""
     import random
+    from tendermint_tpu_torch.crypto.backend import _bucket
     from tendermint_tpu_torch.scenarios import ingress, loadgen
     t0 = time.perf_counter()
     corpus = loadgen.build_corpus(random.Random(SEED), loadgen.Mix(**mix),
@@ -599,6 +745,10 @@ def phase_mempool(be, mix: dict = MEMPOOL_MIX, round_size: int =
     admitted = sum(x[0] == "admitted" for x in run.results)
     raw = [(r, n) for k, r, n in run.flushes if k == "raw"]
     sizes = sorted(n for _, n in raw) or [0]
+    buckets = {}
+    for n in sizes:
+        b = _bucket(n)
+        buckets[b] = buckets.get(b, 0) + 1
     log(f"[mempool] corpus of {len(corpus)} submissions ({mix['signed']} "
         f"signed, {mix['bad_sig']} bad-signature, {mix['unsigned']} "
         f"unsigned, {mix['dup_frac']} duplicated) signed on the card (K3) "
@@ -614,10 +764,12 @@ def phase_mempool(be, mix: dict = MEMPOOL_MIX, round_size: int =
         f"{sum(r == 'full' for r, _ in raw)} full, "
         f"{sum(r == 'deadline' for r, _ in raw)} deadline), lanes per "
         f"flush min {sizes[0]} / p50 {_pctl(sizes, 0.5)} / p99 "
-        f"{_pctl(sizes, 0.99)} / max {sizes[-1]}; the plane's raw verify "
+        f"{_pctl(sizes, 0.99)} / max {sizes[-1]}, K5 launches by padded "
+        f"size {dict(sorted(buckets.items()))}; the plane's raw verify "
         f"calls (pad, H2D, K5, D2H) took {timed.seconds:.3f} s of the "
         f"ingress, {timed.seconds / len(raw) * 1e3:.3f} ms each")
-    return {"corpus": corpus, "run": run, "backend": be}
+    return {"corpus": corpus, "run": run, "backend": be,
+            "k5_by_size": buckets}
 
 
 def check_mempool(mp_ctx: dict, launches: dict) -> None:
@@ -1105,6 +1257,10 @@ def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
     return nbytes, ops
 
 
+K5_TIMED_LANES = (32, 64, 1024, 4096, 65536)
+K5_ROW_LANES = 64
+
+
 def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
                   mp_ctx: dict) -> list:
     """Time each kernel and its plain version at the main path's shapes,
@@ -1113,6 +1269,7 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     import torch
     from tendermint_tpu_torch.blockchain import replay as rp
     from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import kernels
     from tendermint_tpu_torch.ops import sha256 as s256
     from tendermint_tpu_torch.types import canonical
     from tendermint_tpu_torch.types.validator import window_commit_lanes
@@ -1157,8 +1314,9 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
                  err, nbytes, ops, f"{n} lanes x {h_ms.shape[1]} B, Vb "
                  f"{vargs[0].shape[2]}"))
 
-    # K5 at the plane's largest flush (4,096 of the mempool's signed
-    # lanes), timed also at its target (1,024) and at 65,536 lanes
+    # K5 at the mempool's padded flush sizes (32 and 64 lanes: its
+    # deadline flushes of ~30-60 lanes), its row's shape, and beside them
+    # at the plane's target (1,024), cap (4,096) and at 65,536 lanes
     from tendermint_tpu_torch.mempool.mempool import (_priority_digest,
                                                       parse_signed_tx)
     parsed = [parse_signed_tx(bytes.fromhex(e["tx"]))
@@ -1171,24 +1329,32 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
            lane(lambda p: p[2], 64))
     base = ed.base_table(dev)
     lanes = {n: tuple(np.tile(a, (-(-n // len(a)), 1))[:n] for a in raw)
-             for n in (1024, 4096, 65536)}
+             for n in K5_TIMED_LANES}
     k5_ms = {}
     for n, h in lanes.items():
         rargs = tuple(torch.as_tensor(a.copy(), device=dev) for a in h)
         k5_ms[n], got = cuda_ms(lambda: ed.verify_batch(*rargs, base), 10)
-        if n == 4096:
+        if n == K5_ROW_LANES:
             plain_ms, want = cuda_ms(
                 lambda: ed.verify_batch_plain(*rargs, base), 1)
-            require(torch.equal(got, want), "K5 != plain at 4,096 lanes")
+            require(torch.equal(got, want),
+                    f"K5 != plain at {n} lanes")
             err = max_abs_err(got, want)
-    for n in (1024, 65536):
+    for n in K5_TIMED_LANES:
         b_ms, b_by = _bound(*_raw_verify_cost(*lanes[n]))
         log(f"[kernels] K5 verify_raw at {n} lanes x 32 B: {k5_ms[n]:.3f} "
             f"ms, bound {b_ms:.4f} ms by {b_by}")
-    nbytes, ops = _raw_verify_cost(*lanes[4096])
+    nbytes, ops = _raw_verify_cost(*lanes[K5_ROW_LANES])
     rows.append(("verify_raw", "verify_raw.cu",
-                 "tendermint_tpu/ops/ed25519.py:46", "K5", k5_ms[4096],
-                 plain_ms, err, nbytes, ops, "4096 lanes x 32 B"))
+                 "tendermint_tpu/ops/ed25519.py:46", "K5",
+                 k5_ms[K5_ROW_LANES], plain_ms, err, nbytes, ops,
+                 f"{K5_ROW_LANES} lanes x 32 B"))
+    for key, kernel in (("K5", "verify_raw"), ("K6", "verify_tally")):
+        micro = fe_mul_cycles(kernels.CSRC, kernel)
+        log(f"[kernels] one warp on the card, {key}'s build: "
+            f"{micro['fe_mul_cycles']:.1f} cycles per dependent fe_mul, "
+            f"{micro['quad_dbl_cycles']:.1f} per dependent quad doubling "
+            f"(clock64 microkernel)")
 
     # K2 at the replay set's shape (100 keys; padding copies column 0)
     pubs = be._t(vals.pubs_matrix())
@@ -1475,10 +1641,13 @@ def main() -> int:
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 on both; K2 at the replay set's shape
-    # on all three; K6 runs on the mesh path only.  The mesh's launches of
-    # K1 and K4, at the shards' shapes, stand in the mesh rows.
+    # on all three; K5's raw flushes padded to its row's 64 lanes (one
+    # launch per flush, as check_mempool holds); K6 runs on the mesh path
+    # only.  The mesh's launches of K1 and K4, at the shards' shapes,
+    # stand in the mesh rows.
     launches = {k: replay[k] + mempool[k] for k in replay}
     launches["K1"], launches["K1p"] = replay["K1"], mempool["K1"]
+    launches["K5"] = mp_ctx["k5_by_size"].get(K5_ROW_LANES, 0)
     launches["K2"] += mesh["K2"]
     launches["K6"] = mesh["K6"]
     line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)

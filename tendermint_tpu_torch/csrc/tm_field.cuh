@@ -80,8 +80,15 @@ TM_DEV fe fe_neg(const fe& f) { return fe_sub(fe_zero(), f); }
 
 // Kept out of line: a verify lane runs ~600 products, and one shared body
 // keeps the kernels' code (and nvcc's time) small.  Arguments by value pass
-// in registers.
-static __device__ __noinline__ fe fe_mul(fe f, fe g) {
+// in registers.  A kernel that defines TM_FE_MUL_INLINE before including
+// this header gets the products inline instead (K5: a one- or two-block
+// launch, where the lane's latency is the time).
+#ifdef TM_FE_MUL_INLINE
+#define TM_FE_MUL static __device__ __forceinline__
+#else
+#define TM_FE_MUL static __device__ __noinline__
+#endif
+TM_FE_MUL fe fe_mul(fe f, fe g) {
   int32_t g19[10], f2[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) {
@@ -105,10 +112,37 @@ static __device__ __noinline__ fe fe_mul(fe f, fe g) {
   return fe_carry(h);
 }
 
-TM_DEV fe fe_sq(fe f) { return fe_mul(f, f); }
+// f^2 in 55 wide multiplies: each cross product f_i f_j (i < j) once,
+// doubled through its operand (2f, or 4f for odd x odd), with 19f for
+// limbs past 2^255.  Operands stay in int32 (4f < 2^29, 19f < 2^31 for
+// limbs below 2^26.7) and each column is fe_mul's column, so the same
+// int64 bound holds.
+TM_FE_MUL fe fe_sq(fe f) {
+  int32_t f2[10], f4[10], f19[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    f2[i] = 2 * f.v[i];
+    f4[i] = 4 * f.v[i];
+    f19[i] = 19 * f.v[i];
+  }
+  int64_t h[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      int m = (i == j ? 1 : 2) * ((i & j & 1) ? 2 : 1);
+      int32_t a = m == 1 ? f.v[i] : (m == 2 ? f2[i] : f4[i]);
+      int32_t b = (i + j >= 10) ? f19[j] : f.v[j];
+      h[(i + j) % 10] += (int64_t)a * b;
+    }
+  }
+  return fe_carry(h);
+}
 
 static __device__ __noinline__ fe fe_sqn(fe f, int n) {
-  for (int i = 0; i < n; i++) f = fe_mul(f, f);
+  for (int i = 0; i < n; i++) f = fe_sq(f);
   return f;
 }
 

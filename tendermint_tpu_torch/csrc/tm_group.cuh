@@ -80,13 +80,6 @@ static __device__ __forceinline__ ge ge_neg(const ge& p) {
   return r;
 }
 
-// Projective equality: X1*Z2 == X2*Z1 and Y1*Z2 == Y2*Z1, each compared
-// canonically (tendermint_tpu/ops/curve.py pt_eq).
-static __device__ bool ge_eq(const ge& p, const ge& q) {
-  return fe_eq(fe_mul(p.X, q.Z), fe_mul(q.X, p.Z)) &&
-         fe_eq(fe_mul(p.Y, q.Z), fe_mul(q.Y, p.Z));
-}
-
 // 96 bytes (y+x, y-x, 2dxy) -> precomputed entry
 static __device__ __forceinline__ ge_aff ge_aff_load(const uint8_t* p) {
   ge_aff r;

@@ -15,6 +15,7 @@ happens — so a run can show which kernels its main path went through.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections.abc import Sequence
 from pathlib import Path
 
 import torch
@@ -60,28 +62,35 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+def _digest(csrc: Path, flags: list, sources: list) -> str:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
+    h.update(" ".join(p.name for p in sources).encode())
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, str]:
-    """Compile and link the kernels (or reuse a build of the same sources).
-    Returns (library path, the compiler's `-Xptxas -v` report)."""
-    so = BUILD_DIR / f"libtm_kernels-{_digest()}.so"
+def build(csrc: Path = CSRC, flags: Sequence[str] = (),
+          only: Sequence[str] | None = None) -> tuple[Path, str]:
+    """Compile and link the kernels of the source directory `csrc` (all of
+    them, or the kernels named in `only`: kernel `k` is `csrc/k.cu`), with
+    `flags` after NVCC_FLAGS, or reuse a build of the same sources and
+    flags.  Returns (library path, the compiler's `-Xptxas -v` report, one
+    `== <file>.cu` section per source)."""
+    csrc, flags = Path(csrc), list(flags)
+    sources = (sorted(csrc.glob("*.cu")) if only is None
+               else [csrc / f"{k}.cu" for k in only])
+    so = BUILD_DIR / f"libtm_kernels-{_digest(csrc, flags, sources)}.so"
     log = so.with_suffix(".log")
     if so.exists() and log.exists():
         return so, log.read_text()
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
-    sources = sorted(CSRC.glob("*.cu"))
     objs = [work / (src.stem + ".o") for src in sources]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
-                               str(obj)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", str(src),
+                               "-o", str(obj)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
     reports = []
@@ -105,19 +114,39 @@ def build() -> tuple[Path, str]:
     return so, report
 
 
+def load(so: Path) -> ctypes.CDLL:
+    """Load a library from `build`, typing the entry points it has."""
+    lib = ctypes.CDLL(str(so))
+    for entry, kinds in _ENTRY.values():
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
+                           for k in kinds] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so, _ = build()
-            lib = ctypes.CDLL(str(so))
-            for entry, kinds in _ENTRY.values():
-                fn = getattr(lib, entry)
-                fn.argtypes = [ctypes.c_void_p if k == "p" else ctypes.c_int
-                               for k in kinds] + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = load(build()[0])
     return _lib
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """Launch through `lib` (another tree's `load`ed build, with the same C
+    entry points) instead of this tree's, inside the block.  For timing
+    two builds of a kernel against each other through its wrapper."""
+    global _lib
+    with _lock:
+        saved, _lib = _lib, lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            _lib = saved
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
