@@ -18,9 +18,19 @@ sizes to time it at.  Every tree runs on the same device tensors, in turns
 (first to last, then last to first), each time a CUDA-event mean over
 several launches.  Every tree's outputs must equal the first tree's, and
 the first tree's a reference the case computes.  Also printed: each entry
-function's registers and stack from ptxas and, per tree and kernel, the
-cycles per dependent field product and per quad doubling in one warp,
-built with that kernel's settings (`chip_smoke.fe_mul_cycles`).
+function's registers and stack from ptxas; per tree, case and size the
+device time of each CUDA kernel one launch runs (`torch.profiler`); and
+per tree and kernel the cycles of one dependent step in one warp of a
+field product, a quad doubling, a mod-L reduction, a SHA-512 compression
+and a field inversion, built with that kernel's settings
+(`chip_smoke.fe_mul_cycles`).
+
+The redesigns of K2 and K3 were measured with
+
+    python3 bench_kernels.py --kernel build_neg_comb:4,100,128 \\
+        --kernel sign_grouped:256,65500 --kernel verify_grouped:65536 \\
+        --kernel verify_raw:64,65536 --kernel verify_tally:1x100000 \\
+        parent=build/parent change=.
 
 A kernel not in `CASES` gets a case: a function from (size, device, rng)
 to (launch, check), `launch` returning the outputs of one launch and
@@ -148,7 +158,152 @@ def case_verify_tally(size: str, dev, rng) -> tuple:
     return launch, check
 
 
-CASES = {"verify_raw": case_verify_raw, "verify_tally": case_verify_tally}
+SIGN_KEYS = 100                    # the replay's validator set
+
+
+def signing_set(n: int, dev, rng) -> tuple:
+    """SIGN_KEYS keys and n lanes as one fixture signing call lays them
+    out (lane i: key i % SIGN_KEYS, template i // SIGN_KEYS, 128-byte
+    templates) -> (seeds, device (a, prefixes, pubkeys, val_idx,
+    tmpl_idx, templates), host templates, val_idx, tmpl_idx)."""
+    import numpy as np
+    import torch
+    seeds, a, pre, pubs, _ = cs._keys(SIGN_KEYS)
+    vi = (np.arange(n) % SIGN_KEYS).astype(np.int32)
+    ti = (np.arange(n) // SIGN_KEYS).astype(np.int32)
+    templates = rng.integers(0, 256, (int(ti[-1]) + 1, 128), dtype=np.uint8)
+    dev_args = tuple(torch.as_tensor(x, device=dev)
+                     for x in (a, pre, pubs, vi, ti, templates))
+    return seeds, dev_args, templates, vi, ti
+
+
+def case_build_neg_comb(size: str, dev, rng) -> tuple:
+    """K2 over V valid keys (size "V")."""
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import kernels
+    v = int(size)
+    pubs = torch.as_tensor(cs._keys(v)[3], device=dev)
+
+    def launch():
+        tbl = torch.empty((26, 1024, v, 3, 32), dtype=torch.uint8,
+                          device=dev)
+        ok = torch.empty(v, dtype=torch.int32, device=dev)
+        bases = torch.empty((26, v, 4, 10), dtype=torch.int32, device=dev)
+        kernels.launch("build_neg_comb", pubs, v, tbl, ok, bases)
+        return tbl, ok
+
+    def check(outs):
+        ptbl, pok = ed.build_neg_comb_plain(pubs)
+        cs.require(torch.equal(outs[1] != 0, pok) and bool(pok.all()),
+                   f"K2 {v}: ok mask != plain")
+        cs.require(torch.equal(outs[0], ptbl), f"K2 {v}: tables != plain")
+        return f"{v} keys, tables == plain"
+    return launch, check
+
+
+def case_sign_grouped(size: str, dev, rng) -> tuple:
+    """K3 at N lanes (size "N") over SIGN_KEYS keys, laid out as a fixture
+    signing call."""
+    import torch
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import kernels
+    n = int(size)
+    seeds, args, templates, vi, ti = signing_set(n, dev, rng)
+    base = ed.base_table(dev)
+
+    def launch():
+        out = torch.empty((n, 64), dtype=torch.uint8, device=dev)
+        kernels.launch("sign_grouped", *args[:3], SIGN_KEYS, *args[3:5],
+                       args[5], args[5].shape[0], 128, base, out, n)
+        return (out,)
+
+    def check(outs):
+        cs.require(torch.equal(outs[0], ed.sign_grouped_templated_plain(
+            *args, base)), f"K3 {n}: != plain")
+        host = outs[0].cpu().numpy()
+        for i in sorted({0, n // 2, n - 1}):
+            cs.require(host[i].tobytes() == ref.sign(
+                seeds[vi[i]], templates[ti[i]].tobytes()),
+                f"K3 {n}: lane {i} != pure_ed25519.sign")
+        return "== plain, 3 lanes == pure_ed25519.sign"
+    return launch, check
+
+
+def case_verify_grouped(size: str, dev, rng) -> tuple:
+    """Templated K1 at N lanes (size "N") as one replay window: SIGN_KEYS
+    keys in tables padded to Vb 128 by copies of column 0, every 97th
+    lane's s tampered."""
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import kernels
+    n = int(size)
+    _, args, _, _, _ = signing_set(n, dev, rng)
+    base = ed.base_table(dev)
+    sigs = ed.sign_grouped_templated_plain(*args, base)
+    sigs[::97, 40] ^= 1
+    pubs = args[2]
+    vb = 128
+    tbl, ok = ed.build_neg_comb_plain(pubs)
+    tbl = torch.cat([tbl, tbl[:, :, :1].expand(-1, -1, vb - SIGN_KEYS, -1,
+                                                -1)], dim=2).contiguous()
+    ok = torch.cat([ok, ok[:1].expand(vb - SIGN_KEYS)])
+    vpubs = torch.cat([pubs, pubs[:1].expand(vb - SIGN_KEYS, -1)])
+    vi, ti, templates = args[3], args[4], args[5]
+
+    def launch():
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        kernels.launch("verify_grouped", tbl, vb, ok, vpubs, vb, vi, vi,
+                       templates, templates.shape[0], 128, ti, sigs, base,
+                       out, n)
+        return (out,)
+
+    def check(outs):
+        want = ed.verify_grouped_templated_plain(tbl, ok, vpubs, vi, ti,
+                                                 templates, sigs, base)
+        cs.require(torch.equal(outs[0], want), f"K1 {n}: != plain")
+        tampered = torch.zeros(n, dtype=torch.bool, device=dev)
+        tampered[::97] = True
+        cs.require(torch.equal(outs[0], ~tampered),
+                   f"K1 {n}: not exactly the untampered lanes valid")
+        return f"== plain, {int(outs[0].sum())} of {n} valid"
+    return launch, check
+
+
+CASES = {"verify_raw": case_verify_raw, "verify_tally": case_verify_tally,
+         "build_neg_comb": case_build_neg_comb,
+         "sign_grouped": case_sign_grouped,
+         "verify_grouped": case_verify_grouped}
+
+
+def kernel_split(launch, reps: int = 3) -> dict | str:
+    """Device milliseconds per launch of each CUDA kernel that `launch`
+    runs, from `torch.profiler` (a case may run several, e.g. K2's two
+    phases)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:              # setting up the profiler
+        return f"not measured ({e})"
+    for _ in range(reps):                  # a launch's error propagates
+        launch()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        events = prof.key_averages()
+    except RuntimeError as e:              # reading the profiler's trace
+        return f"not measured ({e})"
+    out = {}
+    for e in events:
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us and "kernel" in e.key:
+            out[e.key.split("(")[0]] = us / 1e3 / e.count
+    return out or "not measured (no device time in the trace)"
 
 
 def ptxas(report: str) -> dict:
@@ -228,6 +383,12 @@ def main() -> int:
                     ms, got = cs.cuda_ms(launch, REPS)
                 results[t["name"]]["ms"].setdefault(key, []).append(ms)
                 outs[t["name"]] = tuple(x.clone() for x in got)
+                del got
+            for t in trees:
+                with kernels.using(t["lib"]):
+                    split = kernel_split(launch)
+                results[t["name"]].setdefault("split", {})[key] = split
+                cs.log(f"[{name}] {size}: {t['name']} per kernel: {split}")
             first = outs[trees[0]["name"]]
             what = check(first)
             for tree, got in outs.items():

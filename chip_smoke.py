@@ -11,12 +11,14 @@ Phases, in order; any mismatch or exception exits non-zero:
    (sm_90a) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
-   hashlib, K3 also against the golden RFC 8032 signer, K1 on adversarial
-   lanes and on a vote burst with per-lane keys, K5 on edge lanes at
-   32- and 96-byte messages against the golden verifier at 1, 3, 7, 9,
-   12, 33 and 200 lanes (not multiples of its 4-thread quads or 32-lane
-   blocks), K6 on edge lanes
-   with mixed powers at 4,096 lanes in one row and 40 rows of 100);
+   hashlib; K2 at 1, 4, 100 and 128 keys, an undecodable key among them;
+   K3 at 1, 31, 33, 129, 256 and 65,500 lanes with lanes of no key or no
+   template mixed into the warps, sampled lanes also against the golden
+   RFC 8032 signer; K1 on adversarial lanes and on a vote burst with
+   per-lane keys; K5 on edge lanes at 32- and 96-byte messages against
+   the golden verifier at 1, 3, 7, 9, 12, 33 and 200 lanes (not multiples
+   of its 4-thread quads or 32-lane blocks); K6 on edge lanes with mixed
+   powers at 4,096 lanes in one row and 40 rows of 100);
 3. the main paths, each with every launch count set to 0 just before it
    and read just after it:
    a. replay a fast-sync chain at BASELINE config 3's shape (100
@@ -53,8 +55,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64); per mesh, the whole call of each mesh
    function likewise.  Logged beside it: a clock64 microkernel's cycles
-   per dependent field product and quad doubling in one warp, built with
-   K5's and with K6's settings.
+   per dependent field product, quad doubling, mod-L reduction, SHA-512
+   compression and field inversion in one warp, built with K3's, K5's
+   and K6's settings.
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -135,14 +138,17 @@ def phase_build() -> None:
 
 
 # A diagnostic microkernel: one warp runs a chain of dependent field
-# products (where the kernel has field code) and of quad doublings (where
-# it has the quad lane body), timed with clock64() on the card.  It is
-# compiled in one translation unit with a kernel's source, so its
-# products and quad steps are built with that kernel's settings (inline
-# or out of line, and its launch bounds' register cap).
+# products (where the kernel has field code), of quad doublings (where it
+# has the quad lane body), of mod-L reductions of a 64-byte digest, of
+# SHA-512 compressions and of field inversions, each timed with clock64()
+# on the card.  It is compiled in one translation unit with a kernel's
+# source, so every step is built with that kernel's settings (inline or
+# out of line, and its launch bounds' register cap).
 MICRO_CU = r"""
 #include "%(kernel)s.cu"
 #ifdef FE_BITS
+#include "tm_scalar.cuh"
+#include "tm_sha512.cuh"
 #if defined(RAW_BLOCK) && defined(RAW_MIN_BLOCKS)
 #define MICRO_BOUNDS __launch_bounds__(RAW_BLOCK, RAW_MIN_BLOCKS)
 #else
@@ -180,23 +186,86 @@ __global__ void MICRO_BOUNDS quad_dbl_chain(const int32_t* in, int32_t* out,
   if (t == 0) cycles[1] = t1 - t0;
 }
 #endif
-extern "C" int tm_micro(const int32_t* in, int32_t* out, long long* cycles,
-                        int n, void* stream) {
-  fe_mul_chain<<<1, 32, 0, (cudaStream_t)stream>>>(in, out, cycles, n);
+// x <- (x mod L) + hi * 2^256: each reduction reads the one before it
+__global__ void MICRO_BOUNDS sc_reduce_chain(const uint8_t* inb, int32_t* out,
+                                             long long* cycles, int n) {
+  int t = threadIdx.x;
+  uint8_t h[64], r[32];
+  for (int i = 0; i < 64; i++) h[i] = inb[256 * t + i];
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++) {
+    sc_reduce512(h, r);
+    for (int i = 0; i < 32; i++) h[i] = r[i];
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++)
+    out[8 * t + i] = (int32_t)((uint32_t)r[4 * i] | (uint32_t)r[4 * i + 1] << 8 |
+                               (uint32_t)r[4 * i + 2] << 16 |
+                               (uint32_t)r[4 * i + 3] << 24);
+  if (t == 0) cycles[2] = t1 - t0;
+}
+static __device__ uint64_t micro_u64(const uint8_t* b) {
+  uint64_t v = 0;
+  for (int k = 7; k >= 0; k--) v = (v << 8) | b[k];
+  return v;
+}
+// state <- compress(state, block), the same block every time
+__global__ void MICRO_BOUNDS sha512_chain(const uint8_t* inb, int32_t* out,
+                                          long long* cycles, int n) {
+  int t = threadIdx.x;
+  uint64_t st[8], w[16];
+  for (int i = 0; i < 8; i++) st[i] = micro_u64(inb + 256 * t + 64 + 8 * i);
+  for (int i = 0; i < 16; i++) w[i] = micro_u64(inb + 256 * t + 128 + 8 * i);
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++) {
+    uint64_t x[16];
+    for (int i = 0; i < 16; i++) x[i] = w[i];
+    sha512_compress(st, x);
+  }
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) {
+    out[16 * t + 2 * i] = (int32_t)(uint32_t)st[i];
+    out[16 * t + 2 * i + 1] = (int32_t)(uint32_t)(st[i] >> 32);
+  }
+  if (t == 0) cycles[3] = t1 - t0;
+}
+__global__ void MICRO_BOUNDS fe_invert_chain(const int32_t* in, int32_t* out,
+                                             long long* cycles, int n) {
+  int t = threadIdx.x;
+  fe f;
+  for (int i = 0; i < 10; i++) f.v[i] = in[20 * t + i];
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++) f = fe_invert(f);
+  long long t1 = clock64();
+  for (int i = 0; i < 10; i++) out[10 * t + i] = f.v[i];
+  if (t == 0) cycles[4] = t1 - t0;
+}
+extern "C" int tm_micro(const int32_t* in, const uint8_t* inb, int32_t* out,
+                        long long* cycles, int n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  fe_mul_chain<<<1, 32, 0, s>>>(in, out, cycles, n);
 #ifdef RAW_QUAD
-  quad_dbl_chain<<<1, 32, 0, (cudaStream_t)stream>>>(in, out + 320, cycles,
-                                                     n);
+  quad_dbl_chain<<<1, 32, 0, s>>>(in, out + 320, cycles, n);
 #endif
+  sc_reduce_chain<<<1, 32, 0, s>>>(inb, out + 640, cycles, n / 8);
+  sha512_chain<<<1, 32, 0, s>>>(inb, out + 896, cycles, n / 8);
+  fe_invert_chain<<<1, 32, 0, s>>>(in, out + 1408, cycles, n / 64);
   return (int)cudaGetLastError();
 }
 #else
-extern "C" int tm_micro(const int32_t*, int32_t*, long long*, int, void*) {
+extern "C" int tm_micro(const int32_t*, const uint8_t*, int32_t*, long long*,
+                        int, void*) {
   return 0;
 }
 #endif
 """
 FE_OFFSETS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
 FE_P = 2**255 - 19
+SC_L = 2**252 + 27742317777372353535851937790883648493
+M64 = (1 << 64) - 1
 
 
 def _fe_value(limbs) -> int:
@@ -211,11 +280,57 @@ def _dbl_hwcd(x, y, z):
     return tuple(v % FE_P for v in (e * f, g * h, f * g, e * h))
 
 
+def _sha512_k() -> list:
+    """SHA-512's round constants: the first 64 bits of the fractional
+    parts of the cube roots of the first 80 primes (FIPS 180-4 4.2.3)."""
+    primes, c = [], 2
+    while len(primes) < 80:
+        if all(c % p for p in primes):
+            primes.append(c)
+        c += 1
+    out = []
+    for p in primes:
+        x = p << 192                        # cbrt(x) = cbrt(p) * 2^64
+        r = 1 << (x.bit_length() // 3 + 1)
+        while True:
+            y = (2 * r + x // (r * r)) // 3
+            if y >= r:
+                break
+            r = y
+        while r ** 3 > x:
+            r -= 1
+        out.append(r & M64)
+    return out
+
+
+def _sha512_compress(st: list, w: list, k: list) -> list:
+    """One SHA-512 compression of the 16 words w into the state st."""
+    def rotr(x, n):
+        return ((x >> n) | (x << (64 - n))) & M64
+    w = list(w)
+    for t in range(16, 80):
+        s0 = rotr(w[t - 15], 1) ^ rotr(w[t - 15], 8) ^ (w[t - 15] >> 7)
+        s1 = rotr(w[t - 2], 19) ^ rotr(w[t - 2], 61) ^ (w[t - 2] >> 6)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M64)
+    a, b, c, d, e, f, g, h = st
+    for t in range(80):
+        s1 = rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41)
+        t1 = (h + s1 + ((e & f) ^ (~e & g)) + k[t] + w[t]) & M64
+        s0 = rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39)
+        t2 = (s0 + ((a & b) ^ (a & c) ^ (b & c))) & M64
+        a, b, c, d, e, f, g, h = (t1 + t2) & M64, a, b, c, (d + t1) & M64, \
+            e, f, g
+    return [(x + y) & M64 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+
+
 def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
     """Build the microkernel with `kernel`'s source (`csrc/<kernel>.cu`)
-    and extra nvcc `flags`, run it on card 0 and return cycles per
-    dependent `fe_mul` and per `quad_dbl` (None without field code or
-    without the quad body), each result checked against integers mod p."""
+    and extra nvcc `flags`, run it on card 0 and return the cycles of one
+    step of each chain in one warp: a dependent `fe_mul` and `quad_dbl`
+    (n steps), `sc_reduce512` and SHA-512 compression (n / 8) and
+    `fe_invert` (n / 64); None without field code or, for `quad_dbl`,
+    without the quad body.  Each chain's result is checked against Python
+    integers."""
     import ctypes
     import tempfile
     from pathlib import Path
@@ -234,38 +349,66 @@ def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
         raise RuntimeError(f"microkernel build failed:\n{out.stdout}"
                            f"{out.stderr}")
     lib = ctypes.CDLL(str(so))
-    lib.tm_micro.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+    lib.tm_micro.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                      ctypes.c_void_p]
     rng = np.random.default_rng(SEED)
     limbs = rng.integers(0, 1 << 25, (32, 20), dtype=np.int64)
+    raw = rng.integers(0, 256, (32, 256), dtype=np.uint8)
     dev = torch.device("cuda", 0)
     inp = torch.as_tensor(limbs.astype(np.int32), device=dev)
-    res = torch.zeros((64, 10), dtype=torch.int32, device=dev)
-    cyc = torch.full((2,), -1, dtype=torch.int64, device=dev)
+    inb = torch.as_tensor(raw, device=dev)
+    res = torch.zeros(1728, dtype=torch.int32, device=dev)
+    cyc = torch.full((5,), -1, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for _ in range(2):                      # the second run is timed
-        rc = lib.tm_micro(inp.data_ptr(), res.data_ptr(), cyc.data_ptr(), n,
-                          ctypes.c_void_p(stream))
+        rc = lib.tm_micro(inp.data_ptr(), inb.data_ptr(), res.data_ptr(),
+                          cyc.data_ptr(), n, ctypes.c_void_p(stream))
         require(rc == 0, f"microkernel launch failed, error {rc}")
         torch.cuda.synchronize()
     got, cycles = res.cpu().numpy(), cyc.cpu().tolist()
-    result = {"fe_mul_cycles": None, "quad_dbl_cycles": None}
+    keys = ("fe_mul_cycles", "quad_dbl_cycles", "sc_reduce512_cycles",
+            "sha512_block_cycles", "fe_invert_cycles")
+    result = dict.fromkeys(keys)
     if cycles[0] < 0:
         return result
+    mul = got[:320].reshape(32, 10)
     for t in range(32):
         f, g = _fe_value(limbs[t, :10]), _fe_value(limbs[t, 10:])
-        require(_fe_value(got[t]) == f * pow(g, n, FE_P) % FE_P,
+        require(_fe_value(mul[t]) == f * pow(g, n, FE_P) % FE_P,
                 f"microkernel fe_mul chain wrong on thread {t}")
-    result["fe_mul_cycles"] = cycles[0] / n
     if cycles[1] >= 0:
+        quad = got[320:640].reshape(32, 10)
         for b in range(0, 32, 4):
             pt = [_fe_value(limbs[b + q, :10]) for q in range(3)]
             for _ in range(n):
                 pt = _dbl_hwcd(*pt[:3])
-            require([_fe_value(got[32 + b + q]) for q in range(4)]
+            require([_fe_value(quad[b + q]) for q in range(4)]
                     == list(pt), f"microkernel quad_dbl chain wrong at "
                     f"quad {b // 4}")
-        result["quad_dbl_cycles"] = cycles[1] / n
+    k = _sha512_k()
+    sc_out = got[640:896].reshape(32, 8).astype(np.uint32)
+    sha_out = got[896:1408].reshape(32, 16).astype(np.uint32)
+    inv = got[1408:1728].reshape(32, 10)
+    for t in range(32):
+        x = int.from_bytes(raw[t, :64].tobytes(), "little")
+        r = x % SC_L
+        for _ in range(n // 8 - 1):
+            r = (r + (x >> 256 << 256)) % SC_L
+        require(int.from_bytes(sc_out[t].tobytes(), "little") == r,
+                f"microkernel sc_reduce512 chain wrong on thread {t}")
+        words = np.frombuffer(raw[t, 64:].tobytes(), "<u8").tolist()
+        st = words[:8]
+        for _ in range(n // 8):
+            st = _sha512_compress(st, words[8:], k)
+        require(np.frombuffer(sha_out[t].tobytes(), "<u8").tolist() == st,
+                f"microkernel SHA-512 chain wrong on thread {t}")
+        f = _fe_value(limbs[t, :10])
+        require(_fe_value(inv[t]) == pow(f, pow(FE_P - 2, n // 64, FE_P - 1),
+                                         FE_P),
+                f"microkernel fe_invert chain wrong on thread {t}")
+    steps = (n, n, n // 8, n // 8, n // 64)
+    for key, c, m in zip(keys, cycles, steps):
+        result[key] = c / m if c >= 0 else None
     return result
 
 
@@ -316,30 +459,54 @@ def phase_check() -> None:
                     "K4 != hashlib")
     log("[check] K4 sha256_prefixed == plain == hashlib")
 
-    # K2 at V = 4, key 2 undecodable
+    # K2 at V = 1, 4 (key 2 undecodable), 100 (key 50 undecodable) and
+    # 128: ok masks equal, every valid key's table bytes equal
+    for v, bad in K2_CHECK_SETS:
+        _, _, _, _, set_v = _keys(v, invalid=bad)
+        tbl_v, ok_v = ed.build_neg_comb(t(set_v))
+        ptbl, pok = ed.build_neg_comb_plain(t(set_v))
+        require(torch.equal(ok_v, pok) and ok_v.tolist() == [
+            i != bad for i in range(v)], f"K2 ok mask at V = {v}")
+        require(torch.equal(tbl_v[:, :, ok_v], ptbl[:, :, pok]),
+                f"K2 table bytes at V = {v}")
+        del tbl_v, ptbl
+    log(f"[check] K2 build_neg_comb == plain (ok mask + valid-key bytes) at "
+        f"(V, undecodable key) = {K2_CHECK_SETS}")
     seeds, a, pre, pubs, set_pubs = _keys(4, invalid=2)
     tbl, ok = ed.build_neg_comb(t(set_pubs))
-    ptbl, pok = ed.build_neg_comb_plain(t(set_pubs))
-    require(torch.equal(ok, pok) and ok.tolist() == [True, True, False,
-                                                     True], "K2 ok mask")
-    require(torch.equal(tbl[:, :, ok], ptbl[:, :, pok]), "K2 table bytes")
-    log("[check] K2 build_neg_comb == plain (ok mask + valid-key bytes)")
 
-    # K3 on 256 lanes, 8 also against the golden signer
+    # K3 on ragged batches with lanes whose key or template index is out
+    # of range mixed into the warps (zero signatures), and on 256 valid
+    # lanes; sampled lanes also against the golden signer
     base = ed.base_table(dev)
-    n, T = 256, 8
+    T = 8
     templates = rng.integers(0, 256, (T, 128), dtype=np.uint8)
-    vi = rng.integers(0, 4, n).astype(np.int32)
-    ti = rng.integers(0, T, n).astype(np.int32)
-    sign_args = (t(a), t(pre), t(pubs), t(vi), t(ti), t(templates), base)
-    sigs = ed.sign_grouped_templated(*sign_args)
-    psigs = ed.sign_grouped_templated_plain(*sign_args)
-    require(torch.equal(sigs, psigs), "K3 != plain")
-    host_sigs = sigs.cpu().numpy()
-    for i in range(8):
-        want = ref.sign(seeds[vi[i]], templates[ti[i]].tobytes())
-        require(host_sigs[i].tobytes() == want, f"K3 lane {i} != golden")
-    log("[check] K3 sign_grouped_templated == plain == pure_ed25519.sign")
+    for n in K3_CHECK_LANES:
+        vi = rng.integers(0, 4, n).astype(np.int32)
+        ti = rng.integers(0, T, n).astype(np.int32)
+        if n not in (1, 256):
+            vi[rng.random(n) < 0.1] = 4
+            vi[rng.random(n) < 0.05] = -1
+            ti[rng.random(n) < 0.1] = T
+            ti[rng.random(n) < 0.05] = -3
+        valid = (vi >= 0) & (vi < 4) & (ti >= 0) & (ti < T)
+        sigs = ed.sign_grouped_templated(t(a), t(pre), t(pubs), t(vi),
+                                         t(ti), t(templates), base)
+        psigs = ed.sign_grouped_templated_plain(
+            t(a), t(pre), t(pubs), t(vi.clip(0, 3)), t(ti.clip(0, T - 1)),
+            t(templates), base)
+        vmask = t(valid)
+        require(torch.equal(sigs[vmask], psigs[vmask]), f"K3 != plain at "
+                f"N = {n}")
+        require(not bool(sigs[~vmask].any()), f"K3 signed a lane with no "
+                f"key or message at N = {n}")
+        host_sigs = sigs.cpu().numpy()
+        for i in np.flatnonzero(valid)[::max(1, int(valid.sum()) // 8)][:8]:
+            want = ref.sign(seeds[vi[i]], templates[ti[i]].tobytes())
+            require(host_sigs[i].tobytes() == want,
+                    f"K3 lane {i} of {n} != golden")
+    log(f"[check] K3 sign_grouped_templated == plain == pure_ed25519.sign "
+        f"(8 lanes each) at N = {K3_CHECK_LANES}, out-of-range lanes zero")
 
     # K1 on adversarial lanes against the K2 tables (key 2 invalid)
     tm = templates.copy()
@@ -442,6 +609,8 @@ def phase_check() -> None:
 
 
 K5_CHECK_LANES = (12, 1, 3, 7, 9, 33, 200)
+K2_CHECK_SETS = ((1, None), (4, 2), (100, 50), (128, None))
+K3_CHECK_LANES = (1, 31, 33, 129, 256, 65500)
 
 
 def edge_lanes(msg_len: int, rng) -> list:
@@ -1127,8 +1296,9 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 # (10 x 10 limbs), a squaring 55; point operations are counted in
 # (multiplications, squarings); the encode of a batch of points uses
 # Montgomery's batch inversion (3 multiplications per point and one
-# inversion per call).  The mod-L scalar work (< 1 % of a lane) is left
-# out, which can only lower a bound.
+# inversion per call).  The mod-L scalar work (a few dozen word products
+# per reduction, < 1 % of a lane) is left out, which can only lower a
+# bound.
 MACS_MUL, MACS_SQR = 100, 55
 MIXED_ADD = (7, 0)      # extended + cached affine (y+x, y-x, 2dxy)
 ADD = (9, 0)            # extended + extended
@@ -1349,12 +1519,11 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
                  "tendermint_tpu/ops/ed25519.py:46", "K5",
                  k5_ms[K5_ROW_LANES], plain_ms, err, nbytes, ops,
                  f"{K5_ROW_LANES} lanes x 32 B"))
-    for key, kernel in (("K5", "verify_raw"), ("K6", "verify_tally")):
-        micro = fe_mul_cycles(kernels.CSRC, kernel)
-        log(f"[kernels] one warp on the card, {key}'s build: "
-            f"{micro['fe_mul_cycles']:.1f} cycles per dependent fe_mul, "
-            f"{micro['quad_dbl_cycles']:.1f} per dependent quad doubling "
-            f"(clock64 microkernel)")
+    for key, kernel in (("K3", "sign_grouped"), ("K5", "verify_raw"),
+                        ("K6", "verify_tally")):
+        log(f"[kernels] one warp on the card, {key}'s build, cycles per "
+            f"dependent step (clock64 microkernel): "
+            f"{fe_mul_cycles(kernels.CSRC, kernel)}")
 
     # K2 at the replay set's shape (100 keys; padding copies column 0)
     pubs = be._t(vals.pubs_matrix())
@@ -1367,13 +1536,15 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
             "shape")
     err = max(max_abs_err(ok, pok), max_abs_err(tbl, ptbl))
     del tbl, ptbl
-    # per key: decompress, 25 x 10 doublings for the window bases; per
-    # entry (1,023 of 1,024 per window; digit 0 is a constant): one add
-    # onto entry j - 1, the batch inversion, and the affine pack (x, y,
-    # x*y, *2d)
+    # per key: decompress, 25 x 10 doublings for the window bases, each
+    # base made affine (one batch inversion over the 26 x V bases and its
+    # pack); per entry (1,023 of 1,024 per window; digit 0 is a constant):
+    # one mixed add of the affine base onto entry j - 1, the batch
+    # inversion, and the affine pack (x, y, x*y, *2d)
     entries = v * 26 * 1023
-    ops = _macs((v, DECOMPRESS), (v * 250, DBL), (entries, ADD),
-                (entries, BATCH_INV), (entries, (4, 0)), (1, INVERT))
+    ops = _macs((v, DECOMPRESS), (v * 250, DBL), (v * 26, BATCH_INV),
+                (v * 26, (4, 0)), (entries, MIXED_ADD), (entries, BATCH_INV),
+                (entries, (4, 0)), (2, INVERT))
     nbytes = v * 32 + v * 1 + 26 * 1024 * v * 96
     rows.append(("build_neg_comb", "build_neg_comb.cu",
                  "tendermint_tpu/ops/ed25519.py:60", "K2", ms, plain_ms,

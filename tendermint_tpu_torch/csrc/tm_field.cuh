@@ -78,6 +78,28 @@ TM_DEV fe fe_sub(const fe& f, const fe& g) {
 
 TM_DEV fe fe_neg(const fe& f) { return fe_sub(fe_zero(), f); }
 
+// kp * p + ax * x + ay * y with ONE carry pass over all limbs at once (no
+// serial chain), in int32.  The sum must lie in [0, 2^28) per limb: kp is
+// 2 or 4 where a term is negative (x and y below 2^26 + 133 per limb).
+// Out: limbs below 2^bits + 7, limb 0 below 2^26 + 133: inside fe_mul's
+// and fe_sq's operand bounds (2^26.7), 2p's limbs (so fe_sub stays
+// nonnegative) and fe_tobytes' domain, and a further fe_lin of such
+// values stays there.
+TM_DEV fe fe_lin(int kp, int ax, const fe& x, int ay, const fe& y) {
+  int32_t h[10], c[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    int32_t p = (i == 0) ? 0x3ffffed : FE_MASK(i);
+    h[i] = kp * p + ax * x.v[i] + ay * y.v[i];
+    c[i] = h[i] >> FE_BITS(i);
+  }
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    r.v[i] = (h[i] & FE_MASK(i)) + (i ? c[i - 1] : 19 * c[9]);
+  return r;
+}
+
 // Kept out of line: a verify lane runs ~600 products, and one shared body
 // keeps the kernels' code (and nvcc's time) small.  Arguments by value pass
 // in registers.  A kernel that defines TM_FE_MUL_INLINE before including
@@ -166,8 +188,8 @@ TM_DEV fe fe_frombytes(const uint8_t* s) {
   return r;
 }
 
-// Canonical little-endian encoding of f mod p.
-static __device__ __noinline__ void fe_tobytes(uint8_t* s, fe f) {
+// Canonical little-endian encoding of f mod p as eight 32-bit words.
+static __device__ __noinline__ void fe_towords(uint32_t s[8], fe f) {
   int64_t h[10];
 #pragma unroll
   for (int i = 0; i < 10; i++) h[i] = f.v[i];
@@ -196,18 +218,45 @@ static __device__ __noinline__ void fe_tobytes(uint8_t* s, fe f) {
   }
   h[9] &= FE_MASK(9);
   uint64_t acc = 0;
-  int nbits = 0, byte = 0;
+  int nbits = 0, word = 0;
 #pragma unroll
   for (int i = 0; i < 10; i++) {
     acc |= (uint64_t)h[i] << nbits;
     nbits += FE_BITS(i);
-    while (nbits >= 8) {
-      s[byte++] = (uint8_t)acc;
-      acc >>= 8;
-      nbits -= 8;
+    if (nbits >= 32) {
+      s[word++] = (uint32_t)acc;
+      acc >>= 32;
+      nbits -= 32;
     }
   }
-  s[31] = (uint8_t)acc;  // the last 7 bits
+  s[7] = (uint32_t)acc;  // the last 31 bits
+}
+
+// Canonical little-endian encoding of f mod p as 32 bytes.
+TM_DEV void fe_tobytes(uint8_t* s, fe f) {
+  uint32_t w[8];
+  fe_towords(w, f);
+#pragma unroll
+  for (int i = 0; i < 32; i++) s[i] = (uint8_t)(w[i >> 2] >> (8 * (i & 3)));
+}
+
+// Eight little-endian 32-bit words -> element (bit 255 folds as 19).
+TM_DEV fe fe_fromwords(const uint32_t* w) {
+  fe r;
+  uint64_t acc = 0;
+  int nbits = 0, word = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    if (nbits < FE_BITS(i)) {
+      acc |= (uint64_t)w[word++] << nbits;
+      nbits += 32;
+    }
+    r.v[i] = (int32_t)(acc & FE_MASK(i));
+    acc >>= FE_BITS(i);
+    nbits -= FE_BITS(i);
+  }
+  r.v[0] += 19 * (int32_t)(acc & 1);
+  return r;
 }
 
 TM_DEV bool fe_iszero(const fe& f) {
@@ -270,4 +319,89 @@ TM_DEV fe fe_d2() {  // 2d
 TM_DEV fe fe_sqrt_m1() {  // sqrt(-1) = 2^((p-1)/4)
   return fe{{34513072, 25610706, 9377949, 3500415, 12389472, 33281959,
              41962654, 31548777, 326685, 11406482}};
+}
+
+TM_DEV fe fe_sel(bool c, const fe& a, const fe& b) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = c ? a.v[i] : b.v[i];
+  return r;
+}
+
+// Whole-warp shuffles of an element (every lane of the warp must call)
+TM_DEV fe fe_shfl_up(const fe& f, int d) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = __shfl_up_sync(0xffffffffu, f.v[i], d);
+  return r;
+}
+
+TM_DEV fe fe_shfl_down(const fe& f, int d) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    r.v[i] = __shfl_down_sync(0xffffffffu, f.v[i], d);
+  return r;
+}
+
+TM_DEV fe fe_shfl_lane(const fe& f, int src) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = __shfl_sync(0xffffffffu, f.v[i], src);
+  return r;
+}
+
+// Montgomery's trick over one warp (every lane must call): *others = the
+// product of the other 31 lanes' z, *total = the product of all 32, from
+// an inclusive prefix and suffix scan (5 + 5 products per lane).  Then
+// 1 / z = others / total: one inversion serves the warp.
+static __device__ void fe_warp_products(const fe& z, fe* others, fe* total) {
+  int lane = threadIdx.x & 31;
+  fe pre = z, suf = z;
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    fe a = fe_shfl_up(pre, d), b = fe_shfl_down(suf, d);
+    pre = fe_mul(pre, fe_sel(lane >= d, a, fe_one()));
+    suf = fe_mul(suf, fe_sel(lane + d < 32, b, fe_one()));
+  }
+  fe ep = fe_sel(lane > 0, fe_shfl_up(pre, 1), fe_one());
+  fe es = fe_sel(lane < 31, fe_shfl_down(suf, 1), fe_one());
+  *others = fe_mul(ep, es);
+  *total = fe_shfl_lane(suf, 0);
+}
+
+// Montgomery's trick over a block of `nwarps` warps (every thread of the
+// block must call; `sm` holds (nwarps + 1) * 10 int32 of shared memory):
+// returns 1 / z on every thread, with ONE `fe_invert`, by warp 0, for the
+// whole block.  The warps' totals meet in shared memory; each thread
+// multiplies the block's inverse by the product of every other z.  Every
+// z must be nonzero.
+static __device__ fe fe_block_invert(const fe& z, int nwarps, int32_t* sm) {
+  int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  fe others, total;
+  fe_warp_products(z, &others, &total);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 10; i++) sm[warp * 10 + i] = total.v[i];
+  }
+  __syncthreads();
+  fe rest = fe_one();         // the other warps' totals
+  for (int k = 0; k < nwarps; k++) {
+    fe tk;
+#pragma unroll
+    for (int i = 0; i < 10; i++) tk.v[i] = sm[k * 10 + i];
+    if (k != warp) rest = fe_mul(rest, tk);
+  }
+  if (warp == 0) {
+    fe inv = fe_invert(fe_mul(rest, total));
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 10; i++) sm[nwarps * 10 + i] = inv.v[i];
+    }
+  }
+  __syncthreads();
+  fe inv;
+#pragma unroll
+  for (int i = 0; i < 10; i++) inv.v[i] = sm[nwarps * 10 + i];
+  return fe_mul(fe_mul(inv, rest), others);
 }

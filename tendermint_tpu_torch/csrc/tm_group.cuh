@@ -4,9 +4,9 @@
 // formulas (a = -1 twisted Edwards, extended coordinates X, Y, Z, T):
 // add-2008-hwcd-3 (9 products), the mixed add with a precomputed
 // (y+x, y-x, 2dxy) entry (7 products; (1, 1, 0) is the identity, so digit 0
-// needs no branch) and dbl-2008-hwcd.  Encoding inverts Z per lane
-// (Fermat, ~265 products); the TPU version batches that inversion across
-// lanes, which is queued as the first redesign of kernels K1 and K3.
+// needs no branch), the add onto a cached (Y-X, Y+X, 2Z, 2dT) point (8
+// products) and dbl-2008-hwcd.  `ge_encode` inverts Z per lane (Fermat,
+// ~265 products); K2 and K3 batch their inversions (fe_block_invert).
 #pragma once
 #include "tm_field.cuh"
 
@@ -42,12 +42,44 @@ static __device__ ge ge_add(const ge& p, const ge& q) {
   return r;
 }
 
+// Q as (Y-X, Y+X, 2Z, 2dT): adding it is 8 products where ge_add takes 9
+struct ge_cached {
+  fe ymx, ypx, z2, t2d;
+};
+
+static __device__ ge_cached ge_to_cached(const ge& p) {
+  ge_cached c;
+  c.ymx = fe_sub(p.Y, p.X);
+  c.ypx = fe_add(p.Y, p.X);
+  c.z2 = fe_add(p.Z, p.Z);
+  c.t2d = fe_mul(p.T, fe_d2());
+  return c;
+}
+
+// The adds and subtractions around the products below take one parallel
+// carry pass each (fe_lin): p's coordinates are products or constants.
+static __device__ ge ge_add_cached(const ge& p, const ge_cached& q) {
+  fe a = fe_mul(fe_lin(2, 1, p.Y, -1, p.X), q.ymx);
+  fe b = fe_mul(fe_lin(0, 1, p.Y, 1, p.X), q.ypx);
+  fe c = fe_mul(p.T, q.t2d);
+  fe d = fe_mul(p.Z, q.z2);
+  fe e = fe_lin(2, 1, b, -1, a), f = fe_lin(2, 1, d, -1, c);
+  fe g = fe_lin(0, 1, d, 1, c), h = fe_lin(0, 1, b, 1, a);
+  ge r;
+  r.X = fe_mul(e, f);
+  r.Y = fe_mul(g, h);
+  r.Z = fe_mul(f, g);
+  r.T = fe_mul(e, h);
+  return r;
+}
+
 static __device__ ge ge_add_aff(const ge& p, const ge_aff& q) {
-  fe a = fe_mul(fe_sub(p.Y, p.X), q.ymx);
-  fe b = fe_mul(fe_add(p.Y, p.X), q.ypx);
+  fe a = fe_mul(fe_lin(2, 1, p.Y, -1, p.X), q.ymx);
+  fe b = fe_mul(fe_lin(0, 1, p.Y, 1, p.X), q.ypx);
   fe c = fe_mul(p.T, q.xy2d);
-  fe d = fe_add(p.Z, p.Z);
-  fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
+  fe d = fe_lin(0, 2, p.Z, 0, p.Z);
+  fe e = fe_lin(2, 1, b, -1, a), f = fe_lin(2, 1, d, -1, c);
+  fe g = fe_lin(0, 1, d, 1, c), h = fe_lin(0, 1, b, 1, a);
   ge r;
   r.X = fe_mul(e, f);
   r.Y = fe_mul(g, h);
@@ -73,19 +105,24 @@ static __device__ ge ge_dbl(const ge& p) {
   return r;
 }
 
-static __device__ __forceinline__ ge ge_neg(const ge& p) {
-  ge r = p;
-  r.X = fe_neg(p.X);
-  r.T = fe_neg(p.T);
-  return r;
-}
-
-// 96 bytes (y+x, y-x, 2dxy) -> precomputed entry
+// 96 bytes (y+x, y-x, 2dxy) at a 16-byte aligned address -> precomputed
+// entry, in six 16-byte loads (a gathered entry is one lane's own row:
+// byte loads cost 96 uncoalesced load instructions per entry)
 static __device__ __forceinline__ ge_aff ge_aff_load(const uint8_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint32_t w[24];
+#pragma unroll
+  for (int i = 0; i < 6; i++) {
+    uint4 u = q[i];
+    w[4 * i] = u.x;
+    w[4 * i + 1] = u.y;
+    w[4 * i + 2] = u.z;
+    w[4 * i + 3] = u.w;
+  }
   ge_aff r;
-  r.ypx = fe_frombytes(p);
-  r.ymx = fe_frombytes(p + 32);
-  r.xy2d = fe_frombytes(p + 64);
+  r.ypx = fe_fromwords(w);
+  r.ymx = fe_fromwords(w + 8);
+  r.xy2d = fe_fromwords(w + 16);
   return r;
 }
 

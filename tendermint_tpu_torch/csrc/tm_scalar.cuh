@@ -4,10 +4,11 @@
 // Replaces tendermint_tpu/ops/scalar.py (reduce512, lt_L, muladd_mod_L) and
 // the comb digit extraction of tendermint_tpu/ops/curve.py (digits10,
 // digits12).  The TPU version folds radix-2^8 limbs with Kogge-Stone
-// carries in int32; here a scalar is four little-endian uint64 words.
-// reduce512 is bit-serial long division (512 shift / compare / subtract
-// steps on 256-bit words): simple and obviously exact; a folded reduction
-// is queued as later work (it is ~10% of a verify lane).
+// carries in int32; here a scalar is four little-endian uint64 words and
+// a 512-bit value is reduced by Barrett's method on 64-bit words (36 word
+// products, `__umul64hi` for the high halves, and at most two
+// subtractions of L), where a bit-serial long division took 512 dependent
+// shift / compare / subtract steps.
 #pragma once
 #include <stdint.h>
 
@@ -53,31 +54,77 @@ TM_SDEV bool sc_lt_L(const uint8_t* s) {
   return !sc_ge_L(w);
 }
 
+// floor(2^512 / L), five words (260 bits)
+#define SC_MU0 0xed9ce5a30a2c131bULL
+#define SC_MU1 0x2106215d086329a7ULL
+#define SC_MU2 0xffffffffffffffebULL
+#define SC_MU3 0xffffffffffffffffULL
+#define SC_MU4 0x000000000000000fULL
+
+// t[k..] += a * b over n words of b, carrying into t[k + n]; t[k + n] is
+// overwritten (the caller's columns above k + n - 1 are still zero).
+TM_SDEV void sc_mac_row(uint64_t* t, uint64_t a, const uint64_t* b, int n) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int j = 0; j < n; j++) {
+    uint64_t lo = a * b[j];
+    uint64_t hi = __umul64hi(a, b[j]);
+    uint64_t s = t[j] + lo;
+    hi += s < lo;
+    s += carry;
+    hi += s < carry;
+    t[j] = s;
+    carry = hi;
+  }
+  t[n] = carry;
+}
+
+// a - b over five words, in place (mod 2^320)
+TM_SDEV void sc_sub5(uint64_t a[5], const uint64_t b[5]) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 5; i++) {
+    uint64_t d = a[i] - b[i] - borrow;
+    borrow = (a[i] < b[i]) | ((a[i] == b[i]) & borrow);
+    a[i] = d;
+  }
+}
+
 // w[0..7] little-endian 512-bit value -> w mod L as four words.
+// Barrett with base 2^64 and k = 4 (Handbook of Applied Cryptography,
+// algorithm 14.42; 2^192 <= L < 2^256, w < 2^512): q = floor(floor(w /
+// 2^192) * mu / 2^320) is floor(w / L) or up to two less, so r = w - q L
+// lies in [0, 3L), fits five words and is exact mod 2^320; at most two
+// subtractions of L finish it.  Out of line: K5's and K6's per-lane phase
+// keep their registers (tests/test_torch_scalar_fold.py models it word for
+// word).
 static __device__ __noinline__ void sc_reduce_words(const uint64_t* w,
                                                     uint64_t r[4]) {
-  const uint64_t l[4] = {SC_L0, SC_L1, SC_L2, SC_L3};
-  uint64_t a0 = 0, a1 = 0, a2 = 0, a3 = 0;   // a < L < 2^253 throughout
-  for (int bit = 511; bit >= 0; bit--) {
-    uint64_t in = (w[bit >> 6] >> (bit & 63)) & 1;
-    a3 = (a3 << 1) | (a2 >> 63);
-    a2 = (a2 << 1) | (a1 >> 63);
-    a1 = (a1 << 1) | (a0 >> 63);
-    a0 = (a0 << 1) | in;
-    uint64_t a[4] = {a0, a1, a2, a3};
-    if (sc_ge_L(a)) {
-      uint64_t b = 0;
-      uint64_t d0 = a0 - l[0];
-      b = a0 < l[0];
-      uint64_t d1 = a1 - l[1] - b;
-      b = (a1 < l[1]) | ((a1 == l[1]) & b);
-      uint64_t d2 = a2 - l[2] - b;
-      b = (a2 < l[2]) | ((a2 == l[2]) & b);
-      uint64_t d3 = a3 - l[3] - b;
-      a0 = d0; a1 = d1; a2 = d2; a3 = d3;
-    }
+  const uint64_t mu[5] = {SC_MU0, SC_MU1, SC_MU2, SC_MU3, SC_MU4};
+  const uint64_t l[5] = {SC_L0, SC_L1, SC_L2, SC_L3, 0};
+  uint64_t q2[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) q2[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 5; i++) sc_mac_row(q2 + i, w[3 + i], mu, 5);
+  // q2[5..9] = q; q * L mod 2^320 needs columns 0..4 only
+  uint64_t m[6];
+#pragma unroll
+  for (int i = 0; i < 6; i++) m[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 5; i++) sc_mac_row(m + i, q2[5 + i], l, 5 - i);
+  uint64_t x[5] = {w[0], w[1], w[2], w[3], w[4]};
+  sc_sub5(x, m);
+#pragma unroll
+  for (int k = 0; k < 2; k++) {
+    uint64_t y[5] = {x[0], x[1], x[2], x[3], x[4]};
+    sc_sub5(y, l);
+    bool ge = (y[4] >> 63) == 0;     // x - L >= 0: x < 3L < 2^255
+#pragma unroll
+    for (int i = 0; i < 5; i++) x[i] = ge ? y[i] : x[i];
   }
-  r[0] = a0; r[1] = a1; r[2] = a2; r[3] = a3;
+#pragma unroll
+  for (int i = 0; i < 4; i++) r[i] = x[i];
 }
 
 // SHA-512 digest (64 little-endian bytes) -> digest mod L as 32 bytes

@@ -51,11 +51,10 @@
 //   4. the projective comparison with R (Z_R = 1): thread 0 checks
 //      X == X_R Z, thread 1 Y == Y_R Z, thread 2 Z != 0.
 #pragma once
-#include "tm_group.cuh"
+#include "tm_quad.cuh"
 #include "tm_scalar.cuh"
 #include "tm_sha512.cuh"
 
-#define RAW_QUAD 4          // threads per signature
 #define RAW_BLOCK 128       // threads per block: 32 signatures, 4 warps
 #define RAW_LANES (RAW_BLOCK / RAW_QUAD)
 #define RAW_TBL 8           // cached entries [1..8](-A) per signature
@@ -77,102 +76,6 @@
 #define RAW_P1_OKR 59
 #define RAW_P1_OKS 60
 #define RAW_P1_FIELDS 61
-
-struct quad_ctx {
-  unsigned mask;  // the quad's four lanes of the warp
-  int q;          // this thread's coordinate: 0 X, 1 Y, 2 Z, 3 T
-};
-
-static __device__ __forceinline__ fe fe_shfl(const quad_ctx& t, const fe& v,
-                                             int src) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 10; i++)
-    r.v[i] = __shfl_sync(t.mask, v.v[i], src, RAW_QUAD);
-  return r;
-}
-
-static __device__ __forceinline__ fe fe_sel(bool c, const fe& a,
-                                            const fe& b) {
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 10; i++) r.v[i] = c ? a.v[i] : b.v[i];
-  return r;
-}
-
-// kp * p + ax * x + ay * y with ONE carry pass over all limbs at once (no
-// serial chain), in int32.  The sum must lie in [0, 2^28) per limb: kp is
-// 2 or 4 where a term is negative (x and y below 2^26 + 133 per limb).
-// Out: limbs below 2^bits + 7, limb 0 below 2^26 + 133: inside fe_mul's
-// and fe_sq's operand bounds (2^26.7), 2p's limbs (so fe_sub stays
-// nonnegative) and fe_tobytes' domain, and a further fe_lin of such
-// values stays there.
-static __device__ __forceinline__ fe fe_lin(int kp, int ax, const fe& x,
-                                            int ay, const fe& y) {
-  int32_t h[10], c[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    int32_t p = (i == 0) ? 0x3ffffed : FE_MASK(i);
-    h[i] = kp * p + ax * x.v[i] + ay * y.v[i];
-    c[i] = h[i] >> FE_BITS(i);
-  }
-  fe r;
-#pragma unroll
-  for (int i = 0; i < 10; i++)
-    r.v[i] = (h[i] & FE_MASK(i)) + (i ? c[i - 1] : 19 * c[9]);
-  return r;
-}
-
-// a, b, c or d for thread q = 0, 1, 2 or 3
-static __device__ __forceinline__ int q_pick(int q, int a, int b, int c,
-                                             int d) {
-  return q < 2 ? (q == 0 ? a : b) : (q == 2 ? c : d);
-}
-
-// P + Q for Q in cached form, c being this thread's entry of Q.
-//   step 1: A = (Y1-X1)c0, B = (Y1+X1)c1, D = Z1 c2, C = T1 c3
-//   then each thread forms one of E = B - A, H = B + A, F = D - C,
-//   G = D + C (threads 0-3) and reads the two its product needs:
-//   X3 = EF, Y3 = GH, Z3 = FG, T3 = EH.
-static __device__ __forceinline__ fe quad_add(quad_ctx t, fe p, fe c) {
-  int q = t.q;
-  fe o = fe_shfl(t, p, q ^ 1);            // thread 0 gets Y1, thread 1 X1
-  fe a = fe_lin(q == 0 ? 2 : 0, q == 0 ? -1 : 1, p, q < 2 ? 1 : 0, o);
-  fe m = fe_mul(a, c);                    // A, B, D, C
-  fe n = fe_shfl(t, m, q ^ 1);            // B, A, C, D
-  fe v = fe_lin((q & 1) ? 0 : 2, q == 0 ? -1 : 1, m, q == 2 ? -1 : 1, n);
-  return fe_mul(fe_shfl(t, v, q_pick(q, 0, 3, 2, 0)),    // E, G, F, E
-                fe_shfl(t, v, q_pick(q, 2, 1, 3, 1)));   // F, H, G, H
-}
-
-// 2P (dbl-2008-hwcd, as ge_dbl); T is not read.
-//   step 1: X^2, Y^2, Z^2, S = (X+Y)^2
-//   then G = Y^2 - X^2, H = -(X^2 + Y^2), -2Z^2 and S on threads 0-3, and
-//   E = S + H, F = G - 2Z^2: X3 = EF, Y3 = GH, Z3 = FG, T3 = EH.
-static __device__ __forceinline__ fe quad_dbl(quad_ctx t, fe p) {
-  int q = t.q;
-  fe x = fe_shfl(t, p, 0), y = fe_shfl(t, p, 1);
-  fe m = fe_sq(fe_lin(0, 1, q == 3 ? x : p, q == 3 ? 1 : 0, y));
-  fe n = fe_shfl(t, m, q ^ 1);            // Y^2, X^2, S, Z^2
-  fe v = fe_lin(q_pick(q, 2, 4, 4, 0), q_pick(q, -1, -1, -2, 1), m,
-                q < 2 ? (q == 0 ? 1 : -1) : 0, n);
-  // operand 1: E = S + H, G, F = G - 2Z^2, E; operand 2: F, H, G, H
-  fe a1 = fe_shfl(t, v, q_pick(q, 3, 0, 0, 3));
-  fe b1 = fe_shfl(t, v, q_pick(q, 1, 0, 2, 1));
-  fe a2 = fe_shfl(t, v, q_pick(q, 0, 1, 0, 1));
-  fe b2 = fe_shfl(t, v, 2);
-  return fe_mul(fe_lin(0, 1, a1, q == 1 ? 0 : 1, b1),
-                fe_lin(0, 1, a2, q == 0 ? 1 : 0, b2));
-}
-
-// This thread's entry of P's cached form (Y-X, Y+X, 2Z, 2dT).
-static __device__ __forceinline__ fe quad_cache(quad_ctx t, fe p) {
-  int q = t.q;
-  fe o = fe_shfl(t, p, q ^ 1);
-  fe a = fe_lin(q == 0 ? 2 : 0, q_pick(q, -1, 1, 2, 1), p, q < 2 ? 1 : 0,
-                o);
-  return fe_mul(a, fe_sel(q == 3, fe_d2(), fe_one()));
-}
 
 // 64 signed 4-bit digits of k < 2^253, digit w + 8 in bits [4w, 4w + 4)
 // of d[0..3]: a nibble of 8 or more (with the carry in) becomes nibble -

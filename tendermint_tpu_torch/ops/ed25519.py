@@ -177,8 +177,16 @@ def build_neg_comb(pubkeys: torch.Tensor) -> tuple:
     return tbl, ok != 0
 
 
+def _check_aligned(**tensors) -> None:
+    """K1 and K3 gather 96-byte table entries in 16-byte loads."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must start 16-byte aligned")
+
+
 def _launch_verify(tables, pub_ok, pubs, pub_idx, val_idx, templates,
                    tmpl_idx, sigs, base_tbl) -> torch.Tensor:
+    _check_aligned(tables=tables, base_tbl=base_tbl)
     n = sigs.shape[0]
     out = torch.empty(n, dtype=torch.bool, device=sigs.device)
     if n:
@@ -308,6 +316,7 @@ def sign_grouped_templated(a_scalars, prefixes, pubkeys, val_idx, tmpl_idx,
         return sign_grouped_templated_plain(a_scalars, prefixes, pubkeys,
                                             val_idx, tmpl_idx, templates,
                                             base_tbl)
+    _check_aligned(base_tbl=base_tbl)
     out = torch.empty((n, 64), dtype=U8, device=val_idx.device)
     if n:
         kernels.launch("sign_grouped", a_scalars, prefixes, pubkeys,
