@@ -32,6 +32,13 @@ The redesigns of K2 and K3 were measured with
         --kernel verify_raw:64,65536 --kernel verify_tally:1x100000 \\
         parent=build/parent change=.
 
+and the redesigns of K1 and of the Merkle tree (K7; a tree whose library
+has no `tm_merkle_roots` runs its own `ops/merkle.py`) with
+
+    python3 bench_kernels.py --kernel verify_grouped:65536 \
+        --kernel verify_grouped_lanes:128 \
+        --kernel merkle_roots:2048x1024x64 parent=build/parent change=.
+
 A kernel not in `CASES` gets a case: a function from (size, device, rng)
 to (launch, check), `launch` returning the outputs of one launch and
 `check` holding the first tree's outputs against the reference.
@@ -271,10 +278,128 @@ def case_verify_grouped(size: str, dev, rng) -> tuple:
     return launch, check
 
 
+def case_verify_grouped_lanes(size: str, dev, rng) -> tuple:
+    """K1 with per-lane keys and messages at N lanes (size "N"): the
+    smoke's consensus vote burst (100 validators, Vb 128, 128-byte
+    prevote sign-bytes, adversarial lanes), tiled to N lanes, on tables
+    built by K2's plain version."""
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import kernels
+    n = int(size)
+    kernel, ed.build_neg_comb = ed.build_neg_comb, ed.build_neg_comb_plain
+    try:
+        (tbl, ok, vi, pk, msgs, sigs, base), golden = cs.vote_burst(dev)
+    finally:
+        ed.build_neg_comb = kernel
+    reps = -(-n // len(golden))
+    vi, pk, msgs, sigs = (x.repeat((reps,) + (1,) * (x.dim() - 1))[:n]
+                          .contiguous() for x in (vi, pk, msgs, sigs))
+    golden = (golden * reps)[:n]
+    lanes = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def launch():
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        kernels.launch("verify_grouped", tbl, tbl.shape[2], ok, pk, n, lanes,
+                       vi, msgs, n, msgs.shape[1], lanes, sigs, base, out, n)
+        return (out,)
+
+    def check(outs):
+        cs.require(torch.equal(outs[0], ed.verify_grouped_plain(
+            tbl, ok, vi, pk, msgs, sigs, base)), f"K1 lanes {n}: != plain")
+        cs.require(outs[0].tolist() == golden,
+                   f"K1 lanes {n}: != pure_ed25519")
+        return f"== plain == golden, {sum(golden)} of {n} valid"
+    return launch, check
+
+
+def case_sha256_prefixed(size: str, dev, rng) -> tuple:
+    """K4 over N messages of L bytes with prefix 0x00 (size "NxL"): Merkle
+    leaves."""
+    import hashlib
+    import torch
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.ops import sha256 as s256
+    n, width = map(int, size.split("x"))
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    msgs = torch.randint(0, 256, (n, width), generator=g, device=dev,
+                         dtype=torch.uint8)
+
+    def launch():
+        out = torch.empty((n, 32), dtype=torch.uint8, device=dev)
+        kernels.launch("sha256_prefixed", msgs, width, 0, out, n)
+        return (out,)
+
+    def check(outs):
+        cs.require(torch.equal(outs[0], s256.sha256_prefixed_plain(msgs, 0)),
+                   f"K4 {size}: != plain")
+        cs.require(outs[0][0].cpu().numpy().tobytes() == hashlib.sha256(
+            b"\0" + msgs[0].cpu().numpy().tobytes()).digest(),
+            f"K4 {size}: != hashlib")
+        return "== plain, message 0 == hashlib"
+    return launch, check
+
+
+_tree_merkle: dict = {}
+
+
+def tree_merkle(csrc: Path):
+    """The `ops/merkle.py` of the tree whose kernels are `csrc`, loaded
+    as a module of its own (its imports resolve to this tree's wrappers,
+    which launch through the library swapped in)."""
+    import importlib.util
+    path = csrc.parent / "ops" / "merkle.py"
+    if path not in _tree_merkle:
+        spec = importlib.util.spec_from_file_location(
+            f"merkle_{len(_tree_merkle)}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _tree_merkle[path] = mod
+    return _tree_merkle[path]
+
+
+def case_merkle_roots(size: str, dev, rng) -> tuple:
+    """`merkle.roots` over T trees x n leaves x L bytes (size "TxnxL"):
+    through K7 where the tree's library has it, else the tree's own
+    `roots` (a parent's level loop over K4)."""
+    import torch
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.types import merkle as host_merkle
+    trees, n, width = map(int, size.split("x"))
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    data = torch.randint(0, 256, (trees, n, width), generator=g, device=dev,
+                         dtype=torch.uint8)
+
+    def launch():
+        lib = kernels.library()
+        if hasattr(lib, "tm_merkle_roots"):
+            return (merkle.roots(data),)
+        return (tree_merkle(lib.csrc).roots(data),)
+
+    def check(outs):
+        cs.require(torch.equal(outs[0], merkle.roots_plain(data)),
+                   f"roots {size}: != plain")
+        host = data[0].cpu().numpy()
+        cs.require(outs[0][0].cpu().numpy().tobytes() == host_merkle.root(
+            [host[i].tobytes() for i in range(n)]),
+            f"roots {size}: tree 0 != host tree")
+        return "== plain, tree 0 == host tree"
+    return launch, check
+
+
 CASES = {"verify_raw": case_verify_raw, "verify_tally": case_verify_tally,
          "build_neg_comb": case_build_neg_comb,
          "sign_grouped": case_sign_grouped,
-         "verify_grouped": case_verify_grouped}
+         "verify_grouped": case_verify_grouped,
+         "verify_grouped_lanes": case_verify_grouped_lanes,
+         "merkle_roots": case_merkle_roots,
+         "sha256_prefixed": case_sha256_prefixed}
+# the CUDA sources a case needs built (`kernels.build(only=...)`), where
+# they are not the case's name; a tree builds those it has (a parent of
+# K7 runs `roots` on K4)
+SOURCES = {"verify_grouped_lanes": ("verify_grouped",),
+           "merkle_roots": ("merkle_roots", "sha256_prefixed")}
 
 
 def kernel_split(launch, reps: int = 3) -> dict | str:
@@ -343,28 +468,33 @@ def main() -> int:
             ap.error(f"--kernel {spec}: expected one of {sorted(CASES)} "
                      f"with sizes")
         plan.append((name, sizes.split(",")))
-    only = [name for name, _ in plan]
+    only = sorted({src for name, _ in plan
+                   for src in SOURCES.get(name, (name,))})
     trees = []
     for arg in args.trees:
         name, _, rest = arg.partition("=")
         path, _, flags = rest.partition(":")
         csrc = Path(path).resolve() / "tendermint_tpu_torch" / "csrc"
         trees.append({"name": name, "csrc": csrc,
-                      "flags": [f for f in flags.split(",") if f]})
+                      "flags": [f for f in flags.split(",") if f],
+                      "only": [k for k in only
+                               if (csrc / f"{k}.cu").exists()]})
 
     card = cs.card_line()
     cs.log(card)
     with ThreadPoolExecutor(len(trees)) as pool:
         builds = list(pool.map(
-            lambda t: kernels.build(t["csrc"], t["flags"], only), trees))
+            lambda t: kernels.build(t["csrc"], t["flags"], t["only"]),
+            trees))
     for t, (so, report) in zip(trees, builds):
         t["lib"], t["ptxas"] = kernels.load(so), ptxas(report)
+        t["lib"].csrc = t["csrc"]          # for a case's tree-own module
         cs.log(f"[build] {t['name']} ({t['csrc']}, flags {t['flags']}): "
                f"{t['ptxas']}")
     results = {t["name"]: {"ptxas": t["ptxas"], "micro": {}, "ms": {}}
                for t in trees}
     for t in trees:
-        for name in only:
+        for name in t["only"]:
             m = cs.fe_mul_cycles(t["csrc"], name, t["flags"])
             results[t["name"]]["micro"][name] = m
             cs.log(f"[micro] {t['name']} {name}'s build: {m} cycles in one "

@@ -7,16 +7,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any mismatch or exception exits non-zero:
 
-1. build the six CUDA kernels from `tendermint_tpu_torch/csrc` with nvcc
-   (sm_90a) and print the card's name and power limit;
+1. build the seven CUDA kernels from `tendermint_tpu_torch/csrc` with
+   nvcc (sm_90a) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
    hashlib; K2 at 1, 4, 100 and 128 keys, an undecodable key among them;
    K3 at 1, 31, 33, 129, 256 and 65,500 lanes with lanes of no key or no
-   template mixed into the warps, sampled lanes also against the golden
-   RFC 8032 signer; K1 on adversarial lanes and on a vote burst with
-   per-lane keys; K5 on edge lanes at 32- and 96-byte messages against
-   the golden verifier at 1, 3, 7, 9, 12, 33 and 200 lanes (not multiples
+   template mixed into the warps, every lane, sampled lanes also against
+   the golden RFC 8032 signer; K1 on adversarial lanes, on a vote burst
+   with per-lane keys, and on both routes at 1, 31, 33, 128, 129 and
+   65,536 lanes with forged lanes and indices out of range mixed in; K7
+   on [2, 3, n, L] batches at 10 tree sizes (one past the shared-memory
+   limit) and 6 leaf lengths, and on given leaf hashes; K5 on edge lanes
+   at 32- and 96-byte messages against the golden verifier at 1, 3, 7,
+   9, 12, 33 and 200 lanes (not multiples
    of its 4-thread quads or 32-lane blocks); K6 on edge lanes with mixed
    powers at 4,096 lanes in one row and 40 rows of 100);
 3. the main paths, each with every launch count set to 0 just before it
@@ -24,9 +28,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    a. replay a fast-sync chain at BASELINE config 3's shape (100
       validators, 625-block windows, ~12 KB blocks) through `CudaBackend`
       (fixture signing, comb tables, one verify per window), checking the
-      final app hash against a host kvstore run; then one Merkle `roots`
-      call at BASELINE config 2's shape (2,048 trees x 1,024 leaves x
-      64 B);
+      final app hash against a host kvstore run; then BASELINE config
+      2's Merkle cell: one `roots` call (K7) over 2,048 trees x 1,024
+      leaves x 64 B and the part sets of those 2,048 blocks (K4);
    b. mempool admission: a seeded ~12.4k-submission corpus through
       `Mempool.check_tx` from 1,024 threads, signature lanes coalesced by
       the batch plane onto K5 (with the validators' prevotes riding the
@@ -37,14 +41,16 @@ Phases, in order; any mismatch or exception exits non-zero:
       of card 0 (and card 0 alone when more than one card is visible):
       `sharded_verify_fn` over a 100,000-signature vote-set batch with
       int64 powers (K6 per shard), `sharded_merkle_fn` over the Merkle
-      call's trees (K4), `training_step_fn` over 1,000 blocks x 100
-      validators with 1,024 leaves per block (K6 and K4), the replay's
+      call's trees (K7), `training_step_fn` over 1,000 blocks x 100
+      validators with 1,024 leaves per block (K6 and K7), the replay's
       chain again through `CudaBackend(mesh=...)` (templated K1 per
       shard) and one of its windows through that backend's
       `verify_grouped` with the messages assembled on the host (K1 with
       per-lane keys and messages per shard);
 4. check that a tampered signature is rejected at the right height and
-   lane, sample the roots against the host tree and time `roots`, check
+   lane, sample the roots and part sets against the host's, count the
+   host-to-device copies of a `roots` call (one at a new n, none after)
+   and time `roots`, check
    the mempool's accounting, commits, app hash and verdicts (every signed
    entry re-verified by the plain version), and hold each mesh's results
    against K5's mask, numpy int64 tallies and quorums, the single-device
@@ -53,7 +59,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    at the shape its entry is timed at, its time and its plain version's
    at the main path's shapes, the two results held exactly equal there,
    and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
-   entry at the mempool's 64); per mesh, the whole call of each mesh
+   entry at the mempool's 64; K4 at the part sets, and beside it at the
+   trees' leaves); per mesh, the whole call of each mesh
    function likewise.  Logged beside it: a clock64 microkernel's cycles
    per dependent field product, quad doubling, mod-L reduction, SHA-512
    compression and field inversion in one warp, built with K3's, K5's
@@ -493,20 +500,18 @@ def phase_check() -> None:
         sigs = ed.sign_grouped_templated(t(a), t(pre), t(pubs), t(vi),
                                          t(ti), t(templates), base)
         psigs = ed.sign_grouped_templated_plain(
-            t(a), t(pre), t(pubs), t(vi.clip(0, 3)), t(ti.clip(0, T - 1)),
-            t(templates), base)
-        vmask = t(valid)
-        require(torch.equal(sigs[vmask], psigs[vmask]), f"K3 != plain at "
-                f"N = {n}")
-        require(not bool(sigs[~vmask].any()), f"K3 signed a lane with no "
-                f"key or message at N = {n}")
+            t(a), t(pre), t(pubs), t(vi), t(ti), t(templates), base)
+        require(torch.equal(sigs, psigs), f"K3 != plain at N = {n}")
+        require(not bool(sigs[t(~valid)].any()), f"K3 signed a lane with "
+                f"no key or message at N = {n}")
         host_sigs = sigs.cpu().numpy()
         for i in np.flatnonzero(valid)[::max(1, int(valid.sum()) // 8)][:8]:
             want = ref.sign(seeds[vi[i]], templates[ti[i]].tobytes())
             require(host_sigs[i].tobytes() == want,
                     f"K3 lane {i} of {n} != golden")
-    log(f"[check] K3 sign_grouped_templated == plain == pure_ed25519.sign "
-        f"(8 lanes each) at N = {K3_CHECK_LANES}, out-of-range lanes zero")
+    log(f"[check] K3 sign_grouped_templated == plain on every lane == "
+        f"pure_ed25519.sign (8 lanes each) at N = {K3_CHECK_LANES}, "
+        f"out-of-range lanes zero")
 
     # K1 on adversarial lanes against the K2 tables (key 2 invalid)
     tm = templates.copy()
@@ -553,6 +558,9 @@ def phase_check() -> None:
     log(f"[check] K1 verify_grouped (per-lane keys) == plain == golden on a "
         f"vote burst: {len(golden)} lanes, {sum(golden)} valid, Vb "
         f"{args[0].shape[2]}")
+
+    check_k1_lanes(tbl, ok, (a, pre, pubs), tm, base, rng)
+    check_k7(rng)
 
     # K5 on edge lanes, at both message lengths, at lane counts that are
     # not multiples of a quad (4 threads) or a block (32 lanes)
@@ -609,6 +617,113 @@ def phase_check() -> None:
 
 
 K5_CHECK_LANES = (12, 1, 3, 7, 9, 33, 200)
+K1_CHECK_LANES = (1, 31, 33, 128, 129, 65536)
+K7_CHECK_LEAVES = (1, 2, 3, 5, 7, 64, 1000, 1024, 1025, 4000)
+K7_CHECK_LEAF_LENS = (0, 24, 55, 56, 64, 119)
+
+
+def _forge_lanes(sigs, vi, ti, n_tmpl: int, rng) -> None:
+    """Forge about half the lanes of a signed batch in place: R, s and
+    message bits, s + L, a wrong key, R = identity, and key and template
+    indices of -1 and the count."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    n = len(vi)
+    kind = rng.integers(0, 16, n)
+    sigs[kind == 1, 3] ^= 0x10                              # R bit
+    sigs[kind == 2, 45] ^= 0x01                             # s bit
+    for i in np.flatnonzero(kind == 3)[:64]:                # s + L
+        s = int.from_bytes(sigs[i, 32:].tobytes(), "little") + ref.L
+        sigs[i, 32:] = np.frombuffer(s.to_bytes(32, "little"), np.uint8)
+    vi[kind == 4] = (vi[kind == 4] + 1) % 4                 # wrong key
+    sigs[kind == 5, :32] = 0
+    sigs[kind == 5, 0] = 1                                  # R = identity
+    vi[kind == 6] = -1
+    vi[kind == 7] = 4
+    ti[kind == 8] = -1
+    ti[kind == 9] = n_tmpl
+    ti[kind == 10] = (ti[kind == 10] + 1) % n_tmpl          # other message
+
+
+def check_k1_lanes(tbl, ok, keys, tm, base, rng, sizes=None) -> None:
+    """K1 on both routes at `sizes` (K1_CHECK_LANES): lanes over the
+    four keys of `keys` (a, prefixes, pubkeys) signed by K3 (checked
+    before), then forged lanes and indices out of range mixed into the
+    warps and blocks; every lane == plain.  On CPU tensors (small
+    `sizes`) it rehearses the check with the plain versions."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    dev = tbl.device
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    a, pre, pubs = keys
+    T = len(tm)
+    for n in sizes or K1_CHECK_LANES:
+        vi = rng.integers(0, 4, n).astype(np.int32)
+        ti = rng.integers(0, T, n).astype(np.int32)
+        sg = ed.sign_grouped_templated(t(a), t(pre), t(pubs), t(vi), t(ti),
+                                       t(tm), base).cpu().numpy()
+        if n > 1:
+            _forge_lanes(sg, vi, ti, T, rng)
+        targs = (tbl, ok, t(pubs), t(vi), t(ti), t(tm), t(sg), base)
+        got = ed.verify_grouped_templated(*targs)
+        require(torch.equal(got, ed.verify_grouped_templated_plain(*targs)),
+                f"K1 != plain at N = {n}")
+        vc, tc = vi.clip(0, 3), ti.clip(0, T - 1)
+        largs = (tbl, ok, t(vi), t(pubs[vc]), t(tm[tc]), t(sg), base)
+        got_l = ed.verify_grouped(*largs)
+        require(torch.equal(got_l, ed.verify_grouped_plain(*largs)),
+                f"K1 (per-lane keys) != plain at N = {n}")
+        inside = (vi >= 0) & (vi < 4) & (ti >= 0) & (ti < T)
+        require(not bool(got[t(~inside)].any()) and
+                not bool(got_l[t((vi < 0) | (vi >= 4))].any()),
+                f"K1 accepted a lane out of range at N = {n}")
+        require(n == 1 or 0 < int(got.sum()) < n, f"K1 at N = {n}: "
+                f"{int(got.sum())} valid")
+    log(f"[check] K1 verify_grouped_templated and verify_grouped == plain on "
+        f"every lane at N = {sizes or K1_CHECK_LANES}, forged lanes and "
+        f"indices out of range (-1, the count) mixed in")
+
+
+def check_k7(rng, dev=None, leaves=K7_CHECK_LEAVES) -> None:
+    """K7 (`merkle.roots`, `merkle.root_from_leaf_hashes`) against the
+    plain versions on [2, 3, n, L] batches at every n of `leaves` and
+    every leaf length (n = 4,000 past the shared-memory limit), the
+    given-hashes route at each n, and 8 roots against the host tree.
+    `dev` = cpu rehearses it with the plain versions."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.types import merkle as host_merkle
+    dev = dev or torch.device("cuda")
+    shared = [n for n in leaves if 2 * n * 32 <= merkle.MAX_SHARED_BYTES]
+    require(len(shared) < len(leaves), "no K7 check past the shared-memory "
+            "limit")
+    hosted = 0
+    for n in leaves:
+        for width in K7_CHECK_LEAF_LENS:
+            data = torch.as_tensor(rng.integers(0, 256, (2, 3, n, width),
+                                                dtype=np.uint8), device=dev)
+            got = merkle.roots(data)
+            require(got.shape == (2, 3, 32) and
+                    torch.equal(got, merkle.roots_plain(data)),
+                    f"K7 != plain at n = {n}, L = {width}")
+            if width in (0, 119) and hosted < 8:
+                host = data[1, 2].cpu().numpy()
+                require(got[1, 2].cpu().numpy().tobytes() == host_merkle.root(
+                    [host[i].tobytes() for i in range(n)]),
+                    f"K7 != host tree at n = {n}, L = {width}")
+                hosted += 1
+        h = torch.as_tensor(rng.integers(0, 256, (2, 3, n, 32),
+                                         dtype=np.uint8), device=dev)
+        require(torch.equal(merkle.root_from_leaf_hashes(h),
+                            merkle.root_from_leaf_hashes_plain(h)),
+                f"K7 (given leaf hashes) != plain at n = {n}")
+    require(hosted == 8, f"{hosted} K7 roots held against the host tree")
+    log(f"[check] K7 roots == plain on [2, 3, n, L] at n = {leaves} "
+        f"(shared memory up to n = {max(shared)}, scratch above) x L = "
+        f"{K7_CHECK_LEAF_LENS}, root_from_leaf_hashes == plain at each n, "
+        f"{hosted} roots == host tree")
 K2_CHECK_SETS = ((1, None), (4, 2), (100, 50), (128, None))
 K3_CHECK_LANES = (1, 31, 33, 129, 256, 65500)
 
@@ -794,42 +909,81 @@ def phase_tamper(rp_ctx: dict) -> None:
 TREES, LEAVES, LEAF_LEN = 2048, 1024, 64          # BASELINE config 2 shape
 
 
-def phase_merkle() -> dict:
-    """The main path's Merkle roots: one `roots` call at config 2's shape
-    (K4 for the leaves and each level)."""
+def phase_merkle(be) -> dict:
+    """The main path's Merkle cell, BASELINE config 2's block Merkle and
+    part-set roots: one `roots` call over the trees (K7), then the part
+    sets of the same blocks through `part_set.from_data_batched` on the
+    backend (each block's 1,024 x 64-byte txs one full 64 KB part, hashed
+    in one K4 batch)."""
     import torch
     from tendermint_tpu_torch.ops import merkle
+    from tendermint_tpu_torch.types import part_set
     g = torch.Generator(device="cuda").manual_seed(SEED)
     data = torch.randint(0, 256, (TREES, LEAVES, LEAF_LEN), generator=g,
                          device="cuda", dtype=torch.uint8)
     roots = merkle.roots(data)
     torch.cuda.synchronize()
-    return {"data": data, "roots": roots}
+    blocks = data.reshape(TREES, -1).cpu().numpy()
+    t0 = time.perf_counter()
+    parts = part_set.from_data_batched([b.tobytes() for b in blocks],
+                                       backend=be)
+    log(f"[merkle] part sets of {TREES} blocks x {blocks.shape[1]} B (one "
+        f"full part each, hashed by K4 in one batch) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return {"data": data, "roots": roots, "blocks": blocks, "parts": parts}
+
+
+def h2d_copies(fn) -> int:
+    """Host-to-device copies that one call of `fn` makes, counted from
+    `torch.profiler`'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
 
 
 def check_merkle(mk_ctx: dict) -> None:
-    """Sample the roots against the host tree, time `roots`, and time and
-    hold equal the same call with K4's plain version at every level."""
+    """Sample the roots against the host tree and the part sets against
+    the host's; time `roots` (K7) and its plain version, held equal; and
+    count the host-to-device copies of a call for a new n (the schedule's
+    upload) and of the timed call (none)."""
     import torch
     from tendermint_tpu_torch.ops import merkle
-    from tendermint_tpu_torch.ops import sha256 as s256
     from tendermint_tpu_torch.types import merkle as host_merkle
+    from tendermint_tpu_torch.types import part_set
     data, roots = mk_ctx["data"], mk_ctx["roots"]
     host = data[:8].cpu().numpy()
     for b in range(len(host)):
         want = host_merkle.root([host[b, i].tobytes() for i in range(LEAVES)])
         require(roots[b].cpu().numpy().tobytes() == want,
                 f"tree {b}: device root != host tree")
+    blocks, parts = mk_ctx["blocks"], mk_ctx["parts"]
+    for b in range(TREES):
+        require(parts[b].header.hash == hashlib.sha256(
+            b"\0" + blocks[b].tobytes()).digest(),
+            f"block {b}: part-set root != hashlib")
+    host_parts = part_set.from_data_batched(
+        [blocks[b].tobytes() for b in range(8)])
+    require([p.header for p in parts[:8]] == [p.header for p in host_parts],
+            "part sets != the host's")
+    cold = h2d_copies(lambda: merkle.roots(data[:2, :LEAVES - 1]))
+    warm = h2d_copies(lambda: merkle.roots(data))
+    require(cold > 0 and warm == 0, f"roots copies from the host: {cold} "
+            f"at a new n, {warm} at n = {LEAVES} (the profiler must see the "
+            f"first and no copy in the second)")
     ms, _ = cuda_ms(lambda: merkle.roots(data), 3)
-    plain_ms, plain = plain_cuda_ms(lambda: merkle.roots(data),
-                                    ((merkle, "sha256_prefixed",
-                                      s256.sha256_prefixed_plain),))
-    require(torch.equal(plain, roots), "roots with K4 != roots with plain")
+    plain_ms, plain = cuda_ms(lambda: merkle.roots_plain(data), 0)
+    require(torch.equal(plain, roots), "roots (K7) != roots_plain")
     bound_ms, bound_by = _bound(*_roots_cost(TREES, LEAVES, LEAF_LEN))
     log(f"[merkle] {TREES} trees x {LEAVES} leaves x {LEAF_LEN} B: "
         f"{ms:.3f} ms per batch, {TREES / ms * 1e3:.0f} trees/s, bound "
         f"{bound_ms:.4f} ms by {bound_by}; plain "
-        f"{plain_ms:.1f} ms, == K4 roots; {len(host)} roots == host tree")
+        f"{plain_ms:.1f} ms, == K7 roots; {len(host)} roots == host tree; "
+        f"{TREES} part-set roots == hashlib, 8 == the host's; host-to-device "
+        f"copies per roots call (torch.profiler): {cold} at a new n, {warm} "
+        f"after")
 
 
 def plain_cuda_ms(fn, swaps) -> tuple:
@@ -1145,8 +1299,8 @@ def mesh_label(mesh) -> str:
 def phase_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, mesh) -> dict:
     """One mesh's pass over rows 8-11 of the multi-device plane:
     `sharded_verify_fn` over the 100,000 flat lanes (K6 per shard),
-    `sharded_merkle_fn` over the Merkle cell's trees (K4 per shard),
-    `training_step_fn` over the 1,000 x 100 grid and its leaves (K6 and K4
+    `sharded_merkle_fn` over the Merkle cell's trees (K7 per shard),
+    `training_step_fn` over the 1,000 x 100 grid and its leaves (K6 and K7
     per shard), the replay's chain again through `CudaBackend(mesh=mesh)`
     (its 65,536-lane windows split over the mesh, templated K1 per shard),
     and the first window once more through that backend's
@@ -1212,9 +1366,6 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
     from tendermint_tpu_torch.types import merkle as host_merkle
     mesh, label, launched = ctx["mesh"], ctx["label"], ctx["launches"]
     shards = mesh.size
-    # one K4 launch for the leaves and one per level, per `roots` call
-    k4_trees = 1 + len(merkle._plan(mk_ctx["data"].shape[1]))
-    k4_blocks = 1 + len(merkle._plan(MESH_LEAVES))
     base = ed.base_table(rp_ctx["backend"].device)
 
     # row 8
@@ -1234,7 +1385,7 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
     # row 9
     require(torch.equal(ctx["roots"], mk_ctx["roots"]),
             f"{label}: sharded_merkle_fn != single-device roots")
-    require(launched["merkle"] == {"K4": k4_trees * shards},
+    require(launched["merkle"] == {"K7": shards},
             f"{label}: row 9 launches {launched['merkle']}")
 
     # row 10
@@ -1257,7 +1408,7 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
         require(roots[b].cpu().numpy().tobytes() == host_merkle.root(
             [host[i].tobytes() for i in range(MESH_LEAVES)]),
             f"{label}: block {b} root != host tree")
-    require(launched["step"] == {"K6": shards, "K4": k4_blocks * shards},
+    require(launched["step"] == {"K6": shards, "K7": shards},
             f"{label}: row 10 launches {launched['step']}")
 
     # row 11
@@ -1439,7 +1590,7 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     import torch
     from tendermint_tpu_torch.blockchain import replay as rp
     from tendermint_tpu_torch.ops import ed25519 as ed
-    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.ops import kernels, merkle
     from tendermint_tpu_torch.ops import sha256 as s256
     from tendermint_tpu_torch.types import canonical
     from tendermint_tpu_torch.types.validator import window_commit_lanes
@@ -1586,18 +1737,38 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
                  "tendermint_tpu/ops/ed25519.py:117", "K3", ms, plain_ms,
                  err, nbytes, ops, f"{n} lanes, {h_tm.shape[0]} templates"))
 
-    # K4 at the Merkle phase's leaf level (2,097,152 x 64 B)
-    leaves = mk_ctx["data"].reshape(-1, LEAF_LEN)
-    ms, got = cuda_ms(lambda: s256.sha256_prefixed(leaves, 0), 10)
-    plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(leaves, 0), 1)
+    # K4 at the Merkle cell's part sets (2,048 full 64 KB parts); beside
+    # it, at the trees' leaves (2,097,152 x 64 B), its rows before K7
+    parts = torch.as_tensor(mk_ctx["blocks"], device=dev)
+    ms, got = cuda_ms(lambda: s256.sha256_prefixed(parts, 0), 10)
+    plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(parts, 0), 0)
     require(torch.equal(got, want), "K4 != plain at the main path's shape")
     err = max_abs_err(got, want)
-    n = leaves.shape[0]
-    nblocks = (LEAF_LEN + 1 + 9 + 63) // 64
+    n, width = parts.shape
+    nblocks = (width + 1 + 9 + 63) // 64
     rows.append(("sha256_prefixed", "sha256_prefixed.cu",
-                 "tendermint_tpu/ops/sha256.py:114", "K4", ms, plain_ms,
-                 err, n * (LEAF_LEN + 32), n * nblocks * SHA256_OPS_PER_BLOCK,
-                 f"{n} messages x {LEAF_LEN} B"))
+                 "tendermint_tpu/ops/merkle.py:98", "K4", ms, plain_ms,
+                 err, n * (width + 32), n * nblocks * SHA256_OPS_PER_BLOCK,
+                 f"{n} messages x {width} B (the part sets)"))
+    leaves = mk_ctx["data"].reshape(-1, LEAF_LEN)
+    leaf_ms, _ = cuda_ms(lambda: s256.sha256_prefixed(leaves, 0), 10)
+    b_ms, b_by = _bound(leaves.shape[0] * (LEAF_LEN + 32), leaves.shape[0]
+                        * ((LEAF_LEN + 1 + 9 + 63) // 64)
+                        * SHA256_OPS_PER_BLOCK)
+    log(f"[kernels] K4 sha256_prefixed at {leaves.shape[0]} messages x "
+        f"{LEAF_LEN} B (the trees' leaves): {leaf_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by}")
+
+    # K7 at the Merkle cell's trees (2,048 x 1,024 leaves x 64 B)
+    data = mk_ctx["data"]
+    ms, got = cuda_ms(lambda: merkle.roots(data), 10)
+    plain_ms, want = cuda_ms(lambda: merkle.roots_plain(data), 0)
+    require(torch.equal(got, want), "K7 != plain at the main path's shape")
+    err = max_abs_err(got, want)
+    rows.append(("roots", "merkle_roots.cu",
+                 "tendermint_tpu/ops/merkle.py:124", "K7", ms, plain_ms, err,
+                 *_roots_cost(TREES, LEAVES, LEAF_LEN),
+                 f"{TREES} trees x {LEAVES} leaves x {LEAF_LEN} B"))
 
     out = []
     for (name, src, replaces, key, ms, plain_ms, err, nbytes, ops,
@@ -1646,7 +1817,6 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
     import torch
     from tendermint_tpu_torch.ops import ed25519 as ed
     from tendermint_tpu_torch.ops import merkle
-    from tendermint_tpu_torch.ops import sha256 as s256
     sharding_py = "tendermint_tpu_torch/parallel/sharding.py"
     jax_sharding = "tendermint_tpu/parallel/sharding.py"
     base = ed.base_table(mesh_in["flat"][0].device)
@@ -1661,7 +1831,7 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
         k6_grid, _roots_cost(nb, MESH_LEAVES, LEAF_LEN))]
     trees_cost = _roots_cost(TREES, LEAVES, LEAF_LEN)
     k6 = (ed, "verify_tally", ed.verify_tally_plain)
-    k4 = (merkle, "sha256_prefixed", s256.sha256_prefixed_plain)
+    k7 = (merkle, "roots", merkle.roots_plain)
     k1 = (ed, "verify_grouped", ed.verify_grouped_plain)
     k1t = (ed, "verify_grouped_templated", ed.verify_grouped_templated_plain)
 
@@ -1692,11 +1862,11 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
             ("sharded_verify_fn", 95, lambda: ctx["verify_fn"](*flat), (k6,),
              lc["verify"]["K6"], flat_cost, f"{n} lanes"),
             ("sharded_merkle_fn", 109, lambda: ctx["merkle_fn"](mk_ctx["data"]),
-             (k4,), lc["merkle"]["K4"], trees_cost,
+             (k7,), lc["merkle"]["K7"], trees_cost,
              f"{TREES} trees x {LEAVES} leaves"),
             ("training_step_fn", 119, lambda: ctx["step_fn"](
-                *grid, mesh_in["leaves"], mesh_in["total"]), (k6, k4),
-             lc["step"]["K6"] + lc["step"]["K4"], grid_cost,
+                *grid, mesh_in["leaves"], mesh_in["total"]), (k6, k7),
+             lc["step"]["K6"] + lc["step"]["K7"], grid_cost,
              f"{nb} blocks x {N_VALS} lanes + {MESH_LEAVES} leaves"),
         )
         args, mask = ctx["calls"][0]
@@ -1753,6 +1923,7 @@ def _window_cost(args) -> tuple:
 
 KERNEL_KEYS = {"verify_grouped": "K1", "build_neg_comb": "K2",
                "sign_grouped": "K3", "sha256_prefixed": "K4",
+               "merkle_roots": "K7",
                "verify_raw": "K5", "verify_tally": "K6"}
 
 
@@ -1791,8 +1962,8 @@ def main() -> int:
     phase_check()
     kernels.reset_launches()                # the replay path starts here
     rp_ctx = phase_replay()
-    mk_ctx = phase_merkle()
-    replay = read_launches("replay", ("K1", "K2", "K3", "K4"))
+    mk_ctx = phase_merkle(rp_ctx["backend"])
+    replay = read_launches("replay", ("K1", "K2", "K3", "K4", "K7"))
     kernels.reset_launches()                # the mempool path starts here
     mp_ctx = phase_mempool(CudaBackend())
     mempool = read_launches("mempool", ("K1", "K2", "K3", "K5"))
@@ -1803,7 +1974,7 @@ def main() -> int:
         meshes.insert(1, sharding.Mesh([card0]))
     kernels.reset_launches()                # the mesh path starts here
     mesh_ctxs = [phase_mesh(rp_ctx, mk_ctx, mesh_in, m) for m in meshes]
-    mesh = read_launches("mesh", ("K1", "K2", "K4", "K6"))
+    mesh = read_launches("mesh", ("K1", "K2", "K6", "K7"))
     phase_tamper(rp_ctx)
     check_merkle(mk_ctx)
     check_mempool(mp_ctx, mempool)
@@ -1811,11 +1982,12 @@ def main() -> int:
         check_mesh(rp_ctx, mk_ctx, mesh_in, ctx)
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
-    # keys on the mempool path, K4 on both; K2 at the replay set's shape
-    # on all three; K5's raw flushes padded to its row's 64 lanes (one
-    # launch per flush, as check_mempool holds); K6 runs on the mesh path
-    # only.  The mesh's launches of K1 and K4, at the shards' shapes,
-    # stand in the mesh rows.
+    # keys on the mempool path, K4 (part sets) and K7 (trees) on the
+    # replay path's Merkle cell; K2 at the replay set's shape on all
+    # three; K5's raw flushes padded to its row's 64 lanes (one launch per
+    # flush, as check_mempool holds); K6 runs on the mesh path only.  The
+    # mesh's launches of K1 and K7, at the shards' shapes, stand in the
+    # mesh rows.
     launches = {k: replay[k] + mempool[k] for k in replay}
     launches["K1"], launches["K1p"] = replay["K1"], mempool["K1"]
     launches["K5"] = mp_ctx["k5_by_size"].get(K5_ROW_LANES, 0)

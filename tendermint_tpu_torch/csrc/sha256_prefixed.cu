@@ -1,12 +1,11 @@
 // K4: SHA-256 of prefix_byte || msg for N equal-length messages.
 //
 // Replaces tendermint_tpu/ops/sha256.py sha256 as used by ops/merkle.py
-// leaf_hashes (0x00 || leaf) and each root_from_leaf_hashes level
-// (0x01 || left || right); the level schedule and pair gathers stay in
-// torch.  One thread per message.
-// What bounds it: for 65-byte Merkle messages, the 64-round compressions
-// (two per message, ~2.4k 32-bit ALU operations) against 97 bytes moved,
-// so integer throughput, not memory.  CUDA rather than Triton: the work is
+// leaf_hashes (0x00 || leaf): part-set chunks and other leaf batches (the
+// trees' roots are K7's).  One thread per message.
+// What bounds it: for 64-byte leaves, the 64-round compressions (two per
+// message, ~2.8k 32-bit ALU operations) against 97 bytes moved, so
+// integer throughput, not memory.  CUDA rather than Triton: the work is
 // 32-bit rotate/add/xor rounds with no block-level tensor structure.
 #include <cuda_runtime.h>
 

@@ -104,7 +104,8 @@ TM_DEV fe fe_lin(int kp, int ax, const fe& x, int ay, const fe& y) {
 // keeps the kernels' code (and nvcc's time) small.  Arguments by value pass
 // in registers.  A kernel that defines TM_FE_MUL_INLINE before including
 // this header gets the products inline instead (K5: a one- or two-block
-// launch, where the lane's latency is the time).
+// launch, where the lane's latency is the time; K1: its block's inversion,
+// one warp's chain, is its tail).
 #ifdef TM_FE_MUL_INLINE
 #define TM_FE_MUL static __device__ __forceinline__
 #else

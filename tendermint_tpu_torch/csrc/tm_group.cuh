@@ -5,8 +5,8 @@
 // add-2008-hwcd-3 (9 products), the mixed add with a precomputed
 // (y+x, y-x, 2dxy) entry (7 products; (1, 1, 0) is the identity, so digit 0
 // needs no branch), the add onto a cached (Y-X, Y+X, 2Z, 2dT) point (8
-// products) and dbl-2008-hwcd.  `ge_encode` inverts Z per lane (Fermat,
-// ~265 products); K2 and K3 batch their inversions (fe_block_invert).
+// products) and dbl-2008-hwcd.  The kernels encode points after one
+// batch inversion per block (fe_block_invert), not one per lane.
 #pragma once
 #include "tm_field.cuh"
 
@@ -124,17 +124,6 @@ static __device__ __forceinline__ ge_aff ge_aff_load(const uint8_t* p) {
   r.ymx = fe_fromwords(w + 8);
   r.xy2d = fe_fromwords(w + 16);
   return r;
-}
-
-// Canonical 32-byte encoding (y with the sign of x in bit 255); false, and
-// no encoding, when Z == 0 (not a projective point).
-static __device__ bool ge_encode(const ge& p, uint8_t out[32]) {
-  if (fe_iszero(p.Z)) return false;
-  fe zi = fe_invert(p.Z);
-  int xs = fe_parity(fe_mul(p.X, zi));
-  fe_tobytes(out, fe_mul(p.Y, zi));
-  out[31] |= (uint8_t)(xs << 7);
-  return true;
 }
 
 // little-endian bytes < p = 2^255 - 19

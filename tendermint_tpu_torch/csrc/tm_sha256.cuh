@@ -51,11 +51,18 @@ static __device__ __forceinline__ void sha256_compress(uint32_t st[8],
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
-// SHA-256 of prefix || msg[0:n] -> 32 digest bytes
-static __device__ void sha256_prefixed(uint32_t prefix, const uint8_t* msg,
-                                       int n, uint8_t out[32]) {
-  uint32_t st[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
-                    0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+static __device__ __forceinline__ void sha256_init(uint32_t st[8]) {
+  const uint32_t h0[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                          0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+#pragma unroll
+  for (int i = 0; i < 8; i++) st[i] = h0[i];
+}
+
+// SHA-256 of prefix || msg[0:n] -> the digest as eight big-endian words
+static __device__ void sha256_prefixed_words(uint32_t prefix,
+                                             const uint8_t* msg, int n,
+                                             uint32_t st[8]) {
+  sha256_init(st);
   const int total = n + 1;
   const int nblocks = (total + 9 + 63) / 64;
   const int lenpos = nblocks * 64 - 8;
@@ -80,6 +87,13 @@ static __device__ void sha256_prefixed(uint32_t prefix, const uint8_t* msg,
     }
     sha256_compress(st, w);
   }
+}
+
+// SHA-256 of prefix || msg[0:n] -> 32 digest bytes
+static __device__ void sha256_prefixed(uint32_t prefix, const uint8_t* msg,
+                                       int n, uint8_t out[32]) {
+  uint32_t st[8];
+  sha256_prefixed_words(prefix, msg, n, st);
   for (int i = 0; i < 8; i++) {
     for (int k = 0; k < 4; k++) out[4 * i + k] = (uint8_t)(st[i] >> (24 - 8 * k));
   }

@@ -21,6 +21,14 @@ kernel (or raises); on CPU tensors it runs the plain twin, which follows
 the reference's algorithm step by step in PyTorch.  The plain twins also
 run on CUDA tensors when called directly — that is how the kernels are
 held against them on the card.
+
+Indices out of range, one rule for K1, K3 and their plain twins: a lane
+whose `val_idx`, key row or `tmpl_idx` is < 0 or >= its count verifies
+False (K1) or signs 64 zero bytes (K3).  The plain twins compute such a
+lane on clamped indices and mask it; neither route wraps or raises.  (The
+JAX package's `jnp.take` wraps -1 and fills past the end, depending on
+the jax version: a deliberate difference.  `CudaBackend` rejects such
+indices before any launch.)
 """
 
 from __future__ import annotations
@@ -86,43 +94,65 @@ def verify_tally_plain(pubkeys, msgs, sigs, powers, rows, total_power,
     return ok, tallied, sig_ok & (tallied * 3 > total * 2)
 
 
+def _clamped(idx: torch.Tensor, count: int) -> tuple:
+    """(idx clamped into [0, count) as int64, lanes whose idx was in
+    range): the module's rule for indices out of range."""
+    inside = (idx >= 0) & (idx < count)
+    return idx.long().clamp(0, max(count - 1, 0)), inside
+
+
 def verify_grouped_plain(tables, pub_ok, val_idx, pubkeys, msgs, sigs,
                          base_tbl) -> torch.Tensor:
-    """Reference `ed25519.verify_grouped`, step by step."""
+    """Reference `ed25519.verify_grouped`, step by step; a lane whose
+    val_idx is out of range verifies False."""
+    vi, inside = _clamped(val_idx, tables.shape[2])
+    if not tables.shape[2]:
+        return inside                   # no lane is in range
     challenge = torch.cat([sigs[..., :32], pubkeys, msgs], dim=-1)
     k = sc.reduce512(s512.sha512(challenge))
     s_bytes = sigs[..., 32:]
     ok_s = sc.lt_L(s_bytes)
     sB = curve.scalar_mul_base(s_bytes, base_tbl)
-    kA = curve.scalar_mul_comb(tables, val_idx.long(), k)
+    kA = curve.scalar_mul_comb(tables, vi, k)
     enc, ok_z = curve.encode_batch(curve.pt_add(sB, kA))
     ok_r = (enc == sigs[..., :32]).all(dim=-1)
-    return pub_ok[val_idx.long()] & ok_s & ok_r & ok_z
+    return inside & pub_ok[vi] & ok_s & ok_r & ok_z
 
 
 def verify_grouped_templated_plain(tables, pub_ok, val_pubs, val_idx,
                                    tmpl_idx, templates, sigs,
                                    base_tbl) -> torch.Tensor:
     """Reference `ed25519.verify_grouped_templated`: gather each lane's
-    template and pubkey, then `verify_grouped_plain`."""
-    return verify_grouped_plain(tables, pub_ok, val_idx,
-                                val_pubs[val_idx.long()],
-                                templates[tmpl_idx.long()], sigs, base_tbl)
+    template and pubkey, then `verify_grouped_plain`; a lane whose
+    val_idx or tmpl_idx is out of range verifies False."""
+    vi, v_in = _clamped(val_idx, val_pubs.shape[0])
+    ti, t_in = _clamped(tmpl_idx, templates.shape[0])
+    if not (val_pubs.shape[0] and templates.shape[0]):
+        return v_in & t_in              # no lane is in range
+    return t_in & verify_grouped_plain(tables, pub_ok, val_idx, val_pubs[vi],
+                                       templates[ti], sigs, base_tbl)
 
 
 def sign_grouped_templated_plain(a_scalars, prefixes, pubkeys, val_idx,
                                  tmpl_idx, templates,
                                  base_tbl) -> torch.Tensor:
     """Reference `ed25519.sign_grouped_templated`: r = H(prefix || M),
-    R = [r]B, k = H(R || A || M), S = (r + k*a) mod L."""
-    vi, ti = val_idx.long(), tmpl_idx.long()
+    R = [r]B, k = H(R || A || M), S = (r + k*a) mod L; a lane whose
+    val_idx or tmpl_idx is out of range signs 64 zero bytes."""
+    vi, v_in = _clamped(val_idx, a_scalars.shape[0])
+    ti, t_in = _clamped(tmpl_idx, templates.shape[0])
+    inside = v_in & t_in
+    if not (a_scalars.shape[0] and templates.shape[0]):
+        return torch.zeros((len(val_idx), 64), dtype=U8,
+                           device=val_idx.device)   # no lane is in range
     msgs = templates[ti]
     r = sc.reduce512(s512.sha512(torch.cat([prefixes[vi], msgs], dim=-1)))
     R_bytes, _ = curve.encode_batch(curve.scalar_mul_base(r, base_tbl))
     k = sc.reduce512(s512.sha512(
         torch.cat([R_bytes, pubkeys[vi], msgs], dim=-1)))
     s = sc.muladd_mod_L(k, a_scalars[vi], r)
-    return torch.cat([R_bytes, s.to(U8)], dim=-1)
+    sigs = torch.cat([R_bytes, s.to(U8)], dim=-1)
+    return torch.where(inside[:, None], sigs, 0).to(U8)
 
 
 # -- wrappers ------------------------------------------------------------
@@ -200,8 +230,9 @@ def _launch_verify(tables, pub_ok, pubs, pub_idx, val_idx, templates,
 def verify_grouped(tables, pub_ok, val_idx, pubkeys, msgs, sigs,
                    base_tbl) -> torch.Tensor:
     """Lane i checks sigs[i] on msgs[i] by key pubkeys[i], whose negated
-    comb table is tables[:, :, val_idx[i]] -> bool[N].  K1 on CUDA
-    tensors; the plain twin on CPU tensors."""
+    comb table is tables[:, :, val_idx[i]] -> bool[N]; a lane whose
+    val_idx is out of range is False.  K1 on CUDA tensors; the plain twin
+    on CPU tensors."""
     _check_tables(tables, pub_ok)
     _check_base(base_tbl)
     n = _check_lanes(val_idx, sigs)
@@ -278,8 +309,9 @@ def verify_tally(pubkeys, msgs, sigs, powers, rows, total_power,
 def verify_grouped_templated(tables, pub_ok, val_pubs, val_idx, tmpl_idx,
                              templates, sigs, base_tbl) -> torch.Tensor:
     """Grouped verify with each lane's message templates[tmpl_idx[i]] and
-    key val_pubs[val_idx[i]] gathered on the device -> bool[N].  K1 on
-    CUDA tensors; the plain twin on CPU tensors."""
+    key val_pubs[val_idx[i]] gathered on the device -> bool[N]; a lane
+    whose val_idx or tmpl_idx is out of range is False.  K1 on CUDA
+    tensors; the plain twin on CPU tensors."""
     vb = _check_tables(tables, pub_ok)
     _check_base(base_tbl)
     _check_lanes(val_idx, sigs, ("tmpl_idx", tmpl_idx))
@@ -298,7 +330,8 @@ def verify_grouped_templated(tables, pub_ok, val_pubs, val_idx, tmpl_idx,
 def sign_grouped_templated(a_scalars, prefixes, pubkeys, val_idx, tmpl_idx,
                            templates, base_tbl) -> torch.Tensor:
     """Lane i signs templates[tmpl_idx[i]] with key val_idx[i] (clamped
-    scalar a, prefix and pubkey rows uint8[V, 32]) -> sigs uint8[N, 64].
+    scalar a, prefix and pubkey rows uint8[V, 32]) -> sigs uint8[N, 64];
+    a lane whose val_idx or tmpl_idx is out of range gets 64 zero bytes.
     K3 on CUDA tensors; the plain twin on CPU tensors."""
     _check_base(base_tbl)
     for name, t in (("a_scalars", a_scalars), ("prefixes", prefixes),

@@ -41,6 +41,7 @@ _ENTRY = {
     "sha256_prefixed": ("tm_sha256_prefixed", "piipi"),
     "verify_raw": ("tm_verify_raw", "ppipppi"),
     "verify_tally": ("tm_verify_tally", "ppippppiippppp"),
+    "merkle_roots": ("tm_merkle_roots", "piiipipipi"),
 }
 
 LAUNCHES = {name: 0 for name in _ENTRY}

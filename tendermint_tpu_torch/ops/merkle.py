@@ -1,21 +1,29 @@
-"""Batched SHA-256 Merkle roots — the twin of `tendermint_tpu/ops/merkle.py`.
+"""Batched SHA-256 Merkle roots — the twin of `tendermint_tpu/ops/merkle.py`,
+and the wrapper of kernel K7 (`csrc/merkle_roots.cu`).
 
 Same roots as the host tree (`types.merkle`: recursive (n+1)//2 split,
 0x00 leaf / 0x01 inner domain separation) for a batch of equal-shaped
-trees: leaf hashing is one `sha256_prefixed` (kernel K4 on CUDA tensors)
-over [..., n, L], and each level is one `sha256_prefixed` over the
-(left || right) pairs that the static `_plan(n)` schedule gathers with
-torch indexing.
+trees.  `roots` and `root_from_leaf_hashes` launch K7 on a CUDA tensor:
+each tree in one block, walking the flat schedule `plan_table(n)`, which
+is uploaded once per (n, device).  On a CPU tensor they run their plain
+versions, `roots_plain` / `root_from_leaf_hashes_plain`: one plain
+`sha256_prefixed` over the leaves, then per level of the static `_plan(n)`
+schedule one over the (left || right) pairs that torch indexing gathers.
+`leaf_hashes` is one `sha256_prefixed` (kernel K4 on a CUDA tensor).
 """
 
 from __future__ import annotations
 
 import functools
+import math
+import threading
 
 import numpy as np
 import torch
 
-from tendermint_tpu_torch.ops.sha256 import sha256_prefixed
+from tendermint_tpu_torch.ops import kernels
+from tendermint_tpu_torch.ops.sha256 import (sha256_prefixed,
+                                             sha256_prefixed_plain)
 
 LEAF_PREFIX = 0x00
 INNER_PREFIX = 0x01
@@ -90,10 +98,40 @@ def _plan(n: int) -> tuple:
     return tuple(steps)
 
 
-def _hash_rows(rows: torch.Tensor, prefix: int) -> torch.Tensor:
-    """sha256(prefix || row) over the last axis of [..., L] -> [..., 32]."""
-    flat = rows.reshape(-1, rows.shape[-1]).contiguous()
-    return sha256_prefixed(flat, prefix).reshape(rows.shape[:-1] + (32,))
+@functools.lru_cache(maxsize=None)
+def plan_table(n: int) -> np.ndarray:
+    """`_plan(n)` as K7 walks it: one flat int32 array holding, per level,
+    m (the pairs), k (the singles), then the m (left, right) pairs and the
+    k singles."""
+    flat = [np.zeros(0, np.int32)]
+    for pairs, singles in _plan(n):
+        flat += [np.array([len(pairs), len(singles)], np.int32),
+                 pairs.reshape(-1), singles]
+    return np.concatenate(flat).astype(np.int32)
+
+
+# Dynamic shared memory a block can have on Hopper (227 KB): K7 keeps its
+# two node buffers (2 x n x 32 B) there while they fit, else in scratch.
+MAX_SHARED_BYTES = 232448
+
+_device_plans: dict = {}
+_plans_lock = threading.Lock()
+
+
+def _device_plan(n: int, device: torch.device) -> torch.Tensor:
+    """`plan_table(n)` on `device`, uploaded at its first use only."""
+    with _plans_lock:
+        t = _device_plans.get((n, device))
+        if t is None:
+            t = torch.as_tensor(plan_table(n), device=device)
+            _device_plans[(n, device)] = t
+    return t
+
+
+def _hash_rows(rows: torch.Tensor, prefix: int, fn=sha256_prefixed):
+    """fn(prefix || row) over the last axis of [..., L] -> [..., 32]."""
+    flat = rows.reshape(math.prod(rows.shape[:-1]), rows.shape[-1])
+    return fn(flat.contiguous(), prefix).reshape(rows.shape[:-1] + (32,))
 
 
 def leaf_hashes(data: torch.Tensor) -> torch.Tensor:
@@ -101,15 +139,25 @@ def leaf_hashes(data: torch.Tensor) -> torch.Tensor:
     return _hash_rows(data, LEAF_PREFIX)
 
 
-def root_from_leaf_hashes(h: torch.Tensor) -> torch.Tensor:
-    """uint8[..., n, 32] leaf hashes -> root uint8[..., 32]."""
-    n = h.shape[-2]
+def _check_trees(x: torch.Tensor, name: str) -> int:
+    if x.dtype != torch.uint8 or x.dim() < 2:
+        raise ValueError(f"{name}: expected uint8[..., n, L], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    n = x.shape[-2]
     if n == 0:
         raise ValueError("empty tree has a constant root; hash host-side")
+    return n
+
+
+def root_from_leaf_hashes_plain(h: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7 on given leaf hashes: uint8[..., n, 32] ->
+    root uint8[..., 32], level by level (reference
+    `merkle.root_from_leaf_hashes`)."""
+    n = _check_trees(h, "leaf hashes")
     for pairs, singles in _plan(n):
         idx = torch.as_tensor(pairs, dtype=torch.long, device=h.device)
         both = torch.cat([h[..., idx[:, 0], :], h[..., idx[:, 1], :]], -1)
-        combined = _hash_rows(both, INNER_PREFIX)
+        combined = _hash_rows(both, INNER_PREFIX, sha256_prefixed_plain)
         if len(singles):
             keep = torch.as_tensor(singles, dtype=torch.long, device=h.device)
             h = torch.cat([combined, h[..., keep, :]], dim=-2)
@@ -118,6 +166,45 @@ def root_from_leaf_hashes(h: torch.Tensor) -> torch.Tensor:
     return h[..., 0, :]
 
 
+def roots_plain(data: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: uint8[..., n, L] equal-length leaves -> roots
+    uint8[..., 32] (reference `merkle.roots`)."""
+    _check_trees(data, "leaves")
+    return root_from_leaf_hashes_plain(
+        _hash_rows(data, LEAF_PREFIX, sha256_prefixed_plain))
+
+
+def _launch_roots(x: torch.Tensor, hashed: bool) -> torch.Tensor:
+    n, width = x.shape[-2:]
+    flat = x.reshape(math.prod(x.shape[:-2]), n, width).contiguous()
+    trees = flat.shape[0]
+    out = torch.empty((trees, 32), dtype=torch.uint8, device=x.device)
+    if trees:
+        plan = _device_plan(n, x.device)
+        shared = 2 * n * 32 <= MAX_SHARED_BYTES
+        scratch = torch.empty(0 if shared else trees * 2 * n * 8,
+                              dtype=torch.int32, device=x.device)
+        kernels.launch("merkle_roots", flat, n, width, int(hashed), plan,
+                       plan.numel(), scratch, int(shared), out, trees)
+    return out.reshape(x.shape[:-2] + (32,))
+
+
+def root_from_leaf_hashes(h: torch.Tensor) -> torch.Tensor:
+    """uint8[..., n, 32] leaf hashes -> root uint8[..., 32].  K7 on a
+    CUDA tensor; the plain version on a CPU tensor."""
+    _check_trees(h, "leaf hashes")
+    if h.shape[-1] != 32:
+        raise ValueError(f"leaf hashes: expected 32 bytes each, got "
+                         f"{h.shape[-1]}")
+    if h.device.type == "cpu":
+        return root_from_leaf_hashes_plain(h)
+    return _launch_roots(h, hashed=True)
+
+
 def roots(data: torch.Tensor) -> torch.Tensor:
-    """uint8[..., n, L] equal-length leaves -> roots uint8[..., 32]."""
-    return root_from_leaf_hashes(leaf_hashes(data))
+    """uint8[..., n, L] equal-length leaves -> roots uint8[..., 32].  K7
+    on a CUDA tensor; the plain version on a CPU tensor."""
+    _check_trees(data, "leaves")
+    if data.device.type == "cpu":
+        return roots_plain(data)
+    return _launch_roots(data, hashed=False)

@@ -18,7 +18,7 @@ second card.
 
 Kernels: `verify_tally`, `sharded_verify_fn` and `training_step_fn` run K6
 (`ops/ed25519.verify_tally`, fused raw verify + per-row int64 tally +
-quorum) per shard; `sharded_merkle_fn` runs `ops/merkle.roots` (K4),
+quorum) per shard; `sharded_merkle_fn` runs `ops/merkle.roots` (K7),
 `sharded_grouped_verify_fn` the single-device `verify_grouped` (K1) and
 `sharded_grouped_templated_verify_fn` `verify_grouped_templated` (K1) per
 shard.  The JAX module's utilization bookkeeping (`note_sharded_call`) is

@@ -1,7 +1,8 @@
 """Python-integer models of the batch-inverting kernels K2 (comb tables,
-`csrc/build_neg_comb.cu`) and K3 (grouped signing, `csrc/sign_grouped.cu`),
-step for step with their schedules, against the JAX package's
-`build_neg_comb_jit`, the port's plain versions and the golden signer.
+`csrc/build_neg_comb.cu`), K3 (grouped signing, `csrc/sign_grouped.cu`)
+and K1 (grouped verify, `csrc/verify_grouped.cu`), step for step with
+their schedules, against the JAX package's `build_neg_comb_jit`, the
+port's plain versions and the golden signer and verifier.
 
 Both kernels invert many Z's with one `fe_invert` per block
 (`fe_block_invert` in `csrc/tm_field.cuh`): per warp of 32 lanes an
@@ -13,6 +14,8 @@ jits run at the shapes the JAX tests already compile (4 keys; 16 lanes x
 
 import hashlib
 import os
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -337,8 +340,9 @@ def _signing_keys(seeds):
 def test_sign_batch_inversion_model(n):
     """Ragged batches (a partial warp, a partial second warp, a second
     block) with lanes whose key or template index is out of range mixed
-    into the warps: the model's signatures are `pure_ed25519.sign`'s and
-    the plain signer's, and zeros on the lanes that sign nothing."""
+    into the warps: the model's signatures are `pure_ed25519.sign`'s, and
+    zeros on the lanes that sign nothing; the plain signer's, every lane
+    (it masks out-of-range lanes to zeros too)."""
     rng = np.random.default_rng(50 + n)
     seeds = [bytes([60 + i]) * 32 for i in range(5)]
     a, pre, pubs = _signing_keys(seeds)
@@ -356,10 +360,9 @@ def test_sign_batch_inversion_model(n):
         assert got[i].tobytes() == ref.sign(seeds[vi[i]],
                                             templates[ti[i]].tobytes())
     plain = ed.sign_grouped_templated_plain(
-        *(torch.as_tensor(x) for x in (a, pre, pubs, vi.clip(0, 4),
-                                       ti.clip(0, 5), templates)),
+        *(torch.as_tensor(x) for x in (a, pre, pubs, vi, ti, templates)),
         ed.base_table("cpu")).numpy()
-    assert np.array_equal(got[valid], plain[valid])
+    assert np.array_equal(got, plain)
 
 
 def test_sign_model_matches_jax_signer():
@@ -375,3 +378,127 @@ def test_sign_model_matches_jax_signer():
         *(jnp.asarray(x) for x in (*mats, val_idx, tmpl_idx, templates))))
     assert np.array_equal(model_sign(*mats, val_idx, tmpl_idx, templates),
                           want)
+
+
+# -- K1's lane (`csrc/verify_grouped.cu`) -----------------------------------
+#
+# One thread per lane, VERIFY_BLOCK lanes to a block: a lane whose indices
+# are in range hashes k = SHA-512(R || A || M) mod L, runs [s]B by 22 mixed
+# adds from the base table and [k](-A) by 26 from its key's comb column,
+# and adds the two; a lane past N or with an index out of range computes
+# nothing and holds the identity.  Each block inverts its Z's with one
+# inversion, a Z == 0 entering as 1; then the lane encodes, compares with
+# R byte for byte and is masked by pub_ok, s < L, Z != 0 and its indices.
+
+VERIFY_BLOCK = int(re.search(
+    r"#define VERIFY_BLOCK (\d+)",
+    (Path(ed.__file__).parent.parent / "csrc" /
+     "verify_grouped.cu").read_text()).group(1))
+
+
+def _comb_entry(tbl, w, d, v):
+    return tuple(int.from_bytes(tbl[w, d, v, i].tobytes(), "little")
+                 for i in range(3))
+
+
+def model_verify_grouped(tbl, pub_ok, pubs, pub_idx, val_idx, templates,
+                         tmpl_idx, sigs, block=VERIFY_BLOCK, zero_z=()):
+    """K1 over numpy arguments (the kernel's, `pub_idx` rows of `pubs`)
+    -> bool[N].  `zero_z`: lanes whose sum is replaced by a point with
+    Z == 0, as a forged table column can make it."""
+    base = curve._base_table()
+    n, vb = len(val_idx), tbl.shape[2]
+    lanes = -(-n // block) * block
+    pts, ok, inside = [IDENT] * lanes, [False] * lanes, [False] * lanes
+    for i in range(n):
+        v, pi, ti = int(val_idx[i]), int(pub_idx[i]), int(tmpl_idx[i])
+        inside[i] = (0 <= v < vb and 0 <= pi < len(pubs)
+                     and 0 <= ti < len(templates))
+        if not inside[i]:
+            continue
+        sig = sigs[i].tobytes()
+        k = _sha_mod_l(sig[:32], pubs[pi].tobytes(), templates[ti].tobytes())
+        s = int.from_bytes(sig[32:], "little")
+        ok[i] = bool(pub_ok[v]) and s < ref.L
+        sb = ka = IDENT
+        for w in range(22):
+            sb = _madd(sb, _base_entry(base, w, (s >> (12 * w)) & 0xfff))
+        for w in range(26):
+            ka = _madd(ka, _comb_entry(tbl, w, (k >> (10 * w)) & 0x3ff, v))
+        pts[i] = _add(sb, ka)
+    for i in zero_z:
+        pts[i] = (pts[i][0], pts[i][1], 0, pts[i][3])
+    nz = [p[2] % P != 0 for p in pts]
+    zi = []
+    for b0 in range(0, lanes, block):
+        zi += block_invert([p[2] if z else 1
+                            for p, z in zip(pts[b0:b0 + block],
+                                            nz[b0:b0 + block])])
+    out = []
+    for i in range(n):
+        x, y = pts[i][0] * zi[i] % P, pts[i][1] * zi[i] % P
+        enc = (y | (x & 1) << 255).to_bytes(32, "little")
+        out.append(inside[i] and ok[i] and nz[i] and
+                   enc == sigs[i, :32].tobytes())
+    return np.array(out)
+
+
+def _verify_lanes(seeds, templates, n, rng):
+    """n templated lanes over the keyset: valid ones, s + L, R >= p, a
+    flipped R bit, a wrong key, R = identity, and key and template indices
+    of -1 and the count."""
+    vi = rng.integers(0, V, n).astype(np.int32)
+    ti = rng.integers(0, len(templates), n).astype(np.int32)
+    sigs = np.zeros((n, 64), np.uint8)
+    for i in range(n):
+        sig = ref.sign(seeds[vi[i]], templates[ti[i]].tobytes())
+        kind = i % 10
+        if kind == 1:
+            s = int.from_bytes(sig[32:], "little") + ref.L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == 2:
+            sig = P.to_bytes(32, "little") + sig[32:]
+        elif kind == 3:
+            sig = bytes([sig[0] ^ 4]) + sig[1:]
+        elif kind == 4:
+            sig = ref.sign(seeds[(vi[i] + 1) % V], templates[ti[i]].tobytes())
+        elif kind == 5:
+            sig = (1).to_bytes(32, "little") + bytes(32)
+        elif kind == 6:
+            vi[i] = -1 if i % 20 == 6 else V
+        elif kind == 7:
+            ti[i] = -1 if i % 20 == 7 else len(templates)
+        sigs[i] = np.frombuffer(sig, np.uint8)
+    return vi, ti, sigs
+
+
+@pytest.mark.parametrize("block", [32, VERIFY_BLOCK])
+def test_verify_block_inversion_model(keyset, block):
+    """The model of K1's schedule on 40 lanes (blocks of 32, or one of the
+    kernel's blocks with its lanes past N), with out-of-range lanes mixed
+    in and one valid lane forged to Z == 0: its verdict is False and every
+    other lane's is the plain version's and the golden verifier's, so the
+    zero cannot poison the block's inversion."""
+    pubs, jtbl, jok = keyset
+    seeds = [bytes([90 + i]) * 32 for i in range(V)]
+    rng = np.random.default_rng(61)
+    templates = rng.integers(0, 256, (5, 96), dtype=np.uint8)
+    n = 40
+    vi, ti, sigs = _verify_lanes(seeds, templates, n, rng)
+    t = torch.as_tensor
+    plain = ed.verify_grouped_templated_plain(
+        t(jtbl), t(jok), t(pubs), t(vi), t(ti), t(templates), t(sigs),
+        ed.base_table("cpu")).numpy()
+    golden = [0 <= vi[i] < V and vi[i] != BAD and 0 <= ti[i] < 5 and
+              ref.verify(pubs[vi[i]].tobytes(), templates[ti[i]].tobytes(),
+                         sigs[i].tobytes()) for i in range(n)]
+    assert plain.tolist() == golden
+    forged = int(np.flatnonzero(plain)[1])
+    got = model_verify_grouped(jtbl, jok, pubs, vi, vi, templates, ti, sigs,
+                               block, zero_z=(forged,))
+    want = plain.copy()
+    want[forged] = False
+    assert got.tolist() == want.tolist()
+    assert int(got.sum()) >= 6
+    # the same zero entering the inversion as itself zeroes every inverse
+    assert set(block_invert([5] * 31 + [0])) == {0}

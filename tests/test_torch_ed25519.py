@@ -155,3 +155,36 @@ def test_verify_grouped_templated_matches_reference(keyset, backend):
     with pytest.raises(ValueError):
         backend.verify_grouped_templated(b"set", pubs, idx + 1, tmpl_idx,
                                          templates, sigs)
+
+
+def test_verify_grouped_index_out_of_range(keyset):
+    """A lane whose val_idx is -1 or V (or whose tmpl_idx is -1 or the
+    template count) verifies False on the plain versions, and every other
+    lane gives the reference's verdict: the port's one rule for indices
+    out of range (the kernels' and the plain versions'), where the JAX
+    package's `jnp.take` wraps and fills."""
+    seeds, pubs, jtbl, jok = keyset
+    idx, msgs, sigs = _lanes(seeds)
+    want = np.asarray(jed.verify_grouped_jit(
+        jnp.asarray(jtbl), jnp.asarray(jok), jnp.asarray(idx),
+        jnp.asarray(pubs[idx]), jnp.asarray(msgs), jnp.asarray(sigs)))
+    assert want[[0, 8]].all()
+    t = torch.tensor
+    tbl, ok, base = t(jtbl), t(jok), ed.base_table("cpu")
+    bad_v = idx.copy()
+    bad_v[0], bad_v[8] = -1, V                  # two valid lanes' keys
+    got = ed.verify_grouped_plain(tbl, ok, t(bad_v), t(pubs[idx]), t(msgs),
+                                  t(sigs), base).numpy()
+    out = np.isin(np.arange(N), [0, 8])
+    assert not got[out].any()
+    assert got[~out].tolist() == want[~out].tolist()
+    # templated: the 16 messages as templates, lanes reading them by index
+    tmpl_idx = np.arange(N, dtype=np.int32)
+    tmpl_idx[12], bad_v[15] = N, -1
+    got = ed.verify_grouped_templated_plain(
+        tbl, ok, t(pubs), t(bad_v), t(tmpl_idx), t(msgs), t(sigs),
+        base).numpy()
+    out = np.isin(np.arange(N), [0, 8, 12, 15])
+    assert want[[12, 15]].all()
+    assert not got[out].any()
+    assert got[~out].tolist() == want[~out].tolist()

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from tendermint_tpu.ops import merkle as jax_merkle
 from tendermint_tpu.types import merkle as jax_host_merkle
 from tendermint_tpu_torch.ops import kernels, merkle, sha256, sha512
@@ -105,3 +107,82 @@ def test_part_sets_device_gate_matches_host():
         [p.get_part(1).proof for p in host]
     assert all(p.get_part(i).verify(p.header)
                for p in dev for i in range(p.total))
+
+
+def _walk_plan_table(leaf_hashes: list) -> bytes:
+    """The root from `plan_table(n)` as K7 walks it: per level, m and k,
+    the m pairs hashed as 0x01 || left || right and the k singles copied,
+    into the other buffer."""
+    n = len(leaf_hashes)
+    table = merkle.plan_table(n)
+    cur, pos = list(leaf_hashes), 0
+    while pos < len(table):
+        m, k = int(table[pos]), int(table[pos + 1])
+        pairs = table[pos + 2:pos + 2 + 2 * m]
+        singles = table[pos + 2 + 2 * m:pos + 2 + 2 * m + k]
+        cur = [hashlib.sha256(b"\x01" + cur[pairs[2 * j]]
+                              + cur[pairs[2 * j + 1]]).digest()
+               for j in range(m)] + [cur[s] for s in singles]
+        pos += 2 + 2 * m + k
+    assert pos == len(table) and len(cur) == 1
+    return cur[0]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 9, 64, 1000, 1024,
+                               1025])
+def test_plan_table_walk_gives_host_roots(n):
+    """K7's flat schedule, walked with hashlib, gives the host trees'
+    roots of both packages, and flattens the JAX package's `_plan(n)`
+    step for step."""
+    items = [RNG.integers(0, 256, 24, dtype=np.uint8).tobytes()
+             for _ in range(n)]
+    leaves = [host_merkle.leaf_hash(x) for x in items]
+    root = _walk_plan_table(leaves)
+    assert root == host_merkle.root(items) == jax_host_merkle.root(items)
+    want = [np.zeros(0, np.int32)]
+    for pairs, singles in jax_merkle._plan(n):
+        want += [np.array([len(pairs), len(singles)]), pairs.reshape(-1),
+                 singles]
+    assert np.array_equal(merkle.plan_table(n), np.concatenate(want))
+    assert merkle.plan_table(n).dtype == np.int32
+
+
+@pytest.mark.parametrize("n", [3, 13, 100])
+def test_roots_plain_match_jax_roots(n):
+    """`roots_plain` against the JAX package's `roots` at the shapes of
+    its own device Merkle test (4 trees x n leaves x 24 B)."""
+    data = RNG.integers(0, 256, (4, n, 24), dtype=np.uint8)
+    want = np.asarray(jax_merkle.roots(jnp.asarray(data)))
+    assert np.array_equal(merkle.roots_plain(torch.as_tensor(data)).numpy(),
+                          want)
+
+
+def test_root_from_leaf_hashes_plain_matches_jax():
+    """`root_from_leaf_hashes_plain` against the JAX package's at its
+    test's shape (3 trees x 10 leaf hashes), and the wrapper on a CPU
+    tensor runs it and launches nothing."""
+    h = RNG.integers(0, 256, (3, 10, 32), dtype=np.uint8)
+    want = np.asarray(jax_merkle.root_from_leaf_hashes(jnp.asarray(h)))
+    t = torch.as_tensor(h)
+    assert np.array_equal(merkle.root_from_leaf_hashes_plain(t).numpy(),
+                          want)
+    kernels.reset_launches()
+    assert np.array_equal(merkle.root_from_leaf_hashes(t).numpy(), want)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+    with pytest.raises(ValueError):
+        merkle.root_from_leaf_hashes(t[..., :31])
+
+
+@pytest.mark.parametrize("leaf_len", [0, 55, 56, 119])
+def test_roots_leaf_lengths_and_batch_dims(leaf_len):
+    """`roots` on a [2, 3, n, L] batch at the SHA-256 padding edges of a
+    leaf (0x00 || leaf of 1, 56, 57 and 120 bytes) equals the host tree
+    per tree, as `roots_plain`."""
+    n = 5
+    data = RNG.integers(0, 256, (2, 3, n, leaf_len), dtype=np.uint8)
+    got = merkle.roots(torch.as_tensor(data)).numpy()
+    assert got.shape == (2, 3, 32)
+    for a in range(2):
+        for b in range(3):
+            assert got[a, b].tobytes() == host_merkle.root(
+                [data[a, b, i].tobytes() for i in range(n)])

@@ -55,3 +55,28 @@ def test_sign_grouped_templated_matches_reference():
     be = CudaBackend(device="cpu")
     assert np.array_equal(be.sign_grouped_templated(
         seeds, val_idx[:10], tmpl_idx[:10], templates), got[:10])
+
+
+def test_sign_index_out_of_range():
+    """Lanes whose key index is -1 or V, or whose template index is -1 or
+    the template count, sign 64 zero bytes on the plain signer (the K3
+    rule); every other lane signs as the reference."""
+    seeds = [bytes([40 + i]) * 32 for i in range(V)]
+    mats = np.zeros((3, V, 32), np.uint8)
+    for i, s in enumerate(seeds):
+        for m, part in zip(mats, ref.expand_seed(s)):
+            m[i] = np.frombuffer(part, np.uint8)
+    rng = np.random.default_rng(8)
+    templates = rng.integers(0, 256, (4, MSG_LEN), dtype=np.uint8)
+    val_idx = (np.arange(N) % V).astype(np.int32)
+    tmpl_idx = ((np.arange(N) * 7) % 4).astype(np.int32)
+    want = np.asarray(jed.sign_grouped_templated_jit(
+        *(jnp.asarray(x) for x in (*mats, val_idx, tmpl_idx, templates))))
+    val_idx[[3, 9]] = [-1, V]
+    tmpl_idx[[5, 14]] = [-1, 4]
+    got = ed.sign_grouped_templated_plain(
+        *(torch.as_tensor(x) for x in (*mats, val_idx, tmpl_idx, templates)),
+        ed.base_table("cpu")).numpy()
+    out = np.isin(np.arange(N), [3, 5, 9, 14])
+    assert not got[out].any()
+    assert np.array_equal(got[~out], want[~out])
