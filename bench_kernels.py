@@ -18,12 +18,16 @@ sizes to time it at.  Every tree runs on the same device tensors, in turns
 (first to last, then last to first), each time a CUDA-event mean over
 several launches.  Every tree's outputs must equal the first tree's, and
 the first tree's a reference the case computes.  Also printed: each entry
-function's registers and stack from ptxas; per tree, case and size the
-device time of each CUDA kernel one launch runs (`torch.profiler`); and
-per tree and kernel the cycles of one dependent step in one warp of a
-field product, a quad doubling, a mod-L reduction, a SHA-512 compression
-and a field inversion, built with that kernel's settings
-(`chip_smoke.fe_mul_cycles`).
+function's registers, stack and static shared memory from ptxas; per
+tree, case and size the device time of each CUDA kernel one launch runs
+(`torch.profiler`); per tree and kernel the cycles of one dependent step
+in one warp of a field product, a quad doubling, a mod-L reduction, a
+SHA-512 compression, a field inversion and a SHA-256 compression, built
+with that kernel's settings, and the SM clock over the SHA-256 chain
+(`chip_smoke.fe_mul_cycles`); and for K4 per tree and size the chain
+bound, one row's dependent steps at those cycles and that clock (a step
+is the staged route's round warp, the 64 rounds from scheduled words,
+where the tree has that route, else a whole compression).
 
 The redesigns of K2 and K3 were measured with
 
@@ -37,6 +41,13 @@ has no `tm_merkle_roots` runs its own `ops/merkle.py`) with
 
     python3 bench_kernels.py --kernel verify_grouped:65536 \
         --kernel verify_grouped_lanes:128 \
+        --kernel merkle_roots:2048x1024x64 parent=build/parent change=.
+
+and the redesign of K4 (two warps per 32 rows of 64 KB, a copy ring
+and a scheduled-word ring in shared memory) with
+
+    python3 bench_kernels.py \
+        --kernel sha256_prefixed:2048x65536,2097152x64 \
         --kernel merkle_roots:2048x1024x64 parent=build/parent change=.
 
 A kernel not in `CASES` gets a case: a function from (size, device, rng)
@@ -432,20 +443,46 @@ def kernel_split(launch, reps: int = 3) -> dict | str:
 
 
 def ptxas(report: str) -> dict:
-    """entry function -> registers and cumulative stack bytes, from a
-    `kernels.build` report."""
+    """entry function (with its template argument, e.g. `f<16>`) ->
+    registers, cumulative stack bytes and static shared memory bytes, from
+    a `kernels.build` report."""
     out, fn = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
         if m:
             fn = m.group(2)[:int(m.group(1))]
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes cumulative stack",
-                      line)
+            targ = re.match(r"ILi(\d+)E", m.group(2)[int(m.group(1)):])
+            if targ:
+                fn += f"<{targ.group(1)}>"
+        m = re.search(r"Used (\d+) registers", line)
         if m and fn:
+            stack = re.search(r"(\d+) bytes cumulative stack", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             out[fn] = {"registers": int(m.group(1)),
-                       "stack": int(m.group(2))}
+                       "stack": int(stack.group(1)) if stack else 0,
+                       "smem": int(smem.group(1)) if smem else 0}
             fn = None
     return out
+
+
+def log_chain_bound(size: str, trees: list, results: dict) -> None:
+    """K4's chain bound at `size` ("NxL") per tree: one row's dependent
+    steps at the cycles and SM clock of that tree's microkernel, a step
+    being the staged route's round warp where the tree has one, else a
+    whole compression."""
+    width = int(size.split("x")[1])
+    blocks = (width + 1 + 9 + 63) // 64
+    for t in trees:
+        m = results[t["name"]]["micro"].get("sha256_prefixed") or {}
+        step, what = m.get("sha256_rounds_cycles"), "round-warp steps"
+        if not step:
+            step, what = m.get("sha256_block_cycles"), "compressions"
+        if step:
+            chain = blocks * step / (m["sm_clock_mhz"] * 1e3)
+            results[t["name"]].setdefault("chain_bound_ms", {})[size] = chain
+            cs.log(f"[sha256_prefixed] {size}: {t['name']} chain bound "
+                   f"{chain:.4f} ms ({blocks} {what} x {step:.1f} cycles "
+                   f"at {m['sm_clock_mhz']:.0f} MHz)")
 
 
 def main() -> int:
@@ -528,6 +565,8 @@ def main() -> int:
             cs.log(f"[{name}] {size}: " + "; ".join(
                 f"{t['name']} {results[t['name']]['ms'][key]}" for t in trees)
                 + f" ms; outputs equal ({what})")
+            if name == "sha256_prefixed":
+                log_chain_bound(size, trees, results)
     cs.log(card)
     print(json.dumps({"card": card, "trees": results}))
     return 0

@@ -11,7 +11,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    nvcc (sm_90a) and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
-   hashlib; K2 at 1, 4, 100 and 128 keys, an undecodable key among them;
+   hashlib on every row, on both of its routes: rows of 55 to 65,536
+   bytes at 1, 31, 33 and 2,049 rows, and batches on a base that is not
+   16-byte aligned, each batch's route logged; K2 at 1, 4, 100 and 128
+   keys, an undecodable key among them;
    K3 at 1, 31, 33, 129, 256 and 65,500 lanes with lanes of no key or no
    template mixed into the warps, every lane, sampled lanes also against
    the golden RFC 8032 signer; K1 on adversarial lanes, on a vote burst
@@ -50,21 +53,26 @@ Phases, in order; any mismatch or exception exits non-zero:
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
-   and time `roots`, check
-   the mempool's accounting, commits, app hash and verdicts (every signed
-   entry re-verified by the plain version), and hold each mesh's results
+   and time `roots`, run the part-set call again under `torch.profiler`
+   and log each of its spans (chunking, join, the device batch, trees)
+   and the device time of its copies and of K4, check the mempool's
+   accounting, commits, app hash and verdicts (every signed entry
+   re-verified by the plain version), and hold each mesh's results
    against K5's mask, numpy int64 tallies and quorums, the single-device
    roots and the single-device replay's masks and app hash;
 5. one `kernels` JSON line: per kernel its launches on the main paths
    at the shape its entry is timed at, its time and its plain version's
    at the main path's shapes, the two results held exactly equal there,
    and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
-   entry at the mempool's 64; K4 at the part sets, and beside it at the
-   trees' leaves); per mesh, the whole call of each mesh
-   function likewise.  Logged beside it: a clock64 microkernel's cycles
-   per dependent field product, quad doubling, mod-L reduction, SHA-512
-   compression and field inversion in one warp, built with K3's, K5's
-   and K6's settings.
+   entry at the mempool's 64; K4 at the part sets, with its chain bound
+   `chain_bound_ms` beside the operations bound, and beside it at the
+   trees' leaves, each shape's route logged); per mesh, the whole call of
+   each mesh function likewise.  Logged beside it: a clock64
+   microkernel's cycles per dependent field product, quad doubling,
+   mod-L reduction, SHA-512 compression and field inversion in one warp,
+   built with K3's, K5's and K6's settings, and per dependent SHA-256
+   compression and step of the staged route's round warp (its chain
+   bound's step) with K4's, with the SM clock over that chain.
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
 device, or outside the repository, it exits non-zero and prints no result.
@@ -95,6 +103,15 @@ def log(msg: str) -> None:
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def sm_clocks() -> str:
+    """The card's current and highest SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True)
     return out.stdout.strip().splitlines()[0]
@@ -268,10 +285,78 @@ extern "C" int tm_micro(const int32_t*, const uint8_t*, int32_t*, long long*,
   return 0;
 }
 #endif
+#ifdef MICRO_SHA256
+static __device__ __forceinline__ long long globaltimer_ns() {
+  long long ns;
+  asm volatile("mov.u64 %%0, %%%%globaltimer;" : "=l"(ns));
+  return ns;
+}
+// state <- compress(state, w + state), so each block's message depends on
+// the state before it (nothing hoists out of the loop), with one add per
+// word where the kernels have one byte permute; cycles[1] is the chain's
+// nanoseconds on the global timer, for the SM clock
+__global__ void sha256_chain(const uint8_t* inb, int32_t* out,
+                             long long* cycles, int n) {
+  int t = threadIdx.x;
+  const uint32_t* in = (const uint32_t*)(inb + 256 * t);
+  uint32_t st[8], w[16];
+  for (int i = 0; i < 8; i++) st[i] = in[i];
+  for (int i = 0; i < 16; i++) w[i] = in[8 + i];
+  __syncwarp();
+  long long g0 = globaltimer_ns(), t0 = clock64();
+  for (int j = 0; j < n; j++) {
+    uint32_t x[16];
+    for (int i = 0; i < 16; i++) x[i] = w[i] + st[i & 7];
+    sha256_compress(st, x);
+  }
+  long long t1 = clock64(), g1 = globaltimer_ns();
+  for (int i = 0; i < 8; i++) out[8 * t + i] = (int32_t)st[i];
+  if (t == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = g1 - g0;
+  }
+}
+extern "C" int tm_micro_sha256(const uint8_t* inb, int32_t* out,
+                               long long* cycles, int n, void* stream) {
+  sha256_chain<<<1, 32, 0, (cudaStream_t)stream>>>(inb, out, cycles, n);
+  return (int)cudaGetLastError();
+}
+#ifdef K4_DEPTH
+// K4's staged route: its round warp's dependent step alone, state <-
+// rounds_kw(state, scheduled slot j %% K4_DEPTH), the 64 rounds from W[t] +
+// K[t] words in the scheduled ring's layout (each lane's 256 bytes of inb
+// in every slot) and the state add, with no schedule and no barrier
+__global__ void sha256_rounds_chain(const uint8_t* inb, int32_t* out,
+                                    long long* cycles, int n) {
+  __shared__ uint4 wring[K4_DEPTH * K4_WSLOT];
+  int t = threadIdx.x;
+  const uint4* in = (const uint4*)(inb + 256 * t);
+  for (int s = 0; s < K4_DEPTH; s++)
+    for (int q = 0; q < 16; q++) wring[s * K4_WSLOT + q * 32 + t] = in[q];
+  uint32_t st[8];
+  for (int i = 0; i < 8; i++) st[i] = ((const uint32_t*)in)[i];
+  __syncwarp();
+  long long t0 = clock64();
+  for (int j = 0; j < n; j++)
+    rounds_kw(st, wring + (j %% K4_DEPTH) * K4_WSLOT + t);
+  long long t1 = clock64();
+  for (int i = 0; i < 8; i++) out[8 * t + i] = (int32_t)st[i];
+  if (t == 0) cycles[0] = t1 - t0;
+}
+extern "C" int tm_micro_sha256_rounds(const uint8_t* inb, int32_t* out,
+                                      long long* cycles, int n,
+                                      void* stream) {
+  sha256_rounds_chain<<<1, 32, 0, (cudaStream_t)stream>>>(inb, out, cycles,
+                                                          n);
+  return (int)cudaGetLastError();
+}
+#endif
+#endif
 """
 FE_OFFSETS = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)
 FE_P = 2**255 - 19
 SC_L = 2**252 + 27742317777372353535851937790883648493
+M32 = (1 << 32) - 1
 M64 = (1 << 64) - 1
 
 
@@ -330,21 +415,47 @@ def _sha512_compress(st: list, w: list, k: list) -> list:
     return [(x + y) & M64 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
 
 
+# dependent compressions of one 64 KB part, prefix byte and padding included
+SHA256_PART_BLOCKS = (64 * 1024 + 1 + 9 + 63) // 64
+
+
+def _sha256_rounds(st: list, kw: list) -> list:
+    """The 64 SHA-256 rounds from W[t] + K[t] and the state add, on
+    Python integers (K4's `rounds_kw`)."""
+    r = lambda x, n: (x >> n | x << (32 - n)) & M32  # noqa: E731
+    a, b, c, d, e, f, g, h = st
+    for k in kw:
+        t1 = h + (r(e, 6) ^ r(e, 11) ^ r(e, 25)) + (e & f ^ ~e & g) + k
+        t2 = (r(a, 2) ^ r(a, 13) ^ r(a, 22)) + (a & b ^ a & c ^ b & c)
+        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & M32, c, b, a,
+                                  (t1 + t2) & M32)
+    return [(x + y) & M32 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+
+
 def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
     """Build the microkernel with `kernel`'s source (`csrc/<kernel>.cu`)
     and extra nvcc `flags`, run it on card 0 and return the cycles of one
     step of each chain in one warp: a dependent `fe_mul` and `quad_dbl`
     (n steps), `sc_reduce512` and SHA-512 compression (n / 8) and
     `fe_invert` (n / 64); None without field code or, for `quad_dbl`,
-    without the quad body.  Each chain's result is checked against Python
-    integers."""
+    without the quad body.  Where the source includes `tm_sha256.cuh`,
+    also a SHA-256 compression (a 64 KB part's SHA256_PART_BLOCKS steps)
+    and the SM clock in MHz over that chain (its clock64 cycles over its
+    %globaltimer nanoseconds, both read in the kernel, so the launch's
+    latency is not in it); where it has K4's staged route, also the step
+    of its round warp, the 64 rounds from scheduled words
+    (`sha256_rounds_cycles`, as many steps).  Each chain's result is
+    checked against Python integers."""
     import ctypes
     import tempfile
     from pathlib import Path
     import numpy as np
     import torch
     from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.ops.sha256 import _compress as sha256_compress
     csrc = Path(csrc).resolve()
+    has_sha256 = '"tm_sha256.cuh"' in (csrc / f"{kernel}.cu").read_text()
+    flags = [*flags, "-DMICRO_SHA256"] if has_sha256 else list(flags)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="micro-", dir=kernels.BUILD_DIR))
     (work / "micro.cu").write_text(MICRO_CU % {"kernel": kernel})
@@ -375,7 +486,50 @@ def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
     got, cycles = res.cpu().numpy(), cyc.cpu().tolist()
     keys = ("fe_mul_cycles", "quad_dbl_cycles", "sc_reduce512_cycles",
             "sha512_block_cycles", "fe_invert_cycles")
-    result = dict.fromkeys(keys)
+    result = dict.fromkeys(keys + ("sha256_block_cycles", "sm_clock_mhz",
+                                   "sha256_rounds_cycles"))
+    if has_sha256:
+        lib.tm_micro_sha256.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_void_p]
+        steps = SHA256_PART_BLOCKS
+        sres = torch.zeros(256, dtype=torch.int32, device=dev)
+        for _ in range(2):                  # the second run is timed
+            rc = lib.tm_micro_sha256(inb.data_ptr(), sres.data_ptr(),
+                                     cyc.data_ptr(), steps,
+                                     ctypes.c_void_p(stream))
+            require(rc == 0, f"SHA-256 microkernel launch failed, error {rc}")
+            torch.cuda.synchronize()
+        sha_cycles, sha_ns = cyc[:2].tolist()
+        words = raw.view("<u4").astype(np.int64)
+        sgot = sres.cpu().numpy().astype(np.uint32).reshape(32, 8)
+        for t in (0, 13, 31):
+            st = words[t, :8].tolist()
+            for _ in range(steps):
+                st = sha256_compress(st, [(int(w) + st[i & 7]) & 0xFFFFFFFF
+                                          for i, w in
+                                          enumerate(words[t, 8:24])])
+            require(sgot[t].tolist() == st,
+                    f"microkernel SHA-256 chain wrong on thread {t}")
+        result["sha256_block_cycles"] = sha_cycles / steps
+        result["sm_clock_mhz"] = sha_cycles / sha_ns * 1e3
+    if has_sha256 and hasattr(lib, "tm_micro_sha256_rounds"):
+        lib.tm_micro_sha256_rounds.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, ctypes.c_void_p]
+        for _ in range(2):                  # the second run is timed
+            rc = lib.tm_micro_sha256_rounds(
+                inb.data_ptr(), sres.data_ptr(), cyc.data_ptr(), steps,
+                ctypes.c_void_p(stream))
+            require(rc == 0, f"SHA-256 rounds microkernel launch failed, "
+                    f"error {rc}")
+            torch.cuda.synchronize()
+        sgot = sres.cpu().numpy().astype(np.uint32).reshape(32, 8)
+        for t in (0, 13, 31):
+            st = words[t, :8].tolist()
+            for _ in range(steps):
+                st = _sha256_rounds(st, words[t].tolist())
+            require(sgot[t].tolist() == st,
+                    f"microkernel SHA-256 rounds chain wrong on thread {t}")
+        result["sha256_rounds_cycles"] = cyc[0].item() / steps
     if cycles[0] < 0:
         return result
     mul = got[:320].reshape(32, 10)
@@ -442,29 +596,91 @@ def _keys(n: int, invalid: int | None = None):
     return seeds, a, pre, pubs, set_pubs
 
 
+# K4's check grid: row lengths at the padding edges (55, 56, 63, 64, 119,
+# 120), across the staged route's stage edges (560: a 48-byte tail, 576: a
+# one-block last stage) and at the parts' 64 KB, each at row counts that
+# leave a warp part-filled
+K4_CHECK_LENGTHS = (55, 56, 63, 64, 119, 120, 560, 576, 1000, 4095, 4096,
+                    65535, 65536)
+K4_CHECK_COUNTS = (1, 31, 33, 2049)
+# (row length, byte offset of the base, rows): batches cut from a flat
+# buffer at an offset that is not a multiple of 16, so they take the
+# direct route
+K4_CHECK_UNALIGNED = ((64, 3, 33), (4096, 4, 33), (65536, 3, 33))
+# the plain version runs one compression of every row per step, ~45 s for
+# 64 KB rows whatever their count, so it checks rows up to this length
+# (the kernels line holds K4 against it at 2,048 x 64 KB)
+K4_CHECK_PLAIN_MAX = 4096
+
+
+def check_k4(rng, dev, lengths=K4_CHECK_LENGTHS, counts=K4_CHECK_COUNTS,
+             unaligned=K4_CHECK_UNALIGNED,
+             plain_max=K4_CHECK_PLAIN_MAX) -> None:
+    """K4 against hashlib on every row, and the plain version against
+    hashlib on every row of at most plain_max bytes: for each length and
+    prefix 0x00 and 0x01, one batch per row count (each its own
+    allocation) and the unaligned batches (the length's first rows, at an
+    offset into a flat buffer).  Logs each batch's route."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import sha256 as s256
+    routes = {}
+    for width in lengths:
+        host = rng.integers(0, 256, (sum(counts), width), dtype=np.uint8)
+        batches, start = [], 0
+        for n in counts:
+            batches.append((f"{n}x{width}", torch.as_tensor(
+                host[start:start + n], device=dev), start))
+            start += n
+        for ul, off, n in unaligned:
+            if ul == width:
+                flat = torch.zeros(n * width + 16, dtype=torch.uint8,
+                                   device=dev)
+                rows = flat[off:off + n * width].view(n, width)
+                rows.copy_(torch.as_tensor(host[:n], device=dev))
+                route = s256._k4_route(width, rows.data_ptr())
+                require(route[0] == "direct",
+                        f"unaligned K4 batch took {route}")
+                batches.append((f"{n}x{width}@+{off}", rows, 0))
+        for name, rows, _ in batches:
+            routes.setdefault(s256._k4_route(width, rows.data_ptr()),
+                              []).append(name)
+        for prefix in (0, 1):
+            want = torch.as_tensor(np.stack([np.frombuffer(hashlib.sha256(
+                bytes([prefix]) + row.tobytes()).digest(), np.uint8)
+                for row in host]), device=dev)
+            if width <= plain_max:
+                plain = s256.sha256_prefixed_plain(
+                    torch.as_tensor(host, device=dev), prefix)
+                require(torch.equal(plain, want),
+                        f"plain != hashlib at {width} B, prefix {prefix}")
+            for name, rows, first in batches:
+                got = s256.sha256_prefixed(rows, prefix)
+                bad = (got != want[first:first + rows.shape[0]]).any(1)
+                bad = bad.nonzero().flatten().tolist()
+                require(not bad, f"K4 != hashlib at {name}, prefix {prefix}, "
+                        f"rows {bad[:4]} "
+                        f"({s256._k4_route(width, rows.data_ptr())})")
+    for route, shapes in sorted(routes.items()):
+        log(f"[check] K4 route {route[0]} ({route[1]}-byte reads): "
+            f"{', '.join(shapes)}")
+    log(f"[check] K4 sha256_prefixed == hashlib on every row, prefixes 0 "
+        f"and 1, at lengths {list(lengths)} x counts {list(counts)} and "
+        f"unaligned batches {list(unaligned)}; == the plain version there "
+        f"up to {plain_max} B")
+
+
 def phase_check() -> None:
     import numpy as np
     import torch
     from tendermint_tpu_torch.crypto import pure_ed25519 as ref
     from tendermint_tpu_torch.ops import ed25519 as ed
-    from tendermint_tpu_torch.ops import sha256 as s256
     from tendermint_tpu_torch.types import canonical
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
 
-    # K4: leaves and inner nodes, kernel vs plain vs hashlib
-    for prefix, width in ((0x00, 64), (0x01, 64), (0x00, 1000)):
-        msgs = t(rng.integers(0, 256, (2048, width), dtype=np.uint8))
-        got = s256.sha256_prefixed(msgs, prefix)
-        want = s256.sha256_prefixed_plain(msgs, prefix)
-        require(torch.equal(got, want), f"K4 != plain (prefix {prefix})")
-        host = msgs[:64].cpu().numpy()
-        for i in range(64):
-            ref_h = hashlib.sha256(bytes([prefix]) + host[i].tobytes())
-            require(got[i].cpu().numpy().tobytes() == ref_h.digest(),
-                    "K4 != hashlib")
-    log("[check] K4 sha256_prefixed == plain == hashlib")
+    check_k4(rng, dev)
 
     # K2 at V = 1, 4 (key 2 undecodable), 100 (key 50 undecodable) and
     # 128: ok masks equal, every valid key's table bytes equal
@@ -927,10 +1143,43 @@ def phase_merkle(be) -> dict:
     t0 = time.perf_counter()
     parts = part_set.from_data_batched([b.tobytes() for b in blocks],
                                        backend=be)
+    part_set_s = time.perf_counter() - t0
     log(f"[merkle] part sets of {TREES} blocks x {blocks.shape[1]} B (one "
-        f"full part each, hashed by K4 in one batch) in "
-        f"{time.perf_counter() - t0:.3f} s")
-    return {"data": data, "roots": roots, "blocks": blocks, "parts": parts}
+        f"full part each, hashed by K4 in one batch) in {part_set_s:.3f} s")
+    return {"data": data, "roots": roots, "blocks": blocks, "parts": parts,
+            "backend": be, "part_set_s": part_set_s}
+
+
+def part_set_steps(blocks, be) -> tuple:
+    """The Merkle cell's part-set call once more, under `torch.profiler`:
+    `part_set.from_data_batched([b.tobytes() for b in blocks], backend=
+    be)` -> ({step: ms}, the PartSets).  The steps: the blocks as bytes
+    (host clock), the host time of each `part_set.*` span of the call, the
+    device time of each copy and of K4 in it, and the call itself (host
+    clock, under the profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from tendermint_tpu_torch.types import part_set
+    CPU = DeviceType.CPU     # each span also has a device twin, no CPU time
+    t0 = time.perf_counter()
+    datas = [b.tobytes() for b in blocks]
+    steps = {"bytes": (time.perf_counter() - t0) * 1e3}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        parts = part_set.from_data_batched(datas, backend=be)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+    for e in prof.key_averages():
+        if e.key.startswith("part_set.") and e.device_type == CPU:
+            steps[e.key[len("part_set."):]] = e.cpu_time_total / 1e3
+        elif e.key.startswith("Memcpy") or e.key.startswith("sha256_"):
+            us = (getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0))
+            steps[f"device {e.key.split('(')[0].strip()}"] = us / 1e3
+    steps["call"] = call_ms
+    return steps, parts
 
 
 def h2d_copies(fn) -> int:
@@ -968,6 +1217,15 @@ def check_merkle(mk_ctx: dict) -> None:
         [blocks[b].tobytes() for b in range(8)])
     require([p.header for p in parts[:8]] == [p.header for p in host_parts],
             "part sets != the host's")
+    steps, again = part_set_steps(blocks, mk_ctx["backend"])
+    require([p.header for p in again] == [p.header for p in parts],
+            "the part-set call under the profiler != the call")
+    require({"chunk", "join", "leaf_hashes", "trees"} <= set(steps),
+            f"the part-set call's spans missing from the trace: {steps}")
+    log(f"[merkle] the part-set call's steps (torch.profiler spans; device "
+        f"time of copies and K4), ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+        + f" (the timed call: {mk_ctx['part_set_s'] * 1e3:.4f})")
     cold = h2d_copies(lambda: merkle.roots(data[:2, :LEAVES - 1]))
     warm = h2d_copies(lambda: merkle.roots(data))
     require(cold > 0 and warm == 0, f"roots copies from the host: {cold} "
@@ -1758,6 +2016,24 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     log(f"[kernels] K4 sha256_prefixed at {leaves.shape[0]} messages x "
         f"{LEAF_LEN} B (the trees' leaves): {leaf_ms:.3f} ms, bound "
         f"{b_ms:.4f} ms by {b_by}")
+    for what, x in (("part sets", parts), ("trees' leaves", leaves)):
+        log(f"[kernels] K4 route at {x.shape[0]} x {x.shape[1]} B ({what}): "
+            f"{s256._k4_route(x.shape[1], x.data_ptr())}")
+    # the chain bound: one part's nblocks dependent steps of the staged
+    # route's round warp (the 64 rounds from scheduled words; the schedule
+    # runs on the other warp), at the cycles and SM clock the microkernel
+    # measured with K4's build
+    micro = fe_mul_cycles(kernels.CSRC, "sha256_prefixed")
+    chain_ms = nblocks * micro["sha256_rounds_cycles"] / (
+        micro["sm_clock_mhz"] * 1e3)
+    extra = {"K4": {"chain_bound_ms": chain_ms}}
+    log(f"[kernels] K4's build, one warp: "
+        f"{micro['sha256_rounds_cycles']:.1f} cycles per dependent step of "
+        f"the round warp, {micro['sha256_block_cycles']:.1f} per whole "
+        f"SHA-256 compression, at {micro['sm_clock_mhz']:.0f} MHz (clock64 "
+        f"over %globaltimer; nvidia-smi clocks.sm, clocks.max.sm: "
+        f"{sm_clocks()}): chain bound {chain_ms:.4f} ms for {nblocks} "
+        f"blocks")
 
     # K7 at the Merkle cell's trees (2,048 x 1,024 leaves x 64 B)
     data = mk_ctx["data"]
@@ -1784,7 +2060,7 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
                     "replaces": replaces, "launches": launches[key],
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None})
+                    "library_ms": None, **extra.get(key, {})})
     return out
 
 

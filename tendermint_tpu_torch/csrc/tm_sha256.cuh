@@ -1,7 +1,16 @@
 // SHA-256 for the port's CUDA kernels (replaces tendermint_tpu/ops/sha256.py).
-// The message is prefix_byte || msg[0:n], read byte by byte and padded on
-// the fly: the Merkle leaf (0x00 || leaf) and inner-node (0x01 || l || r)
-// hashes.
+// Every message is prefix_byte || msg[0:n]: the Merkle leaf (0x00 || leaf)
+// and inner-node (0x01 || l || r) hashes.  Two ways to read it:
+//  - sha256_prefixed_words (K7's leaves): byte by byte, padded on the fly;
+//  - sha256_word, sha256_block_words and sha256_tail_words (K4): whole
+//    little-endian message words.  The prefix shifts the stream by one
+//    byte, so word i of block b is msg[64b + 4i - 1 .. 64b + 4i + 2]: one
+//    __byte_perm of the two neighbouring little-endian words
+//    msg[64b + 4i - 4 ..] ("prev") and msg[64b + 4i ..] ("cur"), prev's
+//    byte 3 first.  Before block 0, prev is prefix << 24.  The n / 64 whole
+//    message blocks carry no padding; the rest of the stream, prev's byte
+//    3, the last n % 64 message bytes, 0x80, zeros and the 64-bit bit
+//    length, is one block, or two when n % 64 > 54.
 #pragma once
 #include <stdint.h>
 
@@ -89,12 +98,87 @@ static __device__ void sha256_prefixed_words(uint32_t prefix,
   }
 }
 
-// SHA-256 of prefix || msg[0:n] -> 32 digest bytes
-static __device__ void sha256_prefixed(uint32_t prefix, const uint8_t* msg,
-                                       int n, uint8_t out[32]) {
-  uint32_t st[8];
-  sha256_prefixed_words(prefix, msg, n, st);
-  for (int i = 0; i < 8; i++) {
-    for (int k = 0; k < 4; k++) out[4 * i + k] = (uint8_t)(st[i] >> (24 - 8 * k));
+// The big-endian stream word whose first byte is prev's byte 3 and whose
+// other three are cur's bytes 0..2 (prev, cur: neighbouring little-endian
+// message words).
+static __device__ __forceinline__ uint32_t sha256_word(uint32_t prev,
+                                                       uint32_t cur) {
+  return __byte_perm(prev, cur, 0x3456);
+}
+
+// The 16 big-endian words w of one whole block of the prefixed stream from
+// the 16 little-endian message words lw (msg[64b .. 64b + 63]) and prev,
+// the word before them (prefix << 24 for block 0); prev <- lw[15].
+static __device__ __forceinline__ void sha256_block_words(
+    const uint32_t lw[16], uint32_t& prev, uint32_t w[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; i++) {
+    w[i] = sha256_word(prev, lw[i]);
+    prev = lw[i];
+  }
+}
+
+// The last one or two blocks of the stream after its whole blocks: prev's
+// byte 3 (the message's byte 64 * (n / 64) - 1, or the prefix), the r = n %
+// 64 message bytes after it, 0x80, zeros, and bits = 8 * (1 + n) as the last
+// 8 bytes, each block's 16 big-endian words handed to sink(w).  fetch(j), j
+// = 0..31, is the little-endian word of bytes 4j .. 4j + 3 of R' = those r
+// bytes, 0x80, zeros: the caller reads no byte past the message.  The 1 + r
+// + 1 bytes before the zeros fit one block's first 56 when r <= 54, else
+// two blocks, and the length is OR-ed onto zeros.
+static __device__ __forceinline__ int sha256_tail_blocks(int r) {
+  return r > 54 ? 2 : 1;
+}
+
+template <class Fetch, class Sink>
+static __device__ __forceinline__ void sha256_tail_words(uint32_t prev,
+                                                         int r, uint64_t bits,
+                                                         Fetch fetch,
+                                                         Sink sink) {
+  const int blocks = sha256_tail_blocks(r);
+  for (int t = 0; t < blocks; t++) {
+    uint32_t w[16];
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
+      uint32_t cur = fetch(16 * t + i);
+      w[i] = sha256_word(prev, cur);
+      prev = cur;
+    }
+    if (t == blocks - 1) {
+      w[14] |= (uint32_t)(bits >> 32);
+      w[15] |= (uint32_t)bits;
+    }
+    sink(w);
+  }
+}
+
+// sha256_tail_words, each block compressed into st.
+template <class Fetch>
+static __device__ __forceinline__ void sha256_tail(uint32_t st[8],
+                                                   uint32_t prev, int r,
+                                                   uint64_t bits,
+                                                   Fetch fetch) {
+  sha256_tail_words(prev, r, bits, fetch,
+                    [&](uint32_t w[16]) { sha256_compress(st, w); });
+}
+
+// The digest's eight big-endian words as 32 bytes: two 16-byte stores where
+// out is 16-byte aligned, else byte stores.
+static __device__ __forceinline__ void sha256_store(const uint32_t st[8],
+                                                    uint8_t* out) {
+  if (((uintptr_t)out & 15) == 0) {
+    uint4* o = (uint4*)out;
+    o[0] = make_uint4(__byte_perm(st[0], 0, 0x0123),
+                      __byte_perm(st[1], 0, 0x0123),
+                      __byte_perm(st[2], 0, 0x0123),
+                      __byte_perm(st[3], 0, 0x0123));
+    o[1] = make_uint4(__byte_perm(st[4], 0, 0x0123),
+                      __byte_perm(st[5], 0, 0x0123),
+                      __byte_perm(st[6], 0, 0x0123),
+                      __byte_perm(st[7], 0, 0x0123));
+  } else {
+    for (int i = 0; i < 8; i++)
+      for (int k = 0; k < 4; k++)
+        out[4 * i + k] = (uint8_t)(st[i] >> (24 - 8 * k));
   }
 }

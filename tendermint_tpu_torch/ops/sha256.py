@@ -4,7 +4,8 @@ and the wrapper of kernel K4 (`csrc/sha256_prefixed.cu`).
 32-bit words are held in int64 and masked after every add and shift.
 `sha256_prefixed` hashes prefix_byte || msg for N equal-length messages:
 Merkle leaves (prefix 0x00) and inner nodes (0x01 || left || right).  On a
-CUDA tensor it launches K4; on a CPU tensor it runs the plain twin.
+CUDA tensor it launches K4; on a CPU tensor it runs the plain twin.  K4
+picks its route from the shape alone, as `_k4_route` says.
 """
 
 from __future__ import annotations
@@ -90,6 +91,26 @@ def sha256_prefixed_plain(msgs: torch.Tensor, prefix: int) -> torch.Tensor:
     pre = torch.full(msgs.shape[:-1] + (1,), prefix, dtype=torch.uint8,
                      device=msgs.device)
     return sha256(torch.cat([pre, msgs], dim=-1))
+
+
+# bytes of each row per stage of K4's staged route (`K4_STAGE` in
+# csrc/sha256_prefixed.cu)
+K4_STAGE = 512
+
+
+def _k4_route(msg_len: int, data_ptr: int) -> tuple:
+    """K4's route for rows of msg_len bytes from address data_ptr, as
+    `k4_route` in csrc/sha256_prefixed.cu chooses it (the row count only
+    sizes the grid): ("staged", 16) for rows of whole 16-byte pieces, at
+    least one stage long, on a 16-byte aligned base (cp.async copies
+    through shared memory); else ("direct", width), one thread per row
+    reading 16-byte pieces, 4-byte words or bytes, the widest that the
+    length and the base's alignment allow."""
+    if msg_len % 16 == 0 and data_ptr % 16 == 0:
+        return ("staged", 16) if msg_len >= K4_STAGE else ("direct", 16)
+    if msg_len % 4 == 0 and data_ptr % 4 == 0:
+        return ("direct", 4)
+    return ("direct", 1)
 
 
 def sha256_prefixed(msgs: torch.Tensor, prefix: int) -> torch.Tensor:

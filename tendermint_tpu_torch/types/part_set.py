@@ -23,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+from torch.profiler import record_function
 
 from tendermint_tpu_torch.types import merkle
 from tendermint_tpu_torch.types.codec import Reader, lp_bytes, u32
@@ -158,9 +159,12 @@ def _device_full_chunk_hashes(chunks: list[bytes], part_size: int,
         return None
     if backend is None or backend.name != "cuda":
         return None
-    arr = np.frombuffer(b"".join(chunks), np.uint8).reshape(-1, part_size)
-    h = backend.leaf_hashes(arr)
-    return [h[i].tobytes() for i in range(len(chunks))]
+    with record_function("part_set.join"):
+        arr = np.frombuffer(b"".join(chunks), np.uint8).reshape(-1,
+                                                                part_size)
+    with record_function("part_set.leaf_hashes"):
+        h = backend.leaf_hashes(arr)
+        return [h[i].tobytes() for i in range(len(chunks))]
 
 
 def from_data_batched(datas: list[bytes], part_size: int = PART_SIZE,
@@ -170,27 +174,31 @@ def from_data_batched(datas: list[bytes], part_size: int = PART_SIZE,
     All full-size (== part_size) chunks across the whole window are leaf-
     hashed in one device batch through `backend` (when it is the "cuda"
     backend and the batch is big enough); short tail chunks and the
-    per-block tree/proof assembly stay host-side.
+    per-block tree/proof assembly stay host-side.  Each step is a
+    `torch.profiler` span: `part_set.chunk`, `part_set.join` and
+    `part_set.leaf_hashes` (the device batch) and `part_set.trees`.
     """
     per_block: list[list[bytes]] = []
     full: list[tuple[int, int]] = []     # (block, part) of full chunks
     full_chunks: list[bytes] = []
-    for bi, data in enumerate(datas):
-        chunks = [data[i:i + part_size]
-                  for i in range(0, len(data), part_size)] or [b""]
-        per_block.append(chunks)
-        for pi, c in enumerate(chunks):
-            if len(c) == part_size:
-                full.append((bi, pi))
-                full_chunks.append(c)
+    with record_function("part_set.chunk"):
+        for bi, data in enumerate(datas):
+            chunks = [data[i:i + part_size]
+                      for i in range(0, len(data), part_size)] or [b""]
+            per_block.append(chunks)
+            for pi, c in enumerate(chunks):
+                if len(c) == part_size:
+                    full.append((bi, pi))
+                    full_chunks.append(c)
     hashes: list[list[bytes | None]] = [[None] * len(c) for c in per_block]
     dev = _device_full_chunk_hashes(full_chunks, part_size, backend)
     if dev is not None:
         for (bi, pi), h in zip(full, dev):
             hashes[bi][pi] = h
     out = []
-    for bi, chunks in enumerate(per_block):
-        lh = [h if h is not None else merkle.leaf_hash(c)
-              for c, h in zip(chunks, hashes[bi])]
-        out.append(PartSet._assemble(chunks, lh))
+    with record_function("part_set.trees"):
+        for bi, chunks in enumerate(per_block):
+            lh = [h if h is not None else merkle.leaf_hash(c)
+                  for c, h in zip(chunks, hashes[bi])]
+            out.append(PartSet._assemble(chunks, lh))
     return out

@@ -109,6 +109,26 @@ def test_part_sets_device_gate_matches_host():
                for p in dev for i in range(p.total))
 
 
+def test_part_sets_record_their_steps():
+    """`from_data_batched` marks chunking, the join, the device batch and
+    the trees as `torch.profiler` spans, and gives the same part sets
+    under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.types import part_set
+    datas = [RNG.integers(0, 256, 64 * 20, dtype=np.uint8).tobytes()
+             for _ in range(2)]
+    be = CudaBackend(device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = part_set.from_data_batched(datas, part_size=64, backend=be)
+    spans = {e.key for e in prof.key_averages()
+             if e.key.startswith("part_set.")}
+    assert spans == {"part_set.chunk", "part_set.join",
+                     "part_set.leaf_hashes", "part_set.trees"}
+    plain = part_set.from_data_batched(datas, part_size=64)
+    assert [p.header for p in traced] == [p.header for p in plain]
+
+
 def _walk_plan_table(leaf_hashes: list) -> bytes:
     """The root from `plan_table(n)` as K7 walks it: per level, m and k,
     the m pairs hashed as 0x01 || left || right and the k singles copied,
