@@ -50,6 +50,18 @@ Phases, in order; any mismatch or exception exits non-zero:
       shard) and one of its windows through that backend's
       `verify_grouped` with the messages assembled on the host (K1 with
       per-lane keys and messages per shard);
+   d. BASELINE config 3 at its full 100,000 blocks x 100 validators
+      (fixture signed by K3): `replay_pipelined` with a `BlockStore` on
+      `MemDB`, `replay_pipelined` without a store and the serial
+      `replay`, each on a fresh state and under `torch.profiler`'s CUDA
+      activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
+      K1 launches, device-idle share);
+   e. BASELINE config 4 at its full 8 chains x 131,072 header+commit
+      pairs x 8 validators (signed by K3): `verify_chains_batched`
+      through a `BatchPlane(CudaBackend())` twice (the first pass builds
+      the tables), one K1 call of 1,048,576 lanes per chain, then a
+      `LightClient` following a short chain through a change of
+      validator set;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -59,11 +71,23 @@ Phases, in order; any mismatch or exception exits non-zero:
    accounting, commits, app hash and verdicts (every signed entry
    re-verified by the plain version), and hold each mesh's results
    against K5's mask, numpy int64 tallies and quorums, the single-device
-   roots and the single-device replay's masks and app hash;
+   roots and the single-device replay's masks and app hash; hold the
+   three fast-sync runs' app hashes to a host kvstore run and their
+   per-block tallies to each other, sampled stored blocks and seen
+   commits to the fixture, the asynchronous K1 mask to the synchronous
+   route's on every lane of a window (forged lanes mixed in) and to the
+   plain version on a sample, and time both routes' whole calls; blame a
+   tampered lane on the same height and lane through the pipeline and
+   the serial loop; stop a pipelined run on `SQLiteDB` mid-window,
+   reopen, handshake a fresh app and resume to the host's app hash;
+   blame a tampered lane of the light grid on its height and lane, and
+   hold the light follower's verdicts (a tampered header too) to the
+   golden verifier's;
 5. one `kernels` JSON line: per kernel its launches on the main paths
    at the shape its entry is timed at, its time and its plain version's
-   at the main path's shapes, the two results held exactly equal there,
-   and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
+   at the main path's shapes, the two results held exactly equal there
+   (K1 also at the light grid's 1,048,576 lanes, its plain version in
+   65,536-lane slices), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64; K4 at the part sets, with its chain bound
    `chain_bound_ms` beside the operations bound, and beside it at the
    trees' leaves, each shape's route logged); per mesh, the whole call of
@@ -1698,6 +1722,521 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
         f"kernel launched once per shard")
 
 
+# -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
+
+FS_BLOCKS = 100_000                     # BASELINE config 3: 160 windows
+FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
+FS_SAMPLE = 16                          # stored blocks decoded and checked
+FS_TIMED_CALLS = 10                     # whole-call timings, each route
+FS_FORGED = 100                         # forged lanes in the mask check
+
+
+def device_busy(fn) -> tuple:
+    """(fn(), wall seconds, device seconds of the kernels and copies it
+    ran, {name: device ms}) from `torch.profiler`'s CUDA activity; the
+    device seconds sum each event's time, so copies overlapping a kernel
+    count twice and the idle share 1 - busy / wall is a floor."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            names[e.key.split("(")[0].strip()[:40]] = us / 1e3
+    return out, wall, sum(names.values()) / 1e3, names
+
+
+def _fs_run(label: str, chain, be, pipelined: bool, store=None) -> dict:
+    """One replay of the chain on a fresh state, under the profiler: the
+    pipeline (with `store`, or none) or the serial loop."""
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+    state = get_state(MemDB(), chain.genesis)
+    conns = ClientCreator("kvstore").new_app_conns()
+    args = (state, conns.consensus, chain.blocks, chain.commits, be)
+    if pipelined:
+        run = lambda: rp.replay_pipelined(  # noqa: E731
+            *args, window=WINDOW, store=store)
+    else:
+        run = lambda: rp.replay(*args, window=WINDOW)  # noqa: E731
+    (res, k1), wall, busy, names = device_busy(lambda: _launched(run))
+    steady = res.windows[1:]
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    blocks = sum(w.blocks for w in res.windows)
+    msg = (f"[fastsync] {label}: {blocks} blocks, {res.sigs} sigs in "
+           f"{wall:.3f} s: {blocks / wall:.1f} blocks/s, "
+           f"{res.sigs / wall:.0f} sigs/s; steady window (mean of "
+           f"{len(steady)}): prepare {mean([w.prepare_s for w in steady]):.4f}"
+           f" s, verify {mean([w.verify_s for w in steady]):.4f} s, apply "
+           f"{mean([w.apply_s for w in steady]):.4f} s; K1 launches "
+           f"{k1.get('K1', 0)}; device busy {busy:.3f} s of {wall:.3f} "
+           f"(idle share {1 - busy / wall:.4f}; ms by name {names})")
+    if pipelined:
+        b = res.busy_s
+        msg += (f"; busy s: prepare {b['prepare']:.3f}, verify "
+                f"{b['verify']:.3f}, apply {b['apply']:.3f} (sum "
+                f"{sum(b.values()):.3f} = {res.overlap:.3f} x the wall "
+                f"{res.wall_s:.3f}); windows redone {res.redone}")
+    log(msg)
+    return {"label": label, "res": res, "state": state, "wall": wall,
+            "busy": busy, "names": names, "k1": k1.get("K1", 0)}
+
+
+def phase_fastsync() -> dict:
+    """BASELINE config 3 at its full 100,000 blocks x 100 validators: sign
+    the chain (K3), then replay it on fresh states: the pipeline with a
+    `BlockStore` on `MemDB` (each block stored before it is applied, the
+    state saved after every block), then twice each, in turn, the
+    pipeline without a store (the state saved once per window, as the
+    benchmark does) and the serial loop; K2 builds the set's tables
+    once, K1 runs once per window (dispatched ahead of the window's apply
+    in the pipeline)."""
+    import gc
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.types.part_set import PART_SIZE
+    from tendermint_tpu_torch.utils.db import MemDB
+    be = CudaBackend()
+    t0 = time.perf_counter()
+    chain = rp.build_chain(N_VALS, FS_BLOCKS, be)
+    gc.collect()
+    gc.freeze()         # millions of long-lived objects: keep GC off them
+    log(f"[fastsync] fixture: {FS_BLOCKS} blocks x {N_VALS} validators, "
+        f"{FS_BLOCKS * N_VALS} seen-commit signatures signed on the card "
+        f"(K3), built in {time.perf_counter() - t0:.2f} s")
+    store = BlockStore(MemDB())
+    d = rp.PIPELINE_DEPTH
+    runs = [_fs_run(f"pipelined ({d} windows ahead), BlockStore on MemDB",
+                    chain, be, True, store)]
+    # two pairs in turn, so the host's drift between runs shows
+    for piped in (True, False, False, True):
+        runs.append(_fs_run(f"pipelined ({d} windows ahead), no store"
+                            if piped else "serial", chain, be, piped))
+    sizes = [len(b.encode()) for b in chain.blocks]
+    full = sum(n // PART_SIZE for n in sizes)
+    log(f"[fastsync] blocks of {min(sizes)}-{max(sizes)} B: {full} full "
+        f"{PART_SIZE}-byte parts (K4 hashes only those; the rest on the "
+        f"host)")
+    return {"backend": be, "chain": chain, "store": store, "runs": runs,
+            "vals": chain.genesis.validator_set(),
+            "full_parts": full}
+
+
+def _tampered(commits: list, height: int, lane: int) -> list:
+    from tendermint_tpu_torch.types.block import CompactCommit
+    commits = list(commits)
+    c = commits[height - 1]
+    sigs = c.sigs.copy()
+    sigs[lane, 7] ^= 0x01
+    commits[height - 1] = CompactCommit(c.block_id, c.height_, c.round_,
+                                        sigs, c.present)
+    return commits
+
+
+def check_fastsync(fs: dict) -> None:
+    """Hold the fast-sync runs to the host kvstore run and to each other,
+    the store to the fixture, the asynchronous K1 mask to the synchronous
+    route's on every lane of a window and to the plain version on a
+    sample, the tamper blame of the pipeline to the serial loop's, and a
+    stopped-and-restarted pipeline to an uninterrupted one."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.abci.app import create_app
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.types.validator import (CommitSignatureError,
+                                                      window_commit_lanes)
+    from tendermint_tpu_torch.utils.db import MemDB
+    be, chain, store, vals = fs["backend"], fs["chain"], fs["store"], \
+        fs["vals"]
+    app = create_app("kvstore")
+    host = [b""]
+    for b in chain.blocks:
+        for tx in b.txs:
+            app.deliver_tx(tx)
+        host.append(app.commit().data)
+    tallies = None
+    for run in fs["runs"]:
+        res = run["res"]
+        require((res.height, res.app_hash) == (FS_BLOCKS, host[-1]),
+                f"{run['label']}: height {res.height} / app hash != host "
+                f"kvstore run")
+        t = [x for w in res.windows for x in w.tallied]
+        require(len(t) == FS_BLOCKS and (tallies is None or t == tallies),
+                f"{run['label']}: per-block tallies differ")
+        tallies = t
+        require(run["k1"] == FS_BLOCKS // WINDOW,
+                f"{run['label']}: {run['k1']} K1 launches")
+    require(store.height == FS_BLOCKS, f"store height {store.height}")
+    rng = np.random.default_rng(SEED)
+    for h in sorted(int(x) for x in rng.integers(1, FS_BLOCKS + 1,
+                                                 FS_SAMPLE)):
+        b, c = chain.blocks[h - 1], chain.commits[h - 1]
+        got = store.load_block(h)
+        require(got is not None and got.hash() == b.hash()
+                and got.encode() == b.encode(), f"stored block {h}")
+        require(store.load_block_meta(h).block_id.key() == c.block_id.key()
+                and store.load_seen_commit(h).encode()
+                == c.encode_commit(vals), f"stored commits of {h}")
+    log(f"[fastsync] app hash {host[-1].hex()} == host kvstore run in all "
+        f"{len(fs['runs'])} runs; per-block tallies equal; store at height "
+        f"{store.height}, {FS_SAMPLE} sampled blocks and seen commits == "
+        f"the fixture's")
+
+    # the asynchronous K1 route against the synchronous one (pageable
+    # copies and K1 on the current stream) on every lane of a window with
+    # forged lanes, and against the plain version on a sample
+    _, _, items = rp.prepare_window(chain.blocks[:WINDOW],
+                                    chain.commits[:WINDOW], vals.hash(), be)
+    templates, tmpl_idx, sigs, idxs, *_ = window_commit_lanes(
+        vals, chain.genesis.chain_id, items)
+    sigs = sigs.copy()
+    forged = rng.choice(len(sigs), FS_FORGED, replace=False)
+    sigs[forged, 33] ^= 0x02
+    key, pubs = vals.set_key(), vals.pubs_matrix()
+    lanes = (idxs, tmpl_idx, templates, sigs)
+
+    def sync_route():
+        args = be.templated_args(key, pubs, *lanes)
+        return ed.verify_grouped_templated(*args).cpu().numpy()[:len(idxs)]
+
+    def async_route():
+        pre = be.prefetch_grouped_lanes(*lanes)
+        return be.verify_grouped_templated_async(key, pubs, *pre[:4],
+                                                 real_n=pre[4])()
+
+    want = np.ones(len(idxs), bool)
+    want[forged] = False
+    got_sync, got_async = sync_route(), async_route()
+    require(np.array_equal(got_async, got_sync)
+            and np.array_equal(got_async, want),
+            "async K1 mask != synchronous route on the window")
+    sample = np.unique(np.concatenate([forged[:16], rng.choice(
+        len(idxs), min(496, len(idxs)), replace=False)]))
+    pargs = be.templated_args(key, pubs, idxs[sample], tmpl_idx[sample],
+                              templates, sigs[sample])
+    plain = ed.verify_grouped_templated_plain(*pargs).cpu().numpy()
+    require(np.array_equal(plain[:len(sample)], got_async[sample]),
+            "async K1 mask != plain on the sample")
+    times = {"sync": [], "async": []}
+    for _ in range(FS_TIMED_CALLS):
+        for name, fn in (("sync", sync_route), ("async", async_route),
+                         ("async", async_route), ("sync", sync_route)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    fs["whole_call_ms"] = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[fastsync] async K1 mask == synchronous route on all {len(idxs)} "
+        f"lanes of a window ({FS_FORGED} forged) and == plain on "
+        f"{len(sample)}; whole call (stage, copy, K1, copy back), median "
+        f"of {2 * FS_TIMED_CALLS} each, ms: synchronous route "
+        f"{fs['whole_call_ms']['sync']:.3f} (pageable copies, current "
+        f"stream), asynchronous {fs['whole_call_ms']['async']:.3f} (pinned "
+        f"staging, the backend's stream)")
+
+    # tamper blame, pipeline against the serial loop, on the first 2,500
+    bad = _tampered(chain.commits[:N_BLOCKS], TAMPER_HEIGHT, TAMPER_LANE)
+    blame = []
+    for run in (rp.replay, rp.replay_pipelined):
+        st = get_state(MemDB(), chain.genesis)
+        try:
+            run(st, ClientCreator("kvstore").new_app_conns().consensus,
+                chain.blocks[:N_BLOCKS], bad, be, window=WINDOW)
+        except CommitSignatureError as e:
+            blame.append((e.height, e.lane, st.last_block_height))
+        else:
+            raise AssertionError(f"{run.__name__}: tampered lane verified")
+    require(blame[0] == blame[1] == (TAMPER_HEIGHT, TAMPER_LANE,
+                                     (TAMPER_HEIGHT - 1) // WINDOW * WINDOW),
+            f"tamper blame: serial {blame[0]}, pipelined {blame[1]}")
+    log(f"[fastsync] tampered lane blamed on height {TAMPER_HEIGHT} lane "
+        f"{TAMPER_LANE} by the serial loop and the pipeline alike, both "
+        f"stopped at height {blame[0][2]}")
+    check_restart(be, chain, host[FS_SHORT])
+
+
+def check_restart(be, chain, want_hash: bytes) -> None:
+    """Stop a pipelined run with a `BlockStore` on `SQLiteDB` mid-window,
+    store the next block as a crash after the store's save would, reopen
+    the store and the state, handshake a fresh app and resume: the app
+    hash must equal the host kvstore run's over the short chain."""
+    import tempfile
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import SQLiteDB
+    blocks, commits = chain.blocks[:FS_SHORT], chain.commits[:FS_SHORT]
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/node.db"
+        db = SQLiteDB(path)
+        st, store = get_state(db, chain.genesis), BlockStore(db)
+        res = rp.replay_pipelined(
+            st, ClientCreator("kvstore").new_app_conns().consensus, blocks,
+            commits, be, window=WINDOW, store=store,
+            stop_when=lambda: st.last_block_height == FS_STOP)
+        require(res.stopped and store.height == FS_STOP,
+                f"stop at {res.height}, store {store.height}")
+        b = blocks[FS_STOP]
+        store.save_block(b, b.make_part_set(), commits[FS_STOP],
+                         validators=st.validators)
+        db.close()
+        db = SQLiteDB(path)
+        st, store = get_state(db, chain.genesis), BlockStore(db)
+        conns = ClientCreator("kvstore").new_app_conns()
+        hs = Handshaker(st, store)
+        t0 = time.perf_counter()
+        hs.handshake(conns)
+        hs_s = time.perf_counter() - t0
+        h = st.last_block_height
+        require((h, hs.n_blocks) == (FS_STOP + 1, FS_STOP + 1),
+                f"handshake: state {h}, {hs.n_blocks} blocks replayed")
+        res = rp.replay_pipelined(st, conns.consensus, blocks[h:],
+                                  commits[h:], be, window=WINDOW, store=store)
+        db.close()
+    require((st.last_block_height, st.app_hash) == (FS_SHORT, want_hash),
+            "restarted run's app hash != host kvstore run")
+    log(f"[fastsync] restart: pipelined run on SQLiteDB stopped at "
+        f"{FS_STOP} (mid-window), block {FS_STOP + 1} stored as a crash "
+        f"leaves it, reopened; the handshake replayed {hs.n_blocks - 1} "
+        f"blocks into a fresh app and applied the stored one in "
+        f"{hs_s:.2f} s; "
+        f"resumed to {FS_SHORT}: app hash {st.app_hash.hex()} == host "
+        f"kvstore run")
+
+
+# -- the main path: the light client's multi-chain grid (config 4) --------
+
+LIGHT_CHAINS, LIGHT_HEADERS, LIGHT_VALS = 8, 131_072, 8
+LIGHT_SIGN_HEADERS = 8192               # 65,536 lanes per K3 call
+LIGHT_TAMPER = (5, 77_777, 3)           # chain, header index, lane
+LC_HEADERS, LC_CHANGE, LC_GROW = 6, 3, 2   # the follower's short chain
+
+
+def _light_set(c: int, n: int) -> tuple:
+    """(validator set, seeds in set order) of chain c's n validators."""
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.types.keys import PubKey
+    from tendermint_tpu_torch.types.validator import Validator, ValidatorSet
+    seeds = [bytes([0x4C, c + 1, i + 1]) + b"\0" * 29 for i in range(n)]
+    by_pub = {ref.pubkey_from_seed(s): s for s in seeds}
+    vs = ValidatorSet([Validator(PubKey(p), 10) for p in by_pub])
+    return vs, [by_pub[v.pub_key.bytes_] for v in vs.validators]
+
+
+def light_chains(be, n_chains: int, headers: int, n_vals: int):
+    """BASELINE config 4's grid (`bench.py` config 4): per chain, a set of
+    n_vals validators and `headers` header+commit pairs — seeded random
+    block and part-set hashes, each commit signed by every validator on
+    the card (K3) — as `ChainBatch`es of (BlockID, height,
+    CompactCommit)."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.light import ChainBatch
+    from tendermint_tpu_torch.types import BlockID, CompactCommit, canonical
+    from tendermint_tpu_torch.types.part_set import PartSetHeader
+    chains = []
+    for c in range(n_chains):
+        cid = f"light-{c}"
+        vs, seeds = _light_set(c, n_vals)
+        rng = np.random.default_rng(SEED + c)
+        hashes = rng.integers(0, 256, (headers, 2, 32), dtype=np.uint8)
+        templates = canonical.batch_sign_bytes(
+            cid, np.full(headers, canonical.TYPE_PRECOMMIT, np.int64),
+            np.arange(1, headers + 1, dtype=np.int64),
+            np.zeros(headers, np.int64), hashes[:, 0], hashes[:, 1],
+            np.ones(headers, np.int64))
+        sigs = np.zeros((headers * n_vals, 64), np.uint8)
+        step = min(headers, LIGHT_SIGN_HEADERS)
+        vi = np.tile(np.arange(n_vals, dtype=np.int32), step)
+        ti = np.repeat(np.arange(step, dtype=np.int32), n_vals)
+        for off in range(0, headers, step):
+            k = (min(off + step, headers) - off) * n_vals
+            sigs[off * n_vals:off * n_vals + k] = be.sign_grouped_templated(
+                seeds, vi[:k], ti[:k], templates[off:off + step])
+        for i in rng.integers(0, len(sigs), 4):
+            i = int(i)
+            require(ref.verify(vs.validators[i % n_vals].pub_key.bytes_,
+                               templates[i // n_vals].tobytes(),
+                               sigs[i].tobytes()),
+                    f"{cid}: fixture lane {i} does not verify")
+        sigs = sigs.reshape(headers, n_vals, 64)
+        present = np.ones(n_vals, bool)
+        items = []
+        for h in range(headers):
+            bid = BlockID(hashes[h, 0].tobytes(),
+                          PartSetHeader(1, hashes[h, 1].tobytes()))
+            items.append((bid, h + 1,
+                          CompactCommit(bid, h + 1, 0, sigs[h], present)))
+        chains.append(ChainBatch(cid, vs, items))
+    return chains
+
+
+def follower_chain(be):
+    """A short header chain for `LightClient.update`: LC_HEADERS headers
+    of chain 0's set, which grows by LC_GROW validators at LC_CHANGE (the
+    two-set rule carries the client across), commits signed by K3.
+    Returns (chain_id, [(header, commit, its set)], genesis set)."""
+    import numpy as np
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.types import (CompactCommit, ZERO_BLOCK_ID,
+                                            canonical)
+    old, old_seeds = _light_set(0, LIGHT_VALS)
+    grown, grown_seeds = _light_set(0, LIGHT_VALS + LC_GROW)
+    cid, out, last, prev = "light-0", [], ZERO_BLOCK_ID, old
+    for h in range(1, LC_HEADERS + 1):
+        vs, seeds = (grown, grown_seeds) if h > LC_CHANGE else \
+            (old, old_seeds)
+        block, bid = rp.make_block(cid, h, [b"lc%d" % h], last, prev.size(),
+                                   vs.hash(), b"")
+        tmpl = canonical.sign_bytes(cid, canonical.TYPE_PRECOMMIT, h, 0,
+                                    block_hash=bid.hash,
+                                    parts_hash=bid.parts.hash,
+                                    parts_total=bid.parts.total)
+        sigs = be.sign_grouped_templated(
+            seeds, np.arange(vs.size(), dtype=np.int32),
+            np.zeros(vs.size(), np.int32),
+            np.frombuffer(tmpl, np.uint8).reshape(1, -1))
+        out.append((block.header, CompactCommit(bid, h, 0, sigs,
+                                                np.ones(vs.size(), bool)),
+                    vs))
+        last, prev = bid, vs
+    return cid, out, old
+
+
+def follow(plane, cid: str, headers: list, genesis_set) -> list:
+    """Each header's verdict from a `LightClient` over `plane`: its
+    trusted height, or the error's type and message."""
+    from tendermint_tpu_torch.light import (LightClient, SignedHeader,
+                                            TrustedState)
+    lc = LightClient(cid, TrustedState(0, b"", genesis_set), plane)
+    out = []
+    for header, commit, vs in headers:
+        try:
+            out.append(lc.update(SignedHeader(header, commit), vs).height)
+        except ValueError as e:
+            out.append((type(e).__name__, str(e)))
+    return out
+
+
+def phase_light() -> dict:
+    """BASELINE config 4 at full scale: 8 chains x 131,072 header+commit
+    pairs x 8 validators (8,388,608 lanes) signed by K3, verified twice
+    through `verify_chains_batched` on a `BatchPlane(CudaBackend())` —
+    the first pass builds each chain's tables (K2), both run one K1 call
+    of 1,048,576 lanes per chain — then a `LightClient` follows a short
+    chain through a change of validator set (K1 templated on the
+    unchanged set, with per-lane keys across the change)."""
+    import gc
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.light import verify_chains_batched
+    from tendermint_tpu_torch.types.validator import window_commit_lanes
+    be = CudaBackend()
+    t0 = time.perf_counter()
+    chains = light_chains(be, LIGHT_CHAINS, LIGHT_HEADERS, LIGHT_VALS)
+    gc.collect()
+    gc.freeze()
+    pairs = LIGHT_CHAINS * LIGHT_HEADERS
+    sigs = pairs * LIGHT_VALS
+    log(f"[light] fixture: {LIGHT_CHAINS} chains x {LIGHT_HEADERS} headers "
+        f"x {LIGHT_VALS} validators, {sigs} signatures signed on the card "
+        f"(K3), built in {time.perf_counter() - t0:.2f} s")
+    plane = BatchPlane(be)
+    passes = []
+    launches = {}
+    for name in ("first pass (tables built)", "second pass"):
+        t0 = time.perf_counter()
+        _, k = _launched(lambda: verify_chains_batched(chains, plane))
+        dt = time.perf_counter() - t0
+        passes.append(dt)
+        for key, n in k.items():
+            launches[key] = launches.get(key, 0) + n
+        log(f"[light] {name}: {pairs} pairs, {sigs} sigs in {dt:.3f} s: "
+            f"{pairs / dt:.0f} pairs/s, {sigs / dt:.0f} sigs/s; launches "
+            f"{k}")
+    c0 = chains[0]
+    t0 = time.perf_counter()
+    window_commit_lanes(c0.validators, c0.chain_id, c0.items)
+    lanes_s = time.perf_counter() - t0
+    log(f"[light] one chain's host lane assembly (window_commit_lanes over "
+        f"{LIGHT_HEADERS} CompactCommits): {lanes_s:.3f} s of the second "
+        f"pass's {passes[1] / LIGHT_CHAINS:.3f} s per chain")
+    cid, headers, genesis_set = follower_chain(be)
+    verdicts = follow(plane, cid, headers, genesis_set)
+    plane.stop()
+    log(f"[light] LightClient over the card: {verdicts}")
+    return {"backend": be, "chains": chains, "passes": passes,
+            "grid_k1": launches.get("K1", 0), "follower": (cid, headers,
+                                                          genesis_set),
+            "verdicts": verdicts}
+
+
+def check_light(lt: dict) -> None:
+    """A tampered lane in one chain of the grid raises
+    `CommitSignatureError` naming its height and lane; the follower's
+    verdicts equal the golden verifier's, the tampered follower's too."""
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.crypto.backend import PythonBackend
+    from tendermint_tpu_torch.light import ChainBatch, verify_chains_batched
+    from tendermint_tpu_torch.types.validator import CommitSignatureError
+    require(lt["grid_k1"] == 2 * LIGHT_CHAINS,
+            f"{lt['grid_k1']} K1 launches for two passes of the grid")
+    c, idx, lane = LIGHT_TAMPER
+    ch = lt["chains"][c]
+    items = list(ch.items)
+    bid, h, cc = items[idx]
+    items[idx] = (bid, h, _tampered([cc], 1, lane)[0])
+    plane = BatchPlane(lt["backend"])
+    try:
+        verify_chains_batched([lt["chains"][0],
+                               ChainBatch(ch.chain_id, ch.validators, items)],
+                              plane)
+    except CommitSignatureError as e:
+        require((e.height, e.lane) == (idx + 1, lane),
+                f"grid tamper blamed height {e.height} lane {e.lane}")
+        log(f"[light] tampered lane in {ch.chain_id} rejected: {e}")
+    else:
+        raise AssertionError("tampered light chain verified")
+    finally:
+        plane.stop()
+    cid, headers, genesis_set = lt["follower"]
+    want_heights = list(range(1, LC_HEADERS + 1))
+    require(lt["verdicts"] == want_heights,
+            f"follower verdicts {lt['verdicts']}")
+    bad = list(headers)
+    header, cc, vs = bad[LC_CHANGE + 1]
+    bad[LC_CHANGE + 1] = (header, _tampered([cc], 1, 1)[0], vs)
+    golden = BatchPlane(PythonBackend())
+    card = BatchPlane(lt["backend"])
+    try:
+        got = [follow(p, cid, hs, genesis_set)
+               for p in (golden, card) for hs in (headers, bad)]
+    finally:
+        golden.stop()
+        card.stop()
+    require(got[0] == got[2] == want_heights and got[1] == got[3]
+            and got[1][LC_CHANGE + 1][0] == "CommitSignatureError",
+            f"follower verdicts: golden {got[:2]}, card {got[2:]}")
+    log(f"[light] follower through the set change at {LC_CHANGE + 1} "
+        f"(two-set rule): card verdicts == golden {got[0]}; tampered "
+        f"{got[1]}")
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -1736,39 +2275,46 @@ def _bound(nbytes: float, ops: float) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _le_digits(rows, width: int, windows: int):
+    """Little-endian `width`-bit digits of the integers in uint8[N, B]
+    rows (bits past B * 8 are 0) -> int64[N, windows]."""
+    import numpy as np
+    rows = np.ascontiguousarray(rows, np.uint8)
+    nbits = width * windows
+    weights = np.left_shift(1, np.arange(width, dtype=np.int64))
+    out = np.zeros((len(rows), windows), np.int64)
+    for lo in range(0, len(rows), 65536):
+        bits = np.unpackbits(rows[lo:lo + 65536], axis=1, bitorder="little")
+        if bits.shape[1] < nbits:
+            bits = np.pad(bits, ((0, 0), (0, nbits - bits.shape[1])))
+        out[lo:lo + 65536] = bits[:, :nbits].reshape(
+            -1, windows, width).astype(np.int64) @ weights
+    return out
+
+
 def _mod_l_digits(digests: list, width: int, windows: int):
     """Comb digits of SHA-512 digests reduced mod L -> int64[N, windows]."""
     import numpy as np
     from tendermint_tpu_torch.crypto import pure_ed25519 as ref
-    mask = (1 << width) - 1
-    out = np.zeros((len(digests), windows), np.int64)
-    for i, d in enumerate(digests):
-        k = int.from_bytes(d, "little") % ref.L
-        for w in range(windows):
-            out[i, w] = (k >> (width * w)) & mask
-    return out
+    k = b"".join((int.from_bytes(d, "little") % ref.L).to_bytes(32, "little")
+                 for d in digests)
+    return _le_digits(np.frombuffer(k, np.uint8).reshape(-1, 32), width,
+                      windows)
 
 
 def _byte_digits(rows, width: int, windows: int):
-    import numpy as np
-    mask = (1 << width) - 1
-    out = np.zeros((len(rows), windows), np.int64)
-    for i, r in enumerate(rows):
-        k = int.from_bytes(r.tobytes(), "little")
-        for w in range(windows):
-            out[i, w] = (k >> (width * w)) & mask
-    return out
+    return _le_digits(rows, width, windows)
 
 
 def _distinct_rows(digits, extra=None) -> int:
     """Distinct (window, digit[, key]) table rows a batch gathers."""
     import numpy as np
     n, windows = digits.shape
-    cols = [np.broadcast_to(np.arange(windows), (n, windows)).ravel(),
-            digits.ravel()]
+    packed = (np.arange(windows, dtype=np.int64)[None, :] << 40) | (
+        digits.astype(np.int64) << 20)
     if extra is not None:
-        cols.append(np.repeat(extra, windows))
-    return len(np.unique(np.stack(cols, axis=1), axis=0))
+        packed |= np.asarray(extra, np.int64)[:, None]
+    return len(np.unique(packed))
 
 
 def _grouped_verify_cost(sigs, lane_pubs, lane_msgs, val_idx,
@@ -2064,6 +2610,43 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     return out
 
 
+def light_kernel_row(lt: dict, light: dict) -> dict:
+    """K1 at the light grid's shape, one chain's 1,048,576 lanes against
+    its 131,072 templates (Vb 16), held against the plain version run in
+    65,536-lane slices; its launches are the grid's on the light path."""
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.types.validator import window_commit_lanes
+    be, c0 = lt["backend"], lt["chains"][0]
+    vals = c0.validators
+    templates, tmpl_idx, sigs, idxs, *_ = window_commit_lanes(
+        vals, c0.chain_id, c0.items)
+    args = be.templated_args(vals.set_key(), vals.pubs_matrix(), idxs,
+                             tmpl_idx, templates, sigs)
+    n, step = args[3].shape[0], 65536
+    ms, got = cuda_ms(lambda: ed.verify_grouped_templated(*args), 3)
+
+    def plain():
+        return torch.cat([ed.verify_grouped_templated_plain(
+            *args[:3], args[3][lo:lo + step], args[4][lo:lo + step],
+            args[5], args[6][lo:lo + step], args[7])
+            for lo in range(0, n, step)])
+
+    plain_ms, want = cuda_ms(plain, 0)
+    require(torch.equal(got, want) and bool(got.all()),
+            "K1 != plain (or a lane rejected) at the light grid's shape")
+    log(f"[kernels] light path launches beside the grid's "
+        f"{lt['grid_k1']} K1: {light}")
+    return {**_entry("verify_grouped_templated",
+                     "tendermint_tpu_torch/csrc/verify_grouped.cu",
+                     "tendermint_tpu/ops/ed25519.py:153", lt["grid_k1"],
+                     max_abs_err(got, want), ms, plain_ms,
+                     *_templated_cost(args),
+                     f"the light grid: {n} lanes, {args[5].shape[0]} "
+                     f"templates, Vb {args[0].shape[2]}"),
+            "shape": f"{n} lanes, {args[5].shape[0]} templates (light grid)"}
+
+
 def _entry(name, src, replaces, launches, err, ms, plain_ms, nbytes, ops,
            what) -> dict:
     """One entry of the kernels line, logged with its bound."""
@@ -2252,10 +2835,18 @@ def main() -> int:
     mesh_ctxs = [phase_mesh(rp_ctx, mk_ctx, mesh_in, m) for m in meshes]
     mesh = read_launches("mesh", ("K1", "K2", "K6", "K7"))
     phase_tamper(rp_ctx)
-    check_merkle(mk_ctx)
+    check_merkle(mk_ctx)     # profiles before the fast-sync path's profiles
     check_mempool(mp_ctx, mempool)
     for ctx in mesh_ctxs:
         check_mesh(rp_ctx, mk_ctx, mesh_in, ctx)
+    kernels.reset_launches()                # the fast-sync path starts here
+    fs_ctx = phase_fastsync()
+    fastsync = read_launches("fastsync", ("K1", "K2", "K3"))
+    kernels.reset_launches()                # the light path starts here
+    lt_ctx = phase_light()
+    light = read_launches("light", ("K1", "K2", "K3"))
+    check_fastsync(fs_ctx)
+    check_light(lt_ctx)
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -2264,12 +2855,18 @@ def main() -> int:
     # flush, as check_mempool holds); K6 runs on the mesh path only.  The
     # mesh's launches of K1 and K7, at the shards' shapes, stand in the
     # mesh rows.
-    launches = {k: replay[k] + mempool[k] for k in replay}
-    launches["K1"], launches["K1p"] = replay["K1"], mempool["K1"]
+    # The fast-sync path runs K1, K2 and K3 at the replay's shapes (its
+    # windows, its set, its signing calls); the light path's grid runs K1
+    # at a row of its own, and its other launches (K2 at 8 keys, K3 at
+    # 8,192 templates, K1 on the follower's few lanes) are logged above.
+    launches = {k: replay[k] + mempool[k] + fastsync[k] for k in replay}
+    launches["K1"] = replay["K1"] + fastsync["K1"]
+    launches["K1p"] = mempool["K1"]
     launches["K5"] = mp_ctx["k5_by_size"].get(K5_ROW_LANES, 0)
     launches["K2"] += mesh["K2"]
     launches["K6"] = mesh["K6"]
     line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
+    line.append(light_kernel_row(lt_ctx, light))
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))

@@ -1,0 +1,162 @@
+"""Persistent block store keyed by height.
+
+Reference: `blockchain/store.go` — BlockMeta, parts stored individually,
+Commit + SeenCommit per height (`LoadBlock` `:60-81`, `SaveBlock` `:147`);
+blocks reassemble from their parts on load.  Copy of
+`tendermint_tpu/blockchain/store.py`; a seen commit may also be the
+array-native `CompactCommit`, stored as the same `Commit` bytes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from tendermint_tpu_torch.types import Block, BlockID, Commit, PartSet
+from tendermint_tpu_torch.types.codec import Reader, u32, u64
+from tendermint_tpu_torch.types.part_set import Part
+
+
+@dataclass
+class BlockMeta:
+    block_id: BlockID
+    height: int
+    num_txs: int
+
+    def encode(self) -> bytes:
+        return self.block_id.encode() + u64(self.height) + u32(self.num_txs)
+
+    @classmethod
+    def decode_bytes(cls, data: bytes) -> "BlockMeta":
+        r = Reader(data)
+        out = cls(block_id=BlockID.decode(r), height=r.u64(), num_txs=r.u32())
+        r.expect_done()
+        return out
+
+
+class BlockStore:
+    def __init__(self, db):
+        self.db = db
+        raw = db.get(b"blockStore:height")
+        self._height = int.from_bytes(raw, "big") if raw else 0
+        raw = db.get(b"blockStore:base")
+        self._base = int.from_bytes(raw, "big") if raw else 1
+
+    @property
+    def height(self) -> int:
+        """Height of the highest stored block."""
+        return self._height
+
+    @property
+    def base(self) -> int:
+        """Lowest stored height; heights below have been pruned (or were
+        never stored — a snapshot-restored node starts above genesis)."""
+        return self._base
+
+    # -- save -----------------------------------------------------------
+    def save_block(self, block: Block, part_set: PartSet, seen_commit,
+                   validators=None) -> None:
+        """Persist block meta + parts + commits (reference
+        `blockchain/store.go:147-186`); SeenCommit carries the +2/3 for
+        THIS block (needed to propose next height after restart).  A
+        `CompactCommit` seen commit needs `validators`, the set that
+        signed it, for its votes' addresses."""
+        h = block.height
+        if h != self._height + 1:
+            raise ValueError(f"save_block height {h}, expected "
+                             f"{self._height + 1}")
+        if not part_set.is_complete():
+            raise ValueError("cannot save incomplete part set")
+        meta = BlockMeta(block_id=BlockID(block.hash(), part_set.header),
+                         height=h, num_txs=len(block.txs))
+        kvs = [(b"H:%d" % h, meta.encode())]
+        for i in range(part_set.total):
+            kvs.append((b"P:%d:%d" % (h, i), part_set.get_part(i).encode()))
+        kvs.append((b"C:%d" % h, block.last_commit.encode()))
+        kvs.append((b"SC:%d" % h, seen_commit.encode()
+                    if isinstance(seen_commit, Commit)
+                    else seen_commit.encode_commit(validators)))
+        kvs.append((b"blockStore:height", h.to_bytes(8, "big")))
+        self.db.set_batch(kvs)
+        self._height = h
+
+    # -- prune / bootstrap ----------------------------------------------
+    def prune(self, retain_height: int) -> int:
+        """Drop all blocks below `retain_height` (reference
+        `store.PruneBlocks` semantics): after pruning, `base` is
+        `retain_height` and `load_block` below it returns None — the
+        fast-sync reactor then answers NoBlockResponse, a polite refusal
+        instead of a crash.  Returns the number of blocks pruned.
+        Snapshots make pruning safe: a peer that needs the pruned prefix
+        restores from a snapshot at >= retain_height instead."""
+        if retain_height <= self._base:
+            return 0
+        if retain_height > self._height + 1:
+            raise ValueError(
+                f"cannot retain from {retain_height}: store height is "
+                f"{self._height}")
+        pruned = 0
+        for h in range(self._base, retain_height):
+            meta = self.load_block_meta(h)
+            if meta is not None:
+                for i in range(meta.block_id.parts.total):
+                    self.db.delete(b"P:%d:%d" % (h, i))
+                pruned += 1
+            self.db.delete(b"H:%d" % h)
+            self.db.delete(b"C:%d" % h)
+            self.db.delete(b"SC:%d" % h)
+        self._base = retain_height
+        self.db.set(b"blockStore:base", retain_height.to_bytes(8, "big"))
+        return pruned
+
+    def bootstrap(self, height: int) -> None:
+        """Prime an EMPTY store at a snapshot height: the store holds no
+        blocks yet, but save_block must accept `height + 1` next and
+        requests at or below `height` must refuse politely, so both
+        cursors move to the snapshot (base = height + 1: not even the
+        snapshot's own block is stored)."""
+        if self._height != 0:
+            raise ValueError(
+                f"bootstrap on a non-empty store (height {self._height})")
+        self._height = height
+        self._base = height + 1
+        self.db.set_batch([
+            (b"blockStore:height", height.to_bytes(8, "big")),
+            (b"blockStore:base", (height + 1).to_bytes(8, "big"))])
+
+    # -- load -----------------------------------------------------------
+    def load_block_meta(self, height: int) -> BlockMeta | None:
+        raw = self.db.get(b"H:%d" % height)
+        return BlockMeta.decode_bytes(raw) if raw else None
+
+    def load_part(self, height: int, index: int) -> Part | None:
+        raw = self.db.get(b"P:%d:%d" % (height, index))
+        return Part.decode(Reader(raw)) if raw else None
+
+    def load_block(self, height: int) -> Block | None:
+        """Reassemble from parts (reference `blockchain/store.go:60-81`).
+        Heights below `base` return None even if a crash mid-prune left a
+        stale meta behind — missing parts below base are pruned, not
+        corrupt."""
+        if height < self._base:
+            return None
+        meta = self.load_block_meta(height)
+        if meta is None:
+            return None
+        chunks = []
+        for i in range(meta.block_id.parts.total):
+            part = self.load_part(height, i)
+            if part is None:
+                raise ValueError(
+                    f"block store corrupt: height {height} missing part {i}")
+            chunks.append(part.bytes_)
+        return Block.decode_bytes(b"".join(chunks))
+
+    def load_block_commit(self, height: int) -> Commit | None:
+        """The commit for block `height` stored in block height+1
+        (reference `blockchain/store.go:113`)."""
+        raw = self.db.get(b"C:%d" % (height + 1))
+        return Commit.decode(Reader(raw)) if raw else None
+
+    def load_seen_commit(self, height: int) -> Commit | None:
+        raw = self.db.get(b"SC:%d" % height)
+        return Commit.decode(Reader(raw)) if raw else None

@@ -8,7 +8,12 @@ by repeating lane 0, and padded lanes are trimmed from every result.
 
 `CudaBackend` runs on the card unless the caller passes device="cpu", in
 which case every kernel wrapper runs its plain PyTorch version; with no
-card it refuses to start.  Given a `parallel.sharding.Mesh`, its large
+card it refuses to start.  Its templated grouped verify also has an
+asynchronous form (`prefetch_grouped_lanes`,
+`verify_grouped_templated_async`): lanes are staged in page-locked host
+memory and copied, verified (K1) and copied back on a CUDA stream the
+backend owns, and the caller collects the mask later.  Given a
+`parallel.sharding.Mesh`, its large
 grouped verifies split their lanes over the mesh, with the comb tables
 replicated on every mesh device; a templated batch keeps its device-side
 gather of keys and messages on every shard.  Unlike the JAX package's
@@ -61,6 +66,11 @@ def _bucket(n: int) -> int:
     return b
 
 
+def _host(a) -> np.ndarray:
+    """A lane array as numpy, copied back if it lies on a device."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _pad_rows(a: np.ndarray, b: int) -> np.ndarray:
     """Pad the leading axis to b rows by repeating row 0."""
     if b == len(a):
@@ -87,6 +97,20 @@ class PythonBackend:
                                  templates, sigs):
         return self.verify_grouped(set_key, val_pubs, val_idx,
                                    templates[tmpl_idx], sigs)
+
+    def prefetch_grouped_lanes(self, val_idx, tmpl_idx, templates, sigs):
+        """Nothing to copy: the lanes as they are, and their count."""
+        return val_idx, tmpl_idx, templates, sigs, len(val_idx)
+
+    def verify_grouped_templated_async(self, set_key, val_pubs, val_idx,
+                                       tmpl_idx, templates, sigs,
+                                       real_n: int | None = None):
+        """Verifies at once; `collect()` returns the result."""
+        n = len(val_idx) if real_n is None else real_n
+        out = self.verify_grouped_templated(
+            set_key, val_pubs, np.asarray(val_idx)[:n],
+            np.asarray(tmpl_idx)[:n], templates, np.asarray(sigs)[:n])
+        return lambda: out
 
 
 class CudaBackend:
@@ -126,6 +150,12 @@ class CudaBackend:
         # digest of the seed set -> (a, prefix, pubkey) matrices
         self._sign_keys: dict[bytes, tuple] = {}
         self._lock = threading.Lock()
+        # one table build at a time, so two threads that miss the cache
+        # for the same set build it once
+        self._build_lock = threading.Lock()
+        # the asynchronous route's copies and K1 launches
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
@@ -173,12 +203,21 @@ class CudaBackend:
         only the real keys are built."""
         with self._lock:
             ent = self._tables.get(set_key)
-        if ent is not None:
-            if ent[2] != len(val_pubs):
-                raise ValueError(
-                    f"set_key reused for a different set size ({ent[2]} != "
-                    f"{len(val_pubs)})")
-            return ent
+        if ent is None:
+            with self._build_lock:
+                with self._lock:
+                    ent = self._tables.get(set_key)
+                if ent is None:
+                    return self._build(set_key, val_pubs)
+        if ent[2] != len(val_pubs):
+            raise ValueError(
+                f"set_key reused for a different set size ({ent[2]} != "
+                f"{len(val_pubs)})")
+        return ent
+
+    def _build(self, set_key: bytes, val_pubs: np.ndarray) -> tuple:
+        """Build a set's tables (K2) on the caller's current stream and
+        install them."""
         v = len(val_pubs)
         vb = _bucket(v)
         tbl, ok = ed.build_neg_comb(self._t(val_pubs))
@@ -218,9 +257,12 @@ class CudaBackend:
 
     # -- verification ----------------------------------------------------
     @staticmethod
-    def _check_idx(name: str, idx: np.ndarray, bound: int) -> np.ndarray:
+    def _check_idx(name: str, idx: np.ndarray,
+                   bound: int | None = None) -> np.ndarray:
+        """idx as int32, each in [0, bound) (bound None: >= 0)."""
         idx = np.asarray(idx, dtype=np.int32)
-        if len(idx) and (idx.min() < 0 or idx.max() >= bound):
+        if len(idx) and (idx.min() < 0 or
+                         (bound is not None and idx.max() >= bound)):
             raise ValueError(f"{name} out of range [0, {bound})")
         return idx
 
@@ -258,23 +300,99 @@ class CudaBackend:
         (kernel K1).  A bucket of at least MIN_LANES_PER_DEVICE lanes per
         mesh device splits its lanes over the mesh, with the templates
         replicated (`sharding.sharded_grouped_templated_verify_fn`)."""
+        return self.verify_grouped_templated_async(
+            set_key, val_pubs, val_idx, tmpl_idx, templates, sigs)()
+
+    def prefetch_grouped_lanes(self, val_idx, tmpl_idx, templates,
+                               sigs) -> tuple:
+        """Pad the lanes and templates to this backend's buckets and start
+        their host-to-device copies, for a pipeline's prepare stage that
+        keeps hashing while the copies run.  On the card the padded
+        arrays are staged in page-locked host buffers (fresh ones per
+        call: the caching host allocator reuses a buffer only after its
+        copy's event) and copied with non_blocking=True on the backend's
+        stream, which the later K1 launch shares.  Returns (val_idx,
+        tmpl_idx, templates, sigs, real_n): device tensors and the real
+        lane count, to pass back through
+        `verify_grouped_templated_async(real_n=...)`, which trims its
+        result to it.  Indices are checked as far as these arguments
+        allow (template indices against the templates, key indices >= 0);
+        a key index past the set verifies False (K1's rule)."""
         n = len(val_idx)
-        if n == 0:
-            return np.zeros(0, dtype=bool)
-        b = _bucket(n)
-        if not self._mesh_eligible(b):
-            out = ed.verify_grouped_templated(*self.templated_args(
-                set_key, val_pubs, val_idx, tmpl_idx, templates, sigs))
-            return out.cpu().numpy()[:n]
-        ent = self.tables(set_key, val_pubs)
-        val_idx = self._check_idx("val_idx", val_idx, len(val_pubs))
+        val_idx = self._check_idx("val_idx", val_idx)
         tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx, len(templates))
-        tbl, ok, vp = self._mesh_tables(set_key, ent)
-        out = self._sharded_templated(
-            tbl, ok, vp, _pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
-            sharding.replicate(self._mesh, self._templates(templates)),
-            _pad_rows(sigs, b), self._base_mesh)
-        return out.cpu().numpy()[:n]
+        b = _bucket(n)
+        tb = _bucket(len(templates))
+        host = (_pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
+                np.concatenate([templates, np.zeros(
+                    (tb - len(templates), templates.shape[1]), np.uint8)]),
+                _pad_rows(np.asarray(sigs, np.uint8), b))
+        if self._stream is None:
+            return (*(torch.from_numpy(np.ascontiguousarray(a))
+                      for a in host), n)
+        staged = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                  for a in host]
+        with torch.cuda.stream(self._stream):
+            dev = tuple(p.to(self.device, non_blocking=True) for p in staged)
+        return (*dev, n)
+
+    def verify_grouped_templated_async(self, set_key, val_pubs, val_idx,
+                                       tmpl_idx, templates, sigs,
+                                       real_n: int | None = None):
+        """Dispatching half of `verify_grouped_templated`: stage and copy
+        the lanes, launch K1 and start the copy of its mask back, all on
+        the backend's stream, without waiting; returns a zero-argument
+        `collect()` that waits on the copy's event and returns bool[n].
+        A pipeline dispatches window k+1 before collecting window k.
+        `real_n` marks inputs already padded and copied by
+        `prefetch_grouped_lanes`.  K1 waits for everything queued on the
+        caller's current stream before it (the set's comb tables are
+        built there by K2).  On the mesh route, and on the CPU, the
+        result is computed here and `collect` returns it."""
+        n = real_n if real_n is not None else len(val_idx)
+        if n == 0:
+            return lambda: np.zeros(0, dtype=bool)
+        ent = self.tables(set_key, val_pubs)
+        tbl, ok, _, vp = ent
+        b = _bucket(n)
+        if self._mesh_eligible(b):
+            val_idx, tmpl_idx, templates, sigs = (
+                _host(a) for a in (val_idx, tmpl_idx, templates, sigs))
+            val_idx = self._check_idx("val_idx", val_idx[:n], len(val_pubs))
+            tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx[:n],
+                                       len(templates))
+            mtbl, mok, mvp = self._mesh_tables(set_key, ent)
+            out = self._sharded_templated(
+                mtbl, mok, mvp, _pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
+                sharding.replicate(self._mesh, self._templates(templates)),
+                _pad_rows(sigs[:n], b), self._base_mesh)
+            res = out.cpu().numpy()[:n]
+            return lambda: res
+        if real_n is None:
+            self._check_idx("val_idx", val_idx, len(val_pubs))
+            val_idx, tmpl_idx, templates, sigs, _ = \
+                self.prefetch_grouped_lanes(val_idx, tmpl_idx, templates,
+                                            sigs)
+        args = (tbl, ok, vp, val_idx, tmpl_idx, templates, sigs, self._base)
+        if self._stream is None:
+            res = ed.verify_grouped_templated(*args).numpy()[:n]
+            return lambda: res
+        s = self._stream
+        s.wait_stream(torch.cuda.current_stream(self.device))
+        for t in (tbl, ok, vp, self._base):
+            t.record_stream(s)
+        with torch.cuda.stream(s):
+            mask = ed.verify_grouped_templated(*args)
+            out = torch.empty(mask.shape, dtype=torch.bool, pin_memory=True)
+            out.copy_(mask, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(s)
+
+        def collect() -> np.ndarray:
+            done.synchronize()
+            return out.numpy()[:n]
+
+        return collect
 
     def verify_grouped(self, set_key, val_pubs, val_idx, msgs,
                        sigs) -> np.ndarray:

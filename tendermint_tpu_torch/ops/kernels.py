@@ -10,7 +10,8 @@ current CUDA stream, and returns `cudaGetLastError()`.
 
 Nothing is built or loaded at import: the first launch on a CUDA tensor
 builds.  `LAUNCHES` counts launches per kernel — the one place a launch
-happens — so a run can show which kernels its main path went through.
+happens, under a lock since several threads launch — so a run can show
+which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ _lib: ctypes.CDLL | None = None
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -188,4 +190,5 @@ def launch(kernel: str, *args) -> None:
         rc = fn(*cargs, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed, error {rc}")
-    LAUNCHES[kernel] += 1
+    with _lock:
+        LAUNCHES[kernel] += 1

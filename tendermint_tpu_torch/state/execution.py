@@ -1,10 +1,11 @@
 """Block validation and execution against the ABCI app.
 
-Copy of the fast-sync half of `tendermint_tpu/state/execution.py`
-(reference `state/execution.go`): `validate_block` (`:173-202`),
-`exec_block_on_app` (`:43-115`), the window form of `ApplyBlock`
-(`:210-245`) and `CommitStateUpdateMempool` (`:248-271`).  Event
-firing, tx indexing and fail points wait for a later slice.
+Copy of `tendermint_tpu/state/execution.py` (reference
+`state/execution.go`): `validate_block` (`:173-202`), `exec_block_on_app`
+(`:43-115`), `ApplyBlock` (`:210-245`) and its window form,
+`CommitStateUpdateMempool` (`:248-271`) and `ExecCommitBlock`
+(`:291-308`).  Event firing, tx indexing and fail points wait for a
+later slice.
 """
 
 from __future__ import annotations
@@ -73,22 +74,48 @@ def exec_block_on_app(proxy_consensus, block) -> ABCIResponses:
                          end_block_diffs=diffs)
 
 
+def apply_block(state: State, proxy_consensus, block, part_set_header,
+                mempool, backend=None) -> State:
+    """Validate, execute and commit one block, then persist the state
+    (reference `state/execution.go:210-245`); mutates `state` in place and
+    returns it.  With a `backend` the block's LastCommit signatures are
+    verified through it; with None they are not (commits verified
+    beforehand, as fast-sync does)."""
+    validate_block(state, block, backend)
+    resp = exec_block_on_app(proxy_consensus, block)
+    state.save_abci_responses(resp)
+    block_id = BlockID(hash=block.hash(), parts=part_set_header)
+    state.set_block_and_validators(block.header, block_id,
+                                   resp.end_block_diffs)
+    commit_state_update_mempool(state, proxy_consensus, block, mempool)
+    state.save()
+    return state
+
+
 def apply_window(state: State, proxy_consensus, items, mempool,
-                 save_every: int = 1, stop_when=None) -> int:
+                 save_every: int = 1, before_block=None,
+                 stop_when=None) -> int:
     """Apply a verified fast-sync WINDOW of blocks (`items` =
     [(block, part_set_header)]) — `ApplyBlock` unrolled across the window
     so the per-block overheads amortize: the consensus conn's lock is held
     ONCE for the window (`AppConn.batched`), and with `save_every=0` state
     persistence collapses to one `save()` at the window end (ephemeral
-    replays only).  Commits were verified by the caller, so validation
-    skips the LastCommit signatures.  `stop_when()` (checked after each
-    block) ends the window early.  Returns the number of blocks applied.
+    replays only: a crash mid-window leaves the store more than one block
+    ahead of the state, which the handshake cannot recover).  Commits were
+    verified by the caller, so validation skips the LastCommit signatures.
+    Hooks: `before_block(block, psh)` runs before validation (the
+    pipeline saves the block to the block store there, store before
+    state); `stop_when()`, checked after each block's commit, ends the
+    window early.
+    Returns the number of blocks applied.
     """
     batched = getattr(proxy_consensus, "batched", None)
     ctx = nullcontext(proxy_consensus) if batched is None else batched()
     applied = 0
     with ctx as app:
         for block, psh in items:
+            if before_block is not None:
+                before_block(block, psh)
             validate_block(state, block)
             resp = exec_block_on_app(app, block)
             state.save_abci_responses(resp)
@@ -119,3 +146,14 @@ def commit_state_update_mempool(state: State, proxy_consensus, block,
         mempool.update(block.height, block.txs)
     finally:
         mempool.unlock()
+
+
+def exec_commit_block(proxy_consensus, block) -> bytes:
+    """Execute and commit a block without touching the state — the
+    handshake's replay of blocks the app is missing (reference
+    `state/execution.go:291-308`).  Returns the app hash."""
+    exec_block_on_app(proxy_consensus, block)
+    res = proxy_consensus.commit()
+    if not res.is_ok:
+        raise RuntimeError(f"app Commit failed: {res.log}")
+    return res.data

@@ -241,6 +241,30 @@ class CompactCommit:
                 signature=self.sigs[i].tobytes()))
         return Commit(block_id=self.block_id, precommits=votes)
 
+    def encode_commit(self, val_set) -> bytes:
+        """`to_commit(val_set).encode()` without the Vote objects: the
+        wire bytes a block store keeps, assembled as one uint8 row per
+        present vote (flag, address, index, the votes' shared height /
+        round / type / block ID, signature)."""
+        import numpy as np
+        from tendermint_tpu_torch.types.canonical import TYPE_PRECOMMIT
+        idx = np.flatnonzero(self.present)
+        shared = (u64(self.height_) + u32(self.round_) + u8(TYPE_PRECOMMIT)
+                  + self.block_id.encode() + u32(64))
+        rows = np.empty((len(idx), 29 + len(shared) + 64), np.uint8)
+        rows[:, 0] = 1
+        rows[:, 1:5] = np.frombuffer(u32(20), np.uint8)
+        rows[:, 5:25] = val_set.address_matrix()[idx]
+        rows[:, 25:29] = idx.astype(">u4").view(np.uint8).reshape(-1, 4)
+        rows[:, 29:29 + len(shared)] = np.frombuffer(shared, np.uint8)
+        rows[:, 29 + len(shared):] = self.sigs[idx]
+        head = self.block_id.encode() + u32(self.size())
+        if len(idx) == self.size():
+            return head + rows.tobytes()
+        it = iter(rows)
+        return head + b"".join(next(it).tobytes() if p else u8(0)
+                               for p in self.present)
+
     @classmethod
     def from_commit(cls, commit: Commit) -> "CompactCommit | None":
         """Compact a same-block commit; None if any vote targets a

@@ -172,7 +172,8 @@ class ValidatorSet:
         # membership-derived caches survive a copy (invalidated only by
         # apply_updates); the hash also survives accum rotation because
         # hash_bytes excludes accum
-        for attr in ("_set_key", "_pubs_mat", "_hash", "_powers", "_enc"):
+        for attr in ("_set_key", "_pubs_mat", "_addr_mat", "_hash",
+                     "_powers", "_enc"):
             if attr in self.__dict__:
                 new.__dict__[attr] = self.__dict__[attr]
         return new
@@ -249,6 +250,16 @@ class ValidatorSet:
             self._pubs_mat = m
         return m
 
+    def address_matrix(self) -> np.ndarray:
+        """uint8[V, 20] of member addresses in validator order (a block
+        store writes them into every stored commit's votes)."""
+        m = self.__dict__.get("_addr_mat")
+        if m is None:
+            m = self.__dict__["_addr_mat"] = np.frombuffer(
+                b"".join(v.address for v in self.validators),
+                np.uint8).reshape(len(self.validators), 20)
+        return m
+
     def encode(self) -> bytes:
         """Vectorized assembly: the state layer persists BOTH valsets on
         every committed block, so a per-validator Python loop (~200 calls
@@ -322,6 +333,7 @@ class ValidatorSet:
         self._by_addr = {v.address: i for i, v in enumerate(self.validators)}
         self._set_key = None     # membership/power changed: invalidate
         self._pubs_mat = None    # the grouped-verify identity + key matrix
+        self.__dict__.pop("_addr_mat", None)
         self.__dict__.pop("_hash", None)
         self.__dict__.pop("_enc", None)
         self.__dict__.pop("_powers", None)

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of `tendermint_tpu_torch` and not
-`chip_smoke.py` imports JAX or the JAX package, and its entry points run
-on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of `tendermint_tpu_torch` and none
+of its scripts (`chip_smoke.py`, `bench_kernels.py`) imports JAX or the JAX package, and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "tendermint_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "bench_kernels.py"]
 FORBIDDEN = ("jax", "tendermint_tpu")
 
 
@@ -43,7 +43,11 @@ def test_no_jax_imports(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"backend.py", "ed25519.py", "replay.py", "kernels.py",
-            "chip_smoke.py"} <= names
+            "store.py", "client.py", "db.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"tendermint_tpu_torch/blockchain/store.py",
+            "tendermint_tpu_torch/consensus/replay.py",
+            "tendermint_tpu_torch/light/client.py"} <= rel
 
 
 def test_cuda_backend_needs_a_card():
