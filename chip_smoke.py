@@ -52,8 +52,9 @@ Phases, in order; any mismatch or exception exits non-zero:
       per-lane keys and messages per shard);
    d. BASELINE config 3 at its full 100,000 blocks x 100 validators
       (fixture signed by K3): `replay_pipelined` with a `BlockStore` on
-      `MemDB`, `replay_pipelined` without a store and the serial
-      `replay`, each on a fresh state and under `torch.profiler`'s CUDA
+      `MemDB`, then two pairs of `replay_pipelined` without a store and
+      the serial `replay` (the second pair on the first 50,000 blocks),
+      each on a fresh state and under `torch.profiler`'s CUDA
       activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
       K1 launches, device-idle share);
    e. BASELINE config 4 at its full 8 chains x 131,072 header+commit
@@ -62,6 +63,20 @@ Phases, in order; any mismatch or exception exits non-zero:
       the tables), one K1 call of 1,048,576 lanes per chain, then a
       `LightClient` following a short chain through a change of
       validator set;
+   f. the consensus core: 100 in-process validators of equal power
+      (kvstore, `MemDB` stores, the JAX package's 100-validator live-rig
+      timeouts) wired broadcast-to-feed, sharing one `BatchPlane` over a
+      `CudaBackend` that records every K1 call: each vote burst
+      pre-verified on K1 with per-lane keys at the plane's consensus
+      class, each block's LastCommit on templated K1 at its fast-sync
+      class, the set's comb tables (K2) and two grouped calls made before
+      `start()` (the node's boot); every mempool fed the same 300 kvstore
+      txs of 64 bytes; run until every node has committed 5 heights, a
+      forged vote (one flipped signature bit) put into every queue during
+      a burst; then BASELINE config 1's 4-validator testnet with WALs and
+      `SQLiteDB` stores runs 3 heights, stops, restarts through the
+      `Handshaker` and its WALs (each seen commit re-verified on K1) and
+      commits 2 more, and `Playback` replays node 0's WAL;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -82,12 +97,26 @@ Phases, in order; any mismatch or exception exits non-zero:
    reopen, handshake a fresh app and resume to the host's app hash;
    blame a tampered lane of the light grid on its height and lane, and
    hold the light follower's verdicts (a tampered header too) to the
-   golden verifier's;
+   golden verifier's; hold every node of the consensus net to one block
+   hash per height and to a host kvstore run's app hash, require a
+   consensus-class flush, hold every K1 call of the consensus phase to
+   the plain version on every lane, require the forged vote on K1 on at
+   least one lane, False on each, and counted by no node; the restarted
+   testnet's seen commits verified on K1, its pre-stop prefix unchanged
+   and its app hashes the host's, and `Playback`'s blocks and app hash
+   node 0's; log heights per second, commit latency, rounds, the share
+   of received votes pre-verified on K1, scalar verifies, K1 launches
+   and lanes, the flush sizes, the thread CPU of scalar verifies,
+   signing and vote accounting, the process CPU and wall over the net's
+   run, and the device time of the net's K1 calls (each re-run alone on
+   CUDA events);
 5. one `kernels` JSON line: per kernel its launches on the main paths
    at the shape its entry is timed at, its time and its plain version's
    at the main path's shapes, the two results held exactly equal there
    (K1 also at the light grid's 1,048,576 lanes, its plain version in
-   65,536-lane slices), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
+   65,536-lane slices, and at the consensus net's median vote burst and
+   median LastCommit, rows 1C and 6C, each with the net's launches at
+   that call's shape), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64; K4 at the part sets, with its chain bound
    `chain_bound_ms` beside the operations bound, and beside it at the
    trees' leaves, each shape's route logged); per mesh, the whole call of
@@ -1725,6 +1754,7 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 # -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
 
 FS_BLOCKS = 100_000                     # BASELINE config 3: 160 windows
+FS_PAIR2_BLOCKS = 50_000                # the second pair's depth: 80 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
 FS_TIMED_CALLS = 10                     # whole-call timings, each route
@@ -1753,16 +1783,18 @@ def device_busy(fn) -> tuple:
     return out, wall, sum(names.values()) / 1e3, names
 
 
-def _fs_run(label: str, chain, be, pipelined: bool, store=None) -> dict:
-    """One replay of the chain on a fresh state, under the profiler: the
-    pipeline (with `store`, or none) or the serial loop."""
+def _fs_run(label: str, chain, be, pipelined: bool, n: int,
+            store=None) -> dict:
+    """One replay of the chain's first `n` blocks on a fresh state, under
+    the profiler: the pipeline (with `store`, or none) or the serial
+    loop."""
     from tendermint_tpu_torch.blockchain import replay as rp
     from tendermint_tpu_torch.proxy import ClientCreator
     from tendermint_tpu_torch.state.state import get_state
     from tendermint_tpu_torch.utils.db import MemDB
     state = get_state(MemDB(), chain.genesis)
     conns = ClientCreator("kvstore").new_app_conns()
-    args = (state, conns.consensus, chain.blocks, chain.commits, be)
+    args = (state, conns.consensus, chain.blocks[:n], chain.commits[:n], be)
     if pipelined:
         run = lambda: rp.replay_pipelined(  # noqa: E731
             *args, window=WINDOW, store=store)
@@ -1788,16 +1820,18 @@ def _fs_run(label: str, chain, be, pipelined: bool, store=None) -> dict:
                 f"{res.wall_s:.3f}); windows redone {res.redone}")
     log(msg)
     return {"label": label, "res": res, "state": state, "wall": wall,
-            "busy": busy, "names": names, "k1": k1.get("K1", 0)}
+            "busy": busy, "names": names, "k1": k1.get("K1", 0), "n": n}
 
 
 def phase_fastsync() -> dict:
     """BASELINE config 3 at its full 100,000 blocks x 100 validators: sign
     the chain (K3), then replay it on fresh states: the pipeline with a
     `BlockStore` on `MemDB` (each block stored before it is applied, the
-    state saved after every block), then twice each, in turn, the
+    state saved after every block), then two pairs, in turn, of the
     pipeline without a store (the state saved once per window, as the
-    benchmark does) and the serial loop; K2 builds the set's tables
+    benchmark does) and the serial loop: pipelined and serial on every
+    block, then serial and pipelined on the first `FS_PAIR2_BLOCKS`, so
+    the host's drift between runs shows; K2 builds the set's tables
     once, K1 runs once per window (dispatched ahead of the window's apply
     in the pipeline)."""
     import gc
@@ -1817,11 +1851,13 @@ def phase_fastsync() -> dict:
     store = BlockStore(MemDB())
     d = rp.PIPELINE_DEPTH
     runs = [_fs_run(f"pipelined ({d} windows ahead), BlockStore on MemDB",
-                    chain, be, True, store)]
-    # two pairs in turn, so the host's drift between runs shows
-    for piped in (True, False, False, True):
+                    chain, be, True, FS_BLOCKS, store)]
+    # two pairs in turn, so the host's drift between runs shows; the
+    # second on a prefix, to keep the smoke in its time
+    for piped, n in ((True, FS_BLOCKS), (False, FS_BLOCKS),
+                     (False, FS_PAIR2_BLOCKS), (True, FS_PAIR2_BLOCKS)):
         runs.append(_fs_run(f"pipelined ({d} windows ahead), no store"
-                            if piped else "serial", chain, be, piped))
+                            if piped else "serial", chain, be, piped, n))
     sizes = [len(b.encode()) for b in chain.blocks]
     full = sum(n // PART_SIZE for n in sizes)
     log(f"[fastsync] blocks of {min(sizes)}-{max(sizes)} B: {full} full "
@@ -1869,15 +1905,15 @@ def check_fastsync(fs: dict) -> None:
         host.append(app.commit().data)
     tallies = None
     for run in fs["runs"]:
-        res = run["res"]
-        require((res.height, res.app_hash) == (FS_BLOCKS, host[-1]),
+        res, n = run["res"], run["n"]
+        require((res.height, res.app_hash) == (n, host[n]),
                 f"{run['label']}: height {res.height} / app hash != host "
                 f"kvstore run")
         t = [x for w in res.windows for x in w.tallied]
-        require(len(t) == FS_BLOCKS and (tallies is None or t == tallies),
+        require(len(t) == n and (tallies is None or t == tallies[:n]),
                 f"{run['label']}: per-block tallies differ")
-        tallies = t
-        require(run["k1"] == FS_BLOCKS // WINDOW,
+        tallies = tallies or t
+        require(run["k1"] == n // WINDOW,
                 f"{run['label']}: {run['k1']} K1 launches")
     require(store.height == FS_BLOCKS, f"store height {store.height}")
     rng = np.random.default_rng(SEED)
@@ -1891,7 +1927,8 @@ def check_fastsync(fs: dict) -> None:
                 and store.load_seen_commit(h).encode()
                 == c.encode_commit(vals), f"stored commits of {h}")
     log(f"[fastsync] app hash {host[-1].hex()} == host kvstore run in all "
-        f"{len(fs['runs'])} runs; per-block tallies equal; store at height "
+        f"{len(fs['runs'])} runs (at block {FS_PAIR2_BLOCKS} in the second "
+        f"pair); per-block tallies equal; store at height "
         f"{store.height}, {FS_SAMPLE} sampled blocks and seen commits == "
         f"the fixture's")
 
@@ -2235,6 +2272,713 @@ def check_light(lt: dict) -> None:
     log(f"[light] follower through the set change at {LC_CHANGE + 1} "
         f"(two-set rule): card verdicts == golden {got[0]}; tampered "
         f"{got[1]}")
+
+
+# -- the main path: the consensus core (a 100-validator net) -------------
+
+CONS_VALS, CONS_HEIGHTS, CONS_TXS, CONS_TX_BYTES = 100, 5, 300, 64
+CONS_DEADLINE_S = 240.0                 # the net must commit by then
+CONS_FORGE_HEIGHT = 3                   # the forged vote's height
+RESTART_VALS, RESTART_HEIGHTS, RESTART_MORE = 4, 3, 2   # config 1's testnet
+RESTART_DEADLINE_S = 120.0
+# the JAX package's 100-validator live rig timeouts
+# (tendermint_tpu/scenarios/live.py:51-55), on top of test_config()
+LIVE_TIMEOUTS_100 = {
+    "timeout_propose": 8.0, "timeout_propose_delta": 2.0,
+    "timeout_prevote": 4.0, "timeout_prevote_delta": 1.0,
+    "timeout_precommit": 4.0, "timeout_precommit_delta": 1.0,
+}
+
+
+def _recording_backend(device="cuda"):
+    """A `CudaBackend` that keeps each K1 call's inputs and mask (per-lane
+    keys: `verify_grouped`; templated: `verify_grouped_templated`), so the
+    phase can hold every call to the plain version afterwards."""
+    import threading
+    import numpy as np
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+
+    class RecordingBackend(CudaBackend):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.calls = []
+            self._rec = threading.Lock()
+
+        def _record(self, kind, set_key, val_pubs, lanes, out):
+            if len(out):                  # an empty call launches nothing
+                with self._rec:
+                    self.calls.append((kind, set_key, val_pubs, tuple(
+                        np.array(a) for a in lanes), out.copy()))
+            return out
+
+        def verify_grouped(self, set_key, val_pubs, val_idx, msgs, sigs):
+            return self._record("grouped", set_key, val_pubs,
+                                (val_idx, msgs, sigs),
+                                super().verify_grouped(
+                                    set_key, val_pubs, val_idx, msgs, sigs))
+
+        def verify_grouped_templated(self, set_key, val_pubs, val_idx,
+                                     tmpl_idx, templates, sigs):
+            return self._record(
+                "templated", set_key, val_pubs,
+                (val_idx, tmpl_idx, templates, sigs),
+                super().verify_grouped_templated(
+                    set_key, val_pubs, val_idx, tmpl_idx, templates, sigs))
+
+    return RecordingBackend(device)
+
+
+class _HostTimes:
+    """Thread CPU seconds, wall seconds and calls per kind of host work,
+    summed over every thread.  `timed(kind, fn)` wraps `fn`; a span
+    nested in another counts in both."""
+
+    def __init__(self, *kinds):
+        import threading
+        self.t = {k: [0.0, 0.0, 0] for k in kinds}
+        self._lock = threading.Lock()
+
+    def timed(self, kind: str, fn):
+        def run(*a, **kw):
+            c0, w0 = time.thread_time(), time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                c, w = time.thread_time() - c0, time.perf_counter() - w0
+                with self._lock:
+                    t = self.t[kind]
+                    t[0] += c
+                    t[1] += w
+                    t[2] += 1
+        return run
+
+    def line(self) -> str:
+        return "; ".join(
+            f"{k} {n} calls, CPU {c:.3f} s ({c / max(n, 1) * 1e3:.3f} ms "
+            f"each), wall {w:.3f} s" for k, (c, w, n) in self.t.items())
+
+
+def _cons_config():
+    from tendermint_tpu_torch.config import test_config
+    cfg = test_config().consensus
+    for k, v in LIVE_TIMEOUTS_100.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _cons_keys(n: int, seed: int) -> list:
+    from tendermint_tpu_torch.types import PrivKey, PrivValidator
+    return [PrivValidator(PrivKey(hashlib.sha256(
+        b"%d/%d" % (seed, i)).digest())) for i in range(n)]
+
+
+def _genesis(chain_id: str, privs):
+    from tendermint_tpu_torch.types import GenesisDoc, GenesisValidator
+    return GenesisDoc(chain_id=chain_id, validators=[
+        GenesisValidator(p.pub_key.bytes_, 10) for p in privs],
+        genesis_time_ns=1_000_000_000)
+
+
+def _wire(nodes: list, deliver=None) -> None:
+    """Each node's broadcasts straight into every other node's feed
+    methods, the same objects to every queue (no copy); `deliver(me, msg,
+    others)`, when given, delivers instead for the messages it claims."""
+    from tendermint_tpu_torch.consensus import messages as M
+
+    def make_cb(me):
+        others = [o for o in nodes if o is not me]
+
+        def cb(msg):
+            if deliver is not None and deliver(me, msg, others):
+                return
+            if isinstance(msg, M.VoteMessage):
+                for o in others:
+                    o.add_vote(msg.vote, peer_id="net")
+            elif isinstance(msg, M.ProposalMessage):
+                for o in others:
+                    o.set_proposal(msg.proposal, peer_id="net")
+            elif isinstance(msg, M.BlockPartMessage):
+                for o in others:
+                    o.add_proposal_block_part(msg.height, msg.round,
+                                              msg.part, peer_id="net")
+        return cb
+
+    for cs in nodes:
+        cs.broadcast_cb = make_cb(cs)
+
+
+def _gossip(nodes: list) -> None:
+    """Hand every node what each other node holds of its current height:
+    the proposal, its block parts and the votes of every round.  It
+    stands in for the consensus reactor's catchup gossip (not ported),
+    which recovers the messages a node processed before a stop and its
+    peers never did."""
+    for src in nodes:
+        rs = src.get_round_state()
+        others = [o for o in nodes if o is not src]
+        for o in others:
+            if rs.proposal is not None:
+                o.set_proposal(rs.proposal, peer_id="gossip")
+            parts = rs.proposal_block_parts
+            for i in range(parts.total if parts is not None else 0):
+                if parts.has_part(i):
+                    o.add_proposal_block_part(rs.height, rs.round,
+                                              parts.get_part(i),
+                                              peer_id="gossip")
+        for r in range(rs.round + 1):
+            for vs in (rs.votes.prevotes(r), rs.votes.precommits(r)):
+                for v in (vs.get_by_index(i) for i in range(vs.size())):
+                    if v is not None:
+                        for o in others:
+                            o.add_vote(v, peer_id="gossip")
+
+
+def _stop_all(nodes: list) -> list:
+    """Stop every node at once, each `stop()` on a thread of its own (a
+    node's stop waits for its receive routine to reach the end of its
+    current batch); returns the plane faults the stops raised."""
+    import threading
+    faults = []
+
+    def stop(cs):
+        try:
+            cs.stop()
+        except Exception as e:            # every node stops; then fail
+            faults.append(e)
+
+    threads = [threading.Thread(target=stop, args=(cs,)) for cs in nodes]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return faults
+
+
+def _wait_heights(nodes: list, height: int, deadline_s: float,
+                  what: str) -> float:
+    """Seconds until every node's store holds `height`; fails past the
+    deadline or on a node's plane fault."""
+    t0 = time.perf_counter()
+    while min(cs.block_store.height for cs in nodes) < height:
+        for cs in nodes:
+            if cs.fault is not None:
+                raise AssertionError(f"{what}: plane fault {cs.fault!r}")
+        require(time.perf_counter() - t0 < deadline_s,
+                f"{what}: (height, round, step) "
+                f"{sorted((cs.height, cs.round, cs.step) for cs in nodes)} "
+                f"after {deadline_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _kv_txs(n: int) -> list:
+    return [(b"cons%05d=" % i).ljust(CONS_TX_BYTES, b"v") for i in range(n)]
+
+
+def _host_app_hashes(blocks) -> list:
+    """A host kvstore run over the blocks' txs: the app hash after each."""
+    from tendermint_tpu_torch.abci.app import create_app
+    app, out = create_app("kvstore"), []
+    for b in blocks:
+        for tx in b.txs:
+            app.deliver_tx(tx)
+        out.append(app.commit().data)
+    return out
+
+
+def _node(cfg, gen, plane, priv, db=None, wal_path: str = ""):
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.config import MempoolConfig
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+    from tendermint_tpu_torch.mempool.mempool import Mempool
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+    conns = ClientCreator("kvstore").new_app_conns()
+    state_db = db if db is not None else MemDB()
+    store = BlockStore(db if db is not None else MemDB())
+    state = get_state(state_db, gen)
+    Handshaker(state, store).handshake(conns)
+    return ConsensusState(cfg, state, conns.consensus, store,
+                          Mempool(conns.mempool, MempoolConfig(),
+                                  plane=plane), plane, priv_validator=priv,
+                          wal_path=wal_path)
+
+
+def phase_consensus(be=None) -> dict:
+    """The consensus core on the card: 100 in-process validators of equal
+    power (kvstore, `MemDB` stores) wired broadcast-to-feed, one
+    `BatchPlane` over a recording `CudaBackend` shared by all, each vote
+    burst pre-verified on K1 at the plane's consensus class and each
+    block's LastCommit verified on templated K1 at its fast-sync class,
+    until every node has committed 5 heights; a forged vote (one flipped
+    signature bit) goes into every queue during a burst.  Then the restart
+    of BASELINE config 1's 4-validator testnet from WALs and `SQLiteDB`
+    stores, and `Playback` over one node's WAL."""
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.consensus import messages as M
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.types import TYPE_PREVOTE, Vote, ZERO_BLOCK_ID
+    from tendermint_tpu_torch.types import events as ev
+    from tendermint_tpu_torch.types import keys
+    from tendermint_tpu_torch.types.vote import batch_verify_vote_sigs
+    be = be or _recording_backend()
+    t0 = time.perf_counter()
+    privs = _cons_keys(CONS_VALS, SEED)
+    gen = _genesis("consensus-smoke", privs)
+    vals = gen.validator_set()
+    # the node's boot: the set's comb tables (K2), then two grouped calls
+    # standing in for the JAX node's pre-warm, which the micro-batch
+    # threshold's two-sample rule needs
+    be.tables(vals.set_key(), vals.pubs_matrix())
+    warm = [Vote(p.address, vals.index_of(p.address), 1, 99, TYPE_PREVOTE,
+                 ZERO_BLOCK_ID) for p in privs[:16]]
+    warm = [Vote(**{**v.__dict__, "signature": p.priv_key.sign(
+        v.sign_bytes(gen.chain_id))}) for v, p in zip(warm, privs)]
+
+    class _Direct:                     # the backend itself, not the plane
+        def verify_grouped(self, *a, producer, klass):
+            return be.verify_grouped(*a)
+
+    for _ in range(2):
+        require(bool(batch_verify_vote_sigs(gen.chain_id, vals, warm,
+                                            _Direct()).all()),
+                "pre-warm: a valid vote failed")
+    flushes = []
+    plane = BatchPlane(be, on_flush=lambda kind, reason, lanes, prods:
+                       flushes.append((kind, reason, lanes,
+                                       tuple(sorted(prods)))))
+    cfg = _cons_config()
+    nodes = [_node(cfg, gen, plane, p) for p in privs]
+    setup_s = time.perf_counter() - t0
+    log(f"[consensus] micro-batch threshold after the pre-warm: "
+        f"{nodes[0]._microbatch_threshold()} votes ({be.step_count} "
+        f"synchronous grouped calls)")
+
+    # a nil prevote of validator 0 at the forge height, signed, then one
+    # signature bit flipped
+    p0 = privs[0]
+    forged = Vote(p0.address, vals.index_of(p0.address), CONS_FORGE_HEIGHT,
+                  0, TYPE_PREVOTE, ZERO_BLOCK_ID)
+    sig = bytearray(p0.priv_key.sign(forged.sign_bytes(gen.chain_id)))
+    sig[17] ^= 0x08
+    forged = Vote(**{**forged.__dict__, "signature": bytes(sig)})
+    injected = []
+
+    def deliver(me, msg, others):
+        """The forged vote rides right behind node 0's real prevote at the
+        forge height, into every node's queue (node 0's own too)."""
+        v = getattr(msg, "vote", None)
+        if (me is not nodes[0] or not isinstance(msg, M.VoteMessage) or
+                (v.height, v.round, v.type) !=
+                (CONS_FORGE_HEIGHT, 0, TYPE_PREVOTE) or injected):
+            return False
+        injected.append(time.perf_counter())
+        for o in others:
+            o.add_vote(v, peer_id="net")
+            o.add_vote(forged, peer_id="forger")
+        me.add_vote(forged, peer_id="forger")
+        return True
+
+    _wire(nodes, deliver)
+    # the host's work over the net's run: scalar verifies (the memo's
+    # misses reach `pure_ed25519.verify`), signing (votes and proposals)
+    # and vote accounting (`_try_add_vote`, its scalar verifies included)
+    host = _HostTimes("verify", "sign", "accounting")
+    counted_forged, evidence, commits = [], [], {}
+    received = [[0, 0] for _ in nodes]
+    for i, cs in enumerate(nodes):
+        cs.evsw.subscribe("smoke", ev.VOTE, lambda v, i=i: (
+            counted_forged.append(i) if v.signature == forged.signature
+            else None))
+        cs.evsw.subscribe("smoke", "EvidenceDoubleSign", evidence.append)
+        cs.evsw.subscribe("smoke", ev.NEW_BLOCK, lambda b, i=i: (
+            commits.setdefault(b.height, []).append(
+                (i, time.perf_counter()))))
+
+        def counted(vote, peer_id, preverified=False,
+                    _f=host.timed("accounting", cs._try_add_vote),
+                    _c=received[i]):
+            _c[preverified] += 1
+            return _f(vote, peer_id, preverified=preverified)
+
+        cs._try_add_vote = counted
+    txs = _kv_txs(CONS_TXS)
+    for cs in nodes:
+        for tx in txs:
+            cs.mempool.check_tx(tx)
+    memo0 = keys._verify_memo.cache_info().misses
+    scalar_fns = (ref.verify, ref.sign)
+    ref.verify = host.timed("verify", ref.verify)
+    ref.sign = host.timed("sign", ref.sign)
+    cpu0, t_start = time.process_time(), time.perf_counter()
+    for cs in nodes:
+        cs.start()
+    try:
+        wall = _wait_heights(nodes, CONS_HEIGHTS, CONS_DEADLINE_S,
+                             "100-validator net")
+    finally:
+        t_stop = time.perf_counter()
+        faults = _stop_all(nodes)
+        stop_s = time.perf_counter() - t_stop
+        plane.drain()
+        plane.stop()
+        run_s = time.perf_counter() - t_start
+        cpu_s = time.process_time() - cpu0
+        ref.verify, ref.sign = scalar_fns
+    require(not faults, f"plane faults on stop: {faults[:3]}")
+    scalar = keys._verify_memo.cache_info().misses - memo0
+    log(f"[consensus] {CONS_VALS} validators committed {CONS_HEIGHTS} "
+        f"heights in {wall:.3f} s ({CONS_HEIGHTS / wall:.3f} heights/s); "
+        f"setup (keys, K2, pre-warm, {CONS_VALS} nodes) {setup_s:.2f} s")
+    log(f"[consensus] host over the net's run (start to stop, "
+        f"{run_s:.3f} s wall, of which the stop {stop_s:.3f} s; process "
+        f"CPU {cpu_s:.3f} s): {host.line()}")
+    net_calls = len(be.calls)
+    restart = phase_restart(be)
+    return {"backend": be, "nodes": nodes, "txs": txs, "wall": wall,
+            "t_start": t_start, "commits": commits, "received": received,
+            "scalar": scalar, "flushes": flushes, "net_calls": net_calls,
+            "forged": forged, "injected": injected,
+            "counted_forged": counted_forged, "evidence": evidence,
+            "host": host.t, "run_s": run_s, "cpu_s": cpu_s,
+            "restart": restart}
+
+
+def phase_restart(be) -> dict:
+    """BASELINE config 1's 4-validator testnet with WALs on disk and one
+    `SQLiteDB` per node runs 3 heights; all stop, reopen their store and
+    state, handshake a fresh kvstore app and restart from their WALs
+    (each node's seen commit re-verified on K1 by `add_votes_batched`),
+    then commit 2 more heights; `Playback` replays node 0's WAL."""
+    import tempfile
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.consensus.replay import Playback
+    from tendermint_tpu_torch.utils.db import SQLiteDB
+    from tendermint_tpu_torch.types import PrivValidator
+    cfg = _cons_config()
+    privs = _cons_keys(RESTART_VALS, SEED + 1)
+    gen = _genesis("restart-smoke", privs)
+    plane = BatchPlane(be)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        def open_net():
+            nodes, dbs = [], []
+            for i in range(RESTART_VALS):
+                pv_path = f"{d}/pv{i}.json"
+                pv = PrivValidator.load(pv_path) if out else \
+                    PrivValidator(privs[i].priv_key, pv_path)
+                db = SQLiteDB(f"{d}/node{i}.db")
+                dbs.append(db)
+                nodes.append(_node(cfg, gen, plane, pv, db=db,
+                                   wal_path=f"{d}/cs{i}.wal"))
+            _wire(nodes)
+            return nodes, dbs
+
+        def run(nodes, dbs, height, what):
+            for cs in nodes:
+                cs.start()
+            _gossip(nodes)
+            try:
+                _wait_heights(nodes, height, RESTART_DEADLINE_S, what)
+            finally:
+                faults = _stop_all(nodes)
+                for db in dbs:
+                    db.close()
+            require(not faults, f"{what}: plane faults on stop: "
+                    f"{faults[:3]}")
+
+        nodes, dbs = open_net()
+        for cs in nodes:
+            cs.mempool.check_tx(b"restart=before")
+        run(nodes, dbs, RESTART_HEIGHTS, "restart net, first run")
+        before = [[cs.block_store.load_block(h).hash()
+                   for h in range(1, RESTART_HEIGHTS + 1)] for cs in nodes]
+        out["stopped_at"] = [cs.block_store.height for cs in nodes]
+        k1 = kernels_k1()
+        nodes, dbs = open_net()            # K1: each seen commit
+        out["restart_k1"] = kernels_k1() - k1
+        for cs in nodes:
+            cs.mempool.check_tx(b"restart=after")
+        top = max(out["stopped_at"]) + RESTART_MORE
+        run(nodes, dbs, top, "restart net, after the restart")
+        out["hashes"] = [[cs.block_store.load_block(h).hash()
+                          for h in range(1, top + 1)] for cs in nodes]
+        out["before"] = before
+        out["blocks"] = [nodes[0].block_store.load_block(h)
+                         for h in range(1, top + 1)]
+        out["app_hashes"] = [cs.state.app_hash for cs in nodes]
+        out["heights"] = [cs.state.last_block_height for cs in nodes]
+        out["blocks_by_node"] = {
+            i: [cs.block_store.load_block(h)
+                for h in range(1, cs.state.last_block_height + 1)]
+            for i, cs in enumerate(nodes)}
+        last = nodes[0].block_store.height
+        pb = Playback(gen, f"{d}/cs0.wal", plane, cfg=cfg)
+        pb.run_until(last)
+        out["playback"] = [pb.cs.block_store.load_block(h).hash()
+                           for h in range(1, pb.cs.block_store.height + 1)]
+        out["playback_app_hash"] = pb.cs.state.app_hash
+        out["node0"] = [b.hash() for b in out["blocks_by_node"][0]]
+        out["node0_app_hash"] = nodes[0].state.app_hash
+    plane.stop()
+    return out
+
+
+def kernels_k1() -> int:
+    from tendermint_tpu_torch.ops import kernels
+    return kernels.LAUNCHES["verify_grouped"]
+
+
+def _plain_k1(be, calls: list) -> tuple:
+    """Every recorded K1 call held to the plain version on the card: the
+    calls' lanes concatenated per kind and key set (templated calls with
+    their template indices rebased), run in 65,536-lane slices.  Returns
+    (lanes checked, mismatching lanes, plain seconds)."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    t0 = time.perf_counter()
+    checked = bad = 0
+    groups = {}
+    for c in calls:
+        groups.setdefault((c[0], c[1]), []).append(c)
+    base = ed.base_table(be.device)
+    step = 65536
+    for (kind, set_key), cs in groups.items():
+        val_pubs = cs[0][2]
+        tbl, ok, _, vp = be.tables(set_key, val_pubs)
+        got = np.concatenate([c[4] for c in cs])
+        if kind == "grouped":
+            vi, msgs, sigs = (np.concatenate([c[3][k] for c in cs])
+                              for k in range(3))
+            want = []
+            for lo in range(0, len(vi), step):
+                idx = vi[lo:lo + step]
+                want.append(ed.verify_grouped_plain(
+                    tbl, ok, *(be._t(a) for a in (
+                        idx, val_pubs[idx], msgs[lo:lo + step],
+                        sigs[lo:lo + step])), base).cpu().numpy())
+        else:
+            offs = np.cumsum([0] + [len(c[3][2]) for c in cs[:-1]])
+            vi = np.concatenate([c[3][0] for c in cs])
+            ti = np.concatenate([c[3][1] + o for c, o in zip(cs, offs)])
+            tm = np.concatenate([c[3][2] for c in cs])
+            sg = np.concatenate([c[3][3] for c in cs])
+            want = []
+            for lo in range(0, len(vi), step):
+                want.append(ed.verify_grouped_templated_plain(
+                    tbl, ok, vp, be._t(vi[lo:lo + step]),
+                    be._t(ti[lo:lo + step]), be._t(tm),
+                    be._t(sg[lo:lo + step]), base).cpu().numpy())
+        want = np.concatenate(want)
+        checked += len(got)
+        bad += int((got != want).sum())
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return checked, bad, time.perf_counter() - t0
+
+
+def _k1_call(be, call) -> tuple:
+    """One recorded K1 call as the backend launched it: (kernel, plain
+    version, device arguments with the lanes padded to their bucket, the
+    (bytes, operations) of its real lanes as a thunk)."""
+    import numpy as np
+    from tendermint_tpu_torch.crypto.backend import _bucket, _pad_rows
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    kind, set_key, val_pubs, lanes, out = call
+    n = len(out)
+    if kind == "templated":
+        args = be.templated_args(set_key, val_pubs, *lanes)
+        real = (*args[:3], args[3][:n], args[4][:n],
+                args[5][:len(lanes[2])], args[6][:n])
+        return (ed.verify_grouped_templated,
+                ed.verify_grouped_templated_plain, args,
+                lambda: _templated_cost(real))
+    tbl, ok, _, _ = be.tables(set_key, val_pubs)
+    vi, msgs, sigs = lanes
+    b = _bucket(n)
+    vi = _pad_rows(np.asarray(vi, np.int32), b)
+    host = (vi, val_pubs[vi], _pad_rows(msgs, b), _pad_rows(sigs, b))
+    args = (tbl, ok, *map(be._t, host), ed.base_table(be.device))
+    return (ed.verify_grouped, ed.verify_grouped_plain, args,
+            lambda: _grouped_verify_cost(host[3][:n], host[1][:n],
+                                         host[2][:n], vi[:n],
+                                         64 + 4 + 32 + msgs.shape[1] + 1,
+                                         ok.numel()))
+
+
+def _shape(args) -> tuple:
+    """A launch's shape: the shapes of its device arguments."""
+    return tuple(tuple(a.shape) for a in args)
+
+
+def check_consensus(cs_ctx: dict, launches: dict) -> None:
+    """The consensus phase's agreement, app-hash, flush, forged-vote,
+    plain-version and restart checks, and its rates."""
+    import numpy as np
+    nodes, be = cs_ctx["nodes"], cs_ctx["backend"]
+    top = min(cs.block_store.height for cs in nodes)
+    require(top >= CONS_HEIGHTS, f"stores reach {top}")
+    tallest = max(nodes, key=lambda cs: cs.block_store.height)
+    blocks = [tallest.block_store.load_block(h)
+              for h in range(1, tallest.block_store.height + 1)]
+    for h in range(1, top + 1):
+        hashes = {cs.block_store.load_block(h).hash() for cs in nodes}
+        require(hashes == {blocks[h - 1].hash()},
+                f"stores disagree at height {h}")
+    committed = [tx for b in blocks for tx in b.txs]
+    require(sorted(committed) == sorted(cs_ctx["txs"]),
+            "committed txs != the txs fed to the mempools")
+    host = _host_app_hashes(blocks)
+    for i, cs in enumerate(nodes):
+        h = cs.state.last_block_height
+        require(cs.state.app_hash == host[h - 1],
+                f"node {i}: app hash at {h} != host kvstore run")
+    cons = [f for f in cs_ctx["flushes"] if "consensus" in f[3]]
+    require(cons, "no consensus-class flush")
+    calls = be.calls                  # every K1 call of the phase
+    net = calls[2:cs_ctx["net_calls"]]    # the net's, after the pre-warm
+    grouped = [c for c in net if c[0] == "grouped"]
+    templated = [c for c in net if c[0] == "templated"]
+    require(launches["K1"] == len(calls),
+            f"K1 launches {launches['K1']} != {len(calls)} recorded calls")
+    checked, bad, plain_s = _plain_k1(be, calls)
+    require(bad == 0, f"{bad} K1 lanes of the phase != plain")
+    fsig = cs_ctx["forged"].signature
+    forged_lanes = [bool(c[4][i]) for c in grouped
+                    for i in np.flatnonzero(
+                        (c[3][2] == np.frombuffer(fsig, np.uint8)).all(1))]
+    require(cs_ctx["injected"], "the forged vote was never injected")
+    require(forged_lanes, "the forged vote reached K1 on no lane")
+    require(not cs_ctx["counted_forged"],
+            f"nodes {cs_ctx['counted_forged'][:5]} counted the forged vote")
+    require(not any(forged_lanes), "K1 passed the forged vote")
+    require(not cs_ctx["evidence"], "evidence fired in an honest net")
+    rs = cs_ctx["restart"]
+    require(rs["restart_k1"] >= 1, "no K1 launch verifying seen commits "
+            "on restart")
+    for i, hs in enumerate(rs["hashes"]):
+        require(hs == rs["hashes"][0], f"restart node {i} disagrees")
+        require(hs[:RESTART_HEIGHTS] == rs["before"][i],
+                f"restart node {i} rewrote its pre-stop prefix")
+    for i, bl in rs["blocks_by_node"].items():
+        want = _host_app_hashes(bl)[-1]
+        require(rs["app_hashes"][i] == want,
+                f"restart node {i}: app hash != host kvstore run")
+    require(rs["playback"] == rs["node0"] and
+            rs["playback_app_hash"] == rs["node0_app_hash"],
+            "Playback blocks or app hash != node 0's")
+    # rates
+    t_all = [max(t for _, t in cs_ctx["commits"][h])
+             for h in range(1, CONS_HEIGHTS + 1)]
+    lat = np.diff([cs_ctx["t_start"]] + t_all)
+    rounds = [nodes[0].block_store.load_seen_commit(h).round() + 1
+              for h in range(1, CONS_HEIGHTS + 1)]
+    recv = np.array(cs_ctx["received"]).sum(0)
+    lanes_g = sorted(len(c[4]) for c in grouped) or [0]
+    lanes_t = sorted(len(c[4]) for c in templated) or [0]
+    fl = sorted(f[2] for f in cons)
+    log(f"[consensus] commit latency per height p50 "
+        f"{float(np.median(lat)):.3f} s, max {float(lat.max()):.3f} s "
+        f"({', '.join(f'{x:.3f}' for x in lat)}); rounds per height "
+        f"{rounds}; {int(recv.sum())} votes received, "
+        f"{int(recv[1])} pre-verified on K1 "
+        f"({recv[1] / max(1, recv.sum()):.3f}); scalar verifies "
+        f"(memo misses) {cs_ctx['scalar']}")
+    log(f"[consensus] K1 with per-lane keys: {len(grouped)} launches, "
+        f"lanes per launch min {lanes_g[0]} / p50 {_pctl(lanes_g, 0.5)} / "
+        f"max {lanes_g[-1]}; templated K1 (LastCommits): {len(templated)} "
+        f"launches, lanes min {lanes_t[0]} / p50 {_pctl(lanes_t, 0.5)} / "
+        f"max {lanes_t[-1]}; consensus-class flushes {len(cons)}: lanes "
+        f"min {fl[0]} / p50 {_pctl(fl, 0.5)} / max {fl[-1]} "
+        f"({sum(f[1] == 'deadline' for f in cons)} at the deadline), "
+        f"sizes {fl}")
+    log(f"[consensus] every K1 call of the phase ({len(calls)} calls, "
+        f"{checked} lanes, the pre-warm's and the restart's too) == the "
+        f"plain version ({plain_s:.1f} s); the "
+        f"forged vote: {len(forged_lanes)} K1 lanes, all False, counted by "
+        f"no node; {len(nodes)} stores agree on {top} blocks, every app "
+        f"hash == host kvstore run")
+    log(f"[consensus] restart: {RESTART_VALS} validators on SQLiteDB "
+        f"stopped at {rs['stopped_at']}, restarted from their WALs "
+        f"({rs['restart_k1']} K1 launches re-verifying seen commits), "
+        f"reached {rs['heights']} agreeing with the pre-stop prefix; "
+        f"Playback over node 0's WAL: {len(rs['playback'])} blocks == "
+        f"node 0's, app hash == node 0's")
+    log(f"[consensus] {card_line()}")
+
+
+def consensus_kernel_rows(cs_ctx: dict, consensus: dict) -> list:
+    """Rows 1C and 6C: templated K1 at the consensus net's median
+    LastCommit and K1 with per-lane keys at its median vote burst, each
+    against its plain version on the card and the net's mask, counting
+    the net's launches at that call's shape (its argument shapes: the
+    padded lanes, templates and key set).  Logged: the device time of
+    every K1 call of the net, each re-run alone on CUDA events, and every
+    launch of the phase that no row counts (the net's at other shapes,
+    the pre-warm, the restart and `Playback`, K2)."""
+    import collections
+    import torch
+    be, net_calls = cs_ctx["backend"], cs_ctx["net_calls"]
+    net = be.calls[2:net_calls]
+    rows, device_ms, off_shape = [], {}, {}
+    for row, kind, name, line, what in (
+            ("1C", "templated", "verify_grouped_templated", 153,
+             "median LastCommit"),
+            ("6C", "grouped", "verify_grouped", 78, "median vote burst")):
+        calls = sorted((c for c in net if c[0] == kind),
+                       key=lambda c: len(c[4]))
+        require(calls, f"no {kind} K1 call in the consensus net")
+        shapes = []
+        device_ms[kind] = 0.0
+        for c in calls:
+            kernel, _, args, _ = _k1_call(be, c)
+            shapes.append(_shape(args))
+            device_ms[kind] += cuda_ms(lambda: kernel(*args), 1)[0]
+        mid = len(calls) // 2
+        call = calls[mid]
+        kernel, plain, args, cost = _k1_call(be, call)
+        at_shape = shapes.count(shapes[mid])
+        ms, got = cuda_ms(lambda: kernel(*args), 10)
+        plain_ms, want = cuda_ms(lambda: plain(*args), 1)
+        require(torch.equal(got, want), f"K1 ({kind}) != plain at the "
+                f"consensus net's {what}")
+        require(got[:len(call[4])].cpu().numpy().tolist() ==
+                call[4].tolist(), f"K1 ({kind}) at the consensus net's "
+                f"{what} != the net's mask")
+        # a launch's (padded lanes, padded templates) for templated K1,
+        # (padded lanes,) with per-lane keys; every call has the net's set
+        dims = ((lambda sh: (sh[3][0], sh[5][0])) if kind == "templated"
+                else (lambda sh: (sh[2][0],)))
+        lanes = dims(_shape(args))
+        off_shape[kind] = sorted(collections.Counter(
+            dims(sh) for sh in shapes if sh != shapes[mid]).items())
+        rows.append({**_entry(
+            f"{name} [consensus {what}]",
+            "tendermint_tpu_torch/csrc/verify_grouped.cu",
+            f"tendermint_tpu/ops/ed25519.py:{line}", at_shape,
+            max_abs_err(got, want), ms, plain_ms, *cost(),
+            f"row {row}, the consensus net's {what}: {len(call[4])} lanes, "
+            f"padded (lanes[, templates]) to {lanes}, Vb {args[0].shape[2]}"),
+            "shape": f"row {row}: padded (lanes[, templates]) {lanes} (the "
+                     f"consensus net's {what}, {len(call[4])} real lanes)"})
+    rest = be.calls[net_calls:]
+    log(f"[consensus] device time of the net's K1 calls, each re-run alone "
+        f"on the card (CUDA events): per-lane keys {device_ms['grouped']:.3f}"
+        f" ms, templated {device_ms['templated']:.3f} ms, over the net's "
+        f"{cs_ctx['wall']:.3f} s to {CONS_HEIGHTS} heights")
+    log(f"[consensus] launches in no row: the net's at other shapes, as "
+        f"((padded lanes[, templates]), launches): per-lane keys "
+        f"{off_shape['grouped']}, templated {off_shape['templated']}; 2 "
+        f"pre-warm calls "
+        f"({len(be.calls[0][4])} lanes); on restart and in Playback "
+        f"({RESTART_VALS} keys) {sum(c[0] == 'grouped' for c in rest)} "
+        f"per-lane and {sum(c[0] == 'templated' for c in rest)} templated; "
+        f"K2 {consensus['K2']} (the {CONS_VALS}-key set's and the "
+        f"{RESTART_VALS}-key set's builds)")
+    return rows
 
 
 # -- the kernels line ----------------------------------------------------
@@ -2847,6 +3591,12 @@ def main() -> int:
     light = read_launches("light", ("K1", "K2", "K3"))
     check_fastsync(fs_ctx)
     check_light(lt_ctx)
+    t_cs = time.perf_counter()
+    kernels.reset_launches()                # the consensus path starts here
+    cs_ctx = phase_consensus()
+    consensus = read_launches("consensus", ("K1", "K2"))
+    check_consensus(cs_ctx, consensus)
+    log(f"[consensus] phase and checks {time.perf_counter() - t_cs:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -2859,6 +3609,9 @@ def main() -> int:
     # windows, its set, its signing calls); the light path's grid runs K1
     # at a row of its own, and its other launches (K2 at 8 keys, K3 at
     # 8,192 templates, K1 on the follower's few lanes) are logged above.
+    # The consensus path's K1 stands in two rows of its own (1C, 6C),
+    # each timed at the net's median call and counting the net's launches
+    # at that call's shape; its other launches are logged there.
     launches = {k: replay[k] + mempool[k] + fastsync[k] for k in replay}
     launches["K1"] = replay["K1"] + fastsync["K1"]
     launches["K1p"] = mempool["K1"]
@@ -2867,6 +3620,7 @@ def main() -> int:
     launches["K6"] = mesh["K6"]
     line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
     line.append(light_kernel_row(lt_ctx, light))
+    line += consensus_kernel_rows(cs_ctx, consensus)
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))

@@ -13,21 +13,36 @@ app's Info, then `ReplayBlocks` (`:251-322`) walks the decision table at
                        against a mock app (`:385-420`) so state catches up
                        without re-executing
 
-Copy of the handshake half of `tendermint_tpu/consensus/replay.py`; the
-WAL `Playback` console waits for the consensus state machine.  The
-stored block applied in the store == state + 1 cases has its LastCommit
-verified through the `backend` the handshaker is given, or not at all
-with None (blocks whose commits fast-sync verified before storing them).
+Copy of `tendermint_tpu/consensus/replay.py`: the handshake and the WAL
+`Playback` console.  The stored block applied in the store == state + 1
+cases has its LastCommit verified through the `backend` the handshaker is
+given, or not at all with None (blocks whose commits fast-sync verified
+before storing them).  `Playback` verifies through the batch plane it is
+given, as a live `ConsensusState` does.
 """
 
 from __future__ import annotations
 
+import logging
+import struct
+
+from tendermint_tpu_torch import config as config_mod
 from tendermint_tpu_torch.abci.app import Application
 from tendermint_tpu_torch.abci.types import (ResponseEndBlock, Result,
                                              Validator as ABCIValidator)
+from tendermint_tpu_torch.blockchain.store import BlockStore
+from tendermint_tpu_torch.consensus import messages as M
+from tendermint_tpu_torch.consensus.state import ConsensusState, PlaneFault
+from tendermint_tpu_torch.consensus.ticker import TimeoutInfo
+from tendermint_tpu_torch.consensus.wal import (REC_ENDHEIGHT, REC_MESSAGE,
+                                                REC_TIMEOUT, WAL)
+from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.proxy import ClientCreator
 from tendermint_tpu_torch.state import execution
-from tendermint_tpu_torch.state.state import State
+from tendermint_tpu_torch.state.state import State, get_state
+from tendermint_tpu_torch.utils.db import MemDB
+
+log = logging.getLogger(__name__)
 
 
 class _MockReplayApp(Application):
@@ -136,3 +151,98 @@ class Handshaker:
                               self.backend)
         self.n_blocks += 1
         return self.state.app_hash
+
+
+class Playback:
+    """Replay-console playback manager (reference
+    `consensus/replay_file.go:76-141`): drives a fresh ConsensusState from
+    a consensus WAL record by record, with seek-back and run-until.
+
+    "back" is not expressible in the state machine (reference comment at
+    `:117` — replays can only be reset to the beginning), so `back(n)`
+    rebuilds a fresh ConsensusState from genesis and re-feeds
+    `count - n` records, exactly the reference's `replayReset`.  Each
+    block's LastCommit is verified on `plane`.
+    """
+
+    def __init__(self, genesis, wal_path: str, plane,
+                 proxy_app: str = "kvstore", cfg=None):
+        self.genesis = genesis
+        self.plane = plane
+        self.proxy_app = proxy_app
+        self.cfg = cfg or config_mod.test_config().consensus
+        self.records = WAL.read_all(wal_path)
+        self.count = 0
+        self.cs = self._fresh_cs()
+
+    def _fresh_cs(self) -> ConsensusState:
+        conns = ClientCreator(self.proxy_app).new_app_conns()
+        st = get_state(MemDB(), self.genesis)
+        cs = ConsensusState(self.cfg, st, conns.consensus,
+                            BlockStore(MemDB()),
+                            Mempool(conns.mempool, plane=self.plane),
+                            self.plane)
+        cs._replay_mode = True      # never writes a WAL, never signs
+        return cs
+
+    def _feed_one(self, kind: int, payload: bytes) -> None:
+        try:
+            if kind == REC_MESSAGE:
+                self.cs._handle_msg(M.decode_msg(payload), "")
+            elif kind == REC_TIMEOUT:
+                h, r, s = struct.unpack(">QIB", payload)
+                self.cs._handle_timeout(TimeoutInfo(h, r, s))
+            # ENDHEIGHT markers carry no input to the machine
+        except PlaneFault:
+            raise
+        except Exception:
+            log.exception("error replaying WAL record")
+
+    def next(self, n: int = 1) -> int:
+        """Feed the next n records; returns how many were fed."""
+        fed = 0
+        while fed < n and self.count < len(self.records):
+            self._feed_one(*self.records[self.count])
+            self.count += 1
+            fed += 1
+        return fed
+
+    def back(self, n: int = 1) -> None:
+        """Rebuild from genesis and re-feed count-n records (reference
+        `replayReset`)."""
+        target = max(0, self.count - n)
+        self.cs = self._fresh_cs()
+        self.count = 0
+        self.next(target)
+
+    def run_until(self, height: int) -> None:
+        """Feed records until the ENDHEIGHT marker for `height` (i.e.
+        the machine has fully committed that height) or EOF."""
+        while self.count < len(self.records):
+            kind, payload = self.records[self.count]
+            self._feed_one(kind, payload)
+            self.count += 1
+            if kind == REC_ENDHEIGHT and \
+                    struct.unpack(">Q", payload)[0] >= height:
+                return
+
+    def round_state(self, what: str = "") -> str:
+        """Inspection (reference console `rs [short|...]`)."""
+        rs = self.cs.get_round_state()
+        if what == "short" or what == "":
+            return f"{rs.height}/{rs.round}/{rs.step}"
+        if what == "validators":
+            return str([v.address.hex()[:12]
+                        for v in rs.validators.validators])
+        if what == "proposal":
+            return str(rs.proposal)
+        if what == "proposal_block":
+            return (f"parts={rs.proposal_block_parts} "
+                    f"block={rs.proposal_block is not None}")
+        if what == "locked_round":
+            return str(rs.locked_round)
+        if what == "locked_block":
+            return str(rs.locked_block is not None)
+        if what == "votes":
+            return str(rs.votes)
+        return f"unknown field {what!r}"

@@ -156,6 +156,10 @@ class CudaBackend:
         # the asynchronous route's copies and K1 launches
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        # synchronous grouped calls (`verify_grouped`) so far: the
+        # consensus vote micro-batch threshold reads it
+        # (`ConsensusState._microbatch_threshold`)
+        self.step_count = 0
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.asarray(a), device=self.device)
@@ -413,9 +417,10 @@ class CudaBackend:
         if not self._mesh_eligible(b):
             out = ed.verify_grouped(*ent[:2], *map(self._t, lanes),
                                     self._base)
-            return out.cpu().numpy()[:n]
-        tbl, ok, _ = self._mesh_tables(set_key, ent)
-        out = self._sharded_verify(tbl, ok, *lanes, self._base_mesh)
+        else:
+            tbl, ok, _ = self._mesh_tables(set_key, ent)
+            out = self._sharded_verify(tbl, ok, *lanes, self._base_mesh)
+        self.step_count += 1
         return out.cpu().numpy()[:n]
 
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:

@@ -4,17 +4,21 @@ Copy of `tendermint_tpu/state/execution.py` (reference
 `state/execution.go`): `validate_block` (`:173-202`), `exec_block_on_app`
 (`:43-115`), `ApplyBlock` (`:210-245`) and its window form,
 `CommitStateUpdateMempool` (`:248-271`) and `ExecCommitBlock`
-(`:291-308`).  Event firing, tx indexing and fail points wait for a
-later slice.
+(`:291-308`).  `apply_block` fires per-tx events into the consensus
+state's event cache and indexes txs when given an indexer; fail points
+are not ported.
 """
 
 from __future__ import annotations
 
 from contextlib import nullcontext
+from dataclasses import dataclass
 
 from tendermint_tpu_torch.abci.types import RequestBeginBlock
 from tendermint_tpu_torch.state.state import ABCIResponses, State
 from tendermint_tpu_torch.types import BlockID
+from tendermint_tpu_torch.types.events import event_tx
+from tendermint_tpu_torch.types.tx import Tx
 
 
 class MockMempool:
@@ -28,6 +32,15 @@ class MockMempool:
 
     def update(self, height: int, txs: list[bytes]):
         pass
+
+
+@dataclass
+class TxEvent:
+    """Payload of a per-tx event (fired during exec, flushed post-commit)."""
+    height: int
+    tx: bytes
+    result: object
+    index: int
 
 
 def validate_block(state: State, block, backend=None) -> None:
@@ -62,12 +75,18 @@ def validate_block(state: State, block, backend=None) -> None:
                 block.last_commit, backend)
 
 
-def exec_block_on_app(proxy_consensus, block) -> ABCIResponses:
+def exec_block_on_app(proxy_consensus, block,
+                      event_cache=None) -> ABCIResponses:
     """BeginBlock / DeliverTx xN / EndBlock (reference
-    `state/execution.go:43-115`); returns ABCIResponses."""
+    `state/execution.go:43-115`); returns ABCIResponses.  With an
+    `event_cache`, each tx's result is fired under its `Tx:<hash>` key."""
     proxy_consensus.begin_block(
         RequestBeginBlock(hash=block.hash(), header=block.header))
     results = [proxy_consensus.deliver_tx(tx) for tx in block.txs]
+    if event_cache is not None:
+        for i, (tx, res) in enumerate(zip(block.txs, results)):
+            event_cache.fire(event_tx(Tx(tx).hash),
+                             TxEvent(block.height, tx, res, i))
     end = proxy_consensus.end_block(block.height)
     diffs = [(v.pub_key, v.power) for v in end.diffs]
     return ABCIResponses(height=block.height, deliver_txs=results,
@@ -75,14 +94,18 @@ def exec_block_on_app(proxy_consensus, block) -> ABCIResponses:
 
 
 def apply_block(state: State, proxy_consensus, block, part_set_header,
-                mempool, backend=None) -> State:
+                mempool, backend=None, event_cache=None,
+                tx_indexer=None) -> State:
     """Validate, execute and commit one block, then persist the state
     (reference `state/execution.go:210-245`); mutates `state` in place and
     returns it.  With a `backend` the block's LastCommit signatures are
     verified through it; with None they are not (commits verified
-    beforehand, as fast-sync does)."""
+    beforehand, as fast-sync does).  Tx events go to `event_cache` and
+    results to `tx_indexer` when given."""
     validate_block(state, block, backend)
-    resp = exec_block_on_app(proxy_consensus, block)
+    resp = exec_block_on_app(proxy_consensus, block, event_cache)
+    if tx_indexer is not None:
+        tx_indexer.index_block(block, resp)
     state.save_abci_responses(resp)
     block_id = BlockID(hash=block.hash(), parts=part_set_header)
     state.set_block_and_validators(block.header, block_id,

@@ -46,7 +46,19 @@ def test_port_files_found():
             "store.py", "client.py", "db.py", "chip_smoke.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"tendermint_tpu_torch/blockchain/store.py",
+            "tendermint_tpu_torch/config.py",
+            "tendermint_tpu_torch/consensus/height_vote_set.py",
+            "tendermint_tpu_torch/consensus/messages.py",
             "tendermint_tpu_torch/consensus/replay.py",
+            "tendermint_tpu_torch/consensus/state.py",
+            "tendermint_tpu_torch/consensus/ticker.py",
+            "tendermint_tpu_torch/consensus/wal.py",
+            "tendermint_tpu_torch/state/txindex.py",
+            "tendermint_tpu_torch/types/events.py",
+            "tendermint_tpu_torch/types/priv_validator.py",
+            "tendermint_tpu_torch/types/proposal.py",
+            "tendermint_tpu_torch/types/vote.py",
+            "tendermint_tpu_torch/utils/fmt.py",
             "tendermint_tpu_torch/light/client.py"} <= rel
 
 
