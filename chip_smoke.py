@@ -53,7 +53,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    d. BASELINE config 3 at its full 100,000 blocks x 100 validators
       (fixture signed by K3): `replay_pipelined` with a `BlockStore` on
       `MemDB`, then two pairs of `replay_pipelined` without a store and
-      the serial `replay` (the second pair on the first 50,000 blocks),
+      the serial `replay` (the second pair on the first 20,000 blocks),
       each on a fresh state and under `torch.profiler`'s CUDA
       activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
       K1 launches, device-idle share);
@@ -71,12 +71,28 @@ Phases, in order; any mismatch or exception exits non-zero:
       class, each block's LastCommit on templated K1 at its fast-sync
       class, the set's comb tables (K2) and two grouped calls made before
       `start()` (the node's boot); every mempool fed the same 300 kvstore
-      txs of 64 bytes; run until every node has committed 5 heights, a
+      txs of 64 bytes; run until every node has committed 4 heights, a
       forged vote (one flipped signature bit) put into every queue during
       a burst; then BASELINE config 1's 4-validator testnet with WALs and
       `SQLiteDB` stores runs 3 heights, stops, restarts through the
       `Handshaker` and its WALs (each seen commit re-verified on K1) and
       commits 2 more, and `Playback` replays node 0's WAL;
+   g. the p2p stack and the reactors over TCP on 127.0.0.1 at the JAX
+      `P2PConfig()` defaults (512,000 B/s each way per link, every link a
+      `SecretConnection`): cell A, BASELINE config 1, a 1,000-block
+      4-validator kvstore chain (each height's commit signed by K3) and
+      four validator nodes at its tip (consensus, mempool and blockchain
+      reactors, one `BatchPlane` over one `CudaBackend`, the JAX
+      `ConsensusConfig()` timeouts) dialing each other as persistent
+      peers; 300 signed and 16 forged envelope txs (K3) submitted to
+      node 0 and gossiped (K5 on every node); a forged vote sent on one
+      link; after 10 more heights a fifth node with an empty store
+      fast-syncs through `BlockchainReactor` (K1 per 64-block window),
+      switches to consensus and follows 3 more heights.  Cell B, BASELINE
+      config 3's width cut to 2,000 blocks (100 validators, a 12 KB tx a
+      block, each height's commit signed by K3) served by four source
+      nodes and fast-synced by a fifth, under `torch.profiler`, then again
+      with one source serving a block with a flipped precommit signature;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -97,14 +113,27 @@ Phases, in order; any mismatch or exception exits non-zero:
    reopen, handshake a fresh app and resume to the host's app hash;
    blame a tampered lane of the light grid on its height and lane, and
    hold the light follower's verdicts (a tampered header too) to the
-   golden verifier's; hold every node of the consensus net to one block
+   golden verifier's; K4 at the part sets read three ways over 10 calls
+   (back to back, single calls between their own events, the profiler's
+   device time per launch); hold every node of the consensus net to one block
    hash per height and to a host kvstore run's app hash, require a
    consensus-class flush, hold every K1 call of the consensus phase to
    the plain version on every lane, require the forged vote on K1 on at
    least one lane, False on each, and counted by no node; the restarted
    testnet's seen commits verified on K1, its pre-stop prefix unchanged
    and its app hashes the host's, and `Playback`'s blocks and app hash
-   node 0's; log heights per second, commit latency, rounds, the share
+   node 0's; in cell A every node on one block hash per height, the
+   joiner's blocks and seen commits equal to a validator's, every app
+   hash a host kvstore run's, every signed envelope committed and, on
+   each validator, admitted or found committed on arrival and rejected
+   nowhere, every forged one admitted nowhere, the forged vote counted by
+   no node; in cell B the stored blocks and seen commits equal to the
+   fixture's, the app hash a host kvstore run's, consensus taking over
+   at the tip, the liar blamed on its height, evicted and banned; every
+   K1 call of cell A (templated and per-lane) and of cell B the largest
+   window and every per-lane call equal to the plain version, K2, K3 and
+   K5 on the path's inputs too; log heights per
+   second, commit latency, rounds, the share
    of received votes pre-verified on K1, scalar verifies, K1 launches
    and lanes, the flush sizes, the thread CPU of scalar verifies,
    signing and vote accounting, the process CPU and wall over the net's
@@ -116,11 +145,14 @@ Phases, in order; any mismatch or exception exits non-zero:
    (K1 also at the light grid's 1,048,576 lanes, its plain version in
    65,536-lane slices, and at the consensus net's median vote burst and
    median LastCommit, rows 1C and 6C, each with the net's launches at
-   that call's shape), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
+   that call's shape, and at cell B's fast-sync window over the reactor,
+   row 1P, with the p2p path's launches at its shape), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64; K4 at the part sets, with its chain bound
    `chain_bound_ms` beside the operations bound, and beside it at the
-   trees' leaves, each shape's route logged); per mesh, the whole call of
-   each mesh function likewise.  Logged beside it: a clock64
+   trees' leaves, each shape's route logged; K4's time is the median of
+   `torch.profiler`'s per-launch device times, taken before the
+   fast-sync phase); per mesh, the whole
+   call of each mesh function likewise, the median of 10 calls.  Logged beside it: a clock64
    microkernel's cycles per dependent field product, quad doubling,
    mod-L reduction, SHA-512 compression and field inversion in one warp,
    built with K3's, K5's and K6's settings, and per dependent SHA-256
@@ -187,6 +219,47 @@ def cuda_ms(fn, reps: int) -> tuple:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def median_ms(fn, reps: int) -> tuple:
+    """(median milliseconds of one call of `fn()` on the card, each of
+    `reps` calls between CUDA events of its own and waited for, after one
+    warm-up call; the sorted times; the last result)."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), sorted(times), out
+
+
+def profiled_launches(fn, reps: int) -> dict:
+    """{CUDA kernel or copy name: sorted device ms of each of its launches}
+    over `reps` calls of `fn()` under `torch.profiler`, after one warm-up
+    call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out.setdefault(e.name.split("(")[0].strip()[:40], []).append(
+                e.time_range.elapsed_us() / 1e3)
+    return {k: sorted(v) for k, v in out.items()}
 
 
 def require(cond: bool, what: str) -> None:
@@ -1235,6 +1308,38 @@ def part_set_steps(blocks, be) -> tuple:
     return steps, parts
 
 
+def k4_readings(blocks, dev) -> float:
+    """Three readings of K4 at the part sets, each over K4_REPEATS calls:
+    the mean of launches back to back (`cuda_ms`, the kernels line's
+    earlier figure), the median of single calls each between CUDA
+    events of its own (`median_ms`), and `torch.profiler`'s device time
+    of each launch.  Returns the kernel's time: the median of the
+    profiler's per-launch device times of the K4 kernel (a single call's
+    events also hold its launch gap); the other two readings are logged
+    only.  Fails unless the profiler saw K4_REPEATS launches of one K4
+    kernel."""
+    import statistics
+    import torch
+    from tendermint_tpu_torch.ops import sha256 as s256
+    parts = torch.as_tensor(blocks, device=dev)
+    k4 = lambda: s256.sha256_prefixed(parts, 0)  # noqa: E731
+    mean_ms, _ = cuda_ms(k4, K4_REPEATS)
+    ms, times, _ = median_ms(k4, K4_REPEATS)
+    split = profiled_launches(k4, K4_REPEATS)
+    log(f"[merkle] K4 at the part sets ({parts.shape[0]} x {parts.shape[1]}"
+        f" B), {K4_REPEATS} calls each: mean back to back {mean_ms:.4f} ms; "
+        f"single calls between their own events, median {ms:.4f} ms "
+        f"(sorted {[round(t, 4) for t in times]}); torch.profiler per "
+        f"launch, median (launches): " + ", ".join(
+            f"{k} {statistics.median(v):.4f} ms ({len(v)})"
+            for k, v in split.items()))
+    k4_launches = [v for k, v in split.items() if k.startswith("sha256_")]
+    require(len(k4_launches) == 1 and len(k4_launches[0]) == K4_REPEATS,
+            f"the profiler saw K4 launches {[len(v) for v in k4_launches]}"
+            f" of sha256_* kernels, not {K4_REPEATS} of one")
+    return statistics.median(k4_launches[0])
+
+
 def h2d_copies(fn) -> int:
     """Host-to-device copies that one call of `fn` makes, counted from
     `torch.profiler`'s CUDA activity."""
@@ -1279,6 +1384,7 @@ def check_merkle(mk_ctx: dict) -> None:
         f"time of copies and K4), ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
         + f" (the timed call: {mk_ctx['part_set_s'] * 1e3:.4f})")
+    mk_ctx["k4_ms"] = k4_readings(blocks, mk_ctx["backend"].device)
     cold = h2d_copies(lambda: merkle.roots(data[:2, :LEAVES - 1]))
     warm = h2d_copies(lambda: merkle.roots(data))
     require(cold > 0 and warm == 0, f"roots copies from the host: {cold} "
@@ -1754,7 +1860,7 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 # -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
 
 FS_BLOCKS = 100_000                     # BASELINE config 3: 160 windows
-FS_PAIR2_BLOCKS = 50_000                # the second pair's depth: 80 windows
+FS_PAIR2_BLOCKS = 20_000                # the second pair's depth: 32 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
 FS_TIMED_CALLS = 10                     # whole-call timings, each route
@@ -2276,7 +2382,7 @@ def check_light(lt: dict) -> None:
 
 # -- the main path: the consensus core (a 100-validator net) -------------
 
-CONS_VALS, CONS_HEIGHTS, CONS_TXS, CONS_TX_BYTES = 100, 5, 300, 64
+CONS_VALS, CONS_HEIGHTS, CONS_TXS, CONS_TX_BYTES = 100, 4, 300, 64
 CONS_DEADLINE_S = 240.0                 # the net must commit by then
 CONS_FORGE_HEIGHT = 3                   # the forged vote's height
 RESTART_VALS, RESTART_HEIGHTS, RESTART_MORE = 4, 3, 2   # config 1's testnet
@@ -2434,9 +2540,10 @@ def _gossip(nodes: list) -> None:
 
 
 def _stop_all(nodes: list) -> list:
-    """Stop every node at once, each `stop()` on a thread of its own (a
-    node's stop waits for its receive routine to reach the end of its
-    current batch); returns the plane faults the stops raised."""
+    """Stop every node (a consensus state or a switch) at once, each
+    `stop()` on a thread of its own (a state's stop waits for its receive
+    routine to reach the end of its current batch); returns the faults
+    the stops raised."""
     import threading
     faults = []
 
@@ -2512,7 +2619,7 @@ def phase_consensus(be=None) -> dict:
     `BatchPlane` over a recording `CudaBackend` shared by all, each vote
     burst pre-verified on K1 at the plane's consensus class and each
     block's LastCommit verified on templated K1 at its fast-sync class,
-    until every node has committed 5 heights; a forged vote (one flipped
+    until every node has committed 4 heights; a forged vote (one flipped
     signature bit) goes into every queue during a burst.  Then the restart
     of BASELINE config 1's 4-validator testnet from WALs and `SQLiteDB`
     stores, and `Playback` over one node's WAL."""
@@ -2981,6 +3088,760 @@ def consensus_kernel_rows(cs_ctx: dict, consensus: dict) -> list:
     return rows
 
 
+# -- p2p: the reactors over TCP --------------------------------------------
+
+P2P_LADDR = "tcp://127.0.0.1:0"          # the port's nets listen on loopback
+P2P_A_VALS, P2P_A_BLOCKS = 4, 1000       # BASELINE config 1's testnet
+P2P_A_MORE, P2P_A_FOLLOW = 10, 3         # heights before the joiner dials,
+#                                          and after it switches
+P2P_A_SIGNED, P2P_A_FORGED = 300, 16     # envelope txs submitted to node 0
+P2P_A_FORGE_AT = 3                       # the forged vote, heights past tip
+P2P_B_VALS, P2P_B_BLOCKS = 100, 2000     # BASELINE config 3's width, cut
+P2P_B_SOURCES = 4
+P2P_B_PAYLOAD = 12 * 1024                # `replay.build_chain`'s kvstore tx
+P2P_B_LIE_FROM = 1000                    # the liar's first tampered height
+P2P_WINDOW = 64                          # blocks per K1 call (the reactor's)
+P2P_SAMPLE = 16                          # stored blocks checked
+P2P_DEADLINE_S = 600.0
+
+
+class _K1Recorder:
+    """Wraps a `CudaBackend`'s two K1 routes to keep each call's lanes and
+    mask, for the plain-version checks: the asynchronous templated route
+    (every templated K1 call, the synchronous route's included, goes
+    through it) and the per-lane route (`verify_grouped`, the vote bursts
+    of the batch plane)."""
+
+    def __init__(self, be):
+        import threading
+        self.calls = []
+        self._lock = threading.Lock()
+        route, lanes_route = be.verify_grouped_templated_async, \
+            be.verify_grouped
+
+        def copies(val_pubs, lanes):
+            import numpy as np
+            return np.array(val_pubs), tuple(np.array(a) for a in lanes)
+
+        def keep(kind, set_key, inputs, out):
+            with self._lock:
+                self.calls.append((kind, set_key, *inputs, out.copy()))
+
+        def recorded(set_key, val_pubs, val_idx, tmpl_idx, templates, sigs,
+                     real_n=None):
+            collect = route(set_key, val_pubs, val_idx, tmpl_idx, templates,
+                            sigs, real_n=real_n)
+            if real_n is not None or not len(val_idx):
+                return collect
+            inputs = copies(val_pubs, (val_idx, tmpl_idx, templates, sigs))
+
+            def kept():
+                out = collect()
+                keep("templated", set_key, inputs, out)
+                return out
+            return kept
+
+        def recorded_lanes(set_key, val_pubs, val_idx, msgs, sigs):
+            inputs = copies(val_pubs, (val_idx, msgs, sigs))
+            out = lanes_route(set_key, val_pubs, val_idx, msgs, sigs)
+            if len(out):                  # an empty call launches nothing
+                keep("grouped", set_key, inputs, out)
+            return out
+
+        be.verify_grouped_templated_async = recorded
+        be.verify_grouped = recorded_lanes
+
+
+def _p2p_config(peers=()):
+    """The JAX package's `P2PConfig()` defaults (512,000 B/s each way per
+    link), listening on loopback, no PEX, dialing `peers` as persistent
+    peers."""
+    from tendermint_tpu_torch.config import P2PConfig
+    cfg = P2PConfig()
+    cfg.laddr = P2P_LADDR
+    cfg.pex = False
+    cfg.persistent_peers = list(peers)
+    return cfg
+
+
+def _p2p_switch(chain_id: str, moniker: str, reactors: dict, peers=()):
+    """A switch as `node/p2p_setup.build_p2p` makes one: a node key (here
+    from the seed), its `NodeInfo` advertising the listen address, the
+    reactors in the node's order."""
+    import random
+    from tendermint_tpu_torch.p2p import NodeInfo, Switch
+    from tendermint_tpu_torch.types import PrivKey
+    cfg = _p2p_config(peers)
+    key = PrivKey(hashlib.sha256(b"%d/%s/%s" % (
+        SEED, chain_id.encode(), moniker.encode())).digest())
+    info = NodeInfo(pub_key=key.pub_key.bytes_, moniker=moniker,
+                    network=chain_id, version="0.1.0",
+                    listen_addr=cfg.laddr)
+    sw = Switch(key, info, cfg, rng=random.Random(f"{SEED}/{moniker}"))
+    for name, r in reactors.items():
+        sw.add_reactor(name, r)
+    return sw
+
+
+def _served(gen, chain):
+    """(state, app conns, store) holding `chain`: each block stored with
+    its seen commit and applied (the JAX `harness.fastsync_source`)."""
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+    state = get_state(MemDB(), gen)
+    conns = ClientCreator("kvstore").new_app_conns()
+    store = BlockStore(MemDB())
+    for block, ps, seen in chain:
+        store.save_block(block, ps, seen)
+        execution.apply_block(state, conns.consensus, block, ps.header,
+                              execution.MockMempool())
+    return state, conns, store
+
+
+def _p2p_node(gen, chain, plane, be, priv, moniker: str,
+              joiner: bool = False):
+    """A node of the testnet as `node/p2p_setup.build_p2p` wires it, minus
+    PEX: consensus, mempool and blockchain reactors on one switch, the
+    batch plane shared.  A validator starts at the tip of `chain`; the
+    joiner (`joiner=True`, no key) at genesis, fast-syncing."""
+    from types import SimpleNamespace
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.config import ConsensusConfig, MempoolConfig
+    from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+    from tendermint_tpu_torch.consensus.state import ConsensusState
+    from tendermint_tpu_torch.mempool.mempool import Mempool
+    from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+    state, conns, store = _served(gen, [] if joiner else chain)
+    mempool = Mempool(conns.mempool, MempoolConfig(), plane=plane)
+    cs = ConsensusState(ConsensusConfig(), state.copy(), conns.consensus,
+                        store, mempool, plane, priv_validator=priv)
+    cons = ConsensusReactor(cs, fast_sync=joiner)
+    bc = BlockchainReactor(state if joiner else state.copy(),
+                           conns.consensus, store, fast_sync=joiner,
+                           batch_size=P2P_WINDOW, backend=be)
+    if joiner:
+        bc.on_caught_up = cons.switch_to_consensus
+    sw = _p2p_switch(gen.chain_id, moniker, {
+        "blockchain": bc, "consensus": cons,
+        "mempool": MempoolReactor(mempool)})
+    return SimpleNamespace(sw=sw, cs=cs, cons=cons, bc=bc, mempool=mempool,
+                           store=store, admitted={}, forged_seen=[])
+
+
+def _p2p_wait(cond, what: str, switches: list,
+              deadline_s: float = P2P_DEADLINE_S) -> float:
+    """Seconds until `cond()`; fails past the deadline or on a fault of
+    any switch or of its reactors."""
+    t0 = time.perf_counter()
+    while not cond():
+        for sw in switches:
+            faults = [sw.fault] + [getattr(r, "fault", None)
+                                   for r in sw._reactors.values()]
+            cs = getattr(sw.reactor("consensus"), "cs", None)
+            faults.append(getattr(cs, "fault", None))
+            bad = [f for f in faults if f is not None]
+            if bad:
+                raise AssertionError(f"{what}: fault on "
+                                     f"{sw.node_info.moniker}: {bad[0]!r}")
+        require(time.perf_counter() - t0 < deadline_s,
+                f"{what}: not done after {deadline_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _link_rates(sw, since: dict, dt: float) -> list:
+    """Per peer of `sw`, the bytes it received since `since` (peer id ->
+    received total then) over `dt` seconds."""
+    return sorted((p.mconn.recv_monitor.total - since.get(p.id, 0)) / dt
+                  for p in sw.peers())
+
+
+def _recv_totals(sw) -> dict:
+    return {p.id: p.mconn.recv_monitor.total for p in sw.peers()}
+
+
+def _envelope_kind(tx: bytes) -> str:
+    """'signed' or 'forged' for a `build_corpus` envelope (payload
+    `lg-s...` or `lg-b...` after the 98-byte header)."""
+    return "signed" if tx[98:102] == b"lg-s" else "forged"
+
+
+def phase_p2p_testnet(be, plane) -> dict:
+    """Cell A, BASELINE config 1: a 1,000-block 4-validator kvstore chain
+    (each height's commit signed by K3), four validator nodes at its tip
+    dialing each other as persistent peers over TCP and `SecretConnection`
+    at the JAX `P2PConfig()` and `ConsensusConfig()` defaults, sharing one
+    `BatchPlane` over one `CudaBackend`; signed envelope txs (K3) and
+    forged ones submitted to node 0 and gossiped; a forged vote sent on
+    one link; after 10 more heights a fifth node with an empty store dials
+    all four, fast-syncs through `BlockchainReactor` (K1 per 64-block
+    window), switches to consensus and follows 3 more heights."""
+    import random
+    import numpy as np
+    from tendermint_tpu_torch.consensus import messages as M
+    from tendermint_tpu_torch.consensus.reactor import VOTE_CHANNEL
+    from tendermint_tpu_torch.mempool.mempool import TAG_ED25519
+    from tendermint_tpu_torch.scenarios import fixtures, loadgen
+    from tendermint_tpu_torch.types import TYPE_PREVOTE, Vote, ZERO_BLOCK_ID
+    from tendermint_tpu_torch.types import events as ev
+    chain_id = "p2p-testnet"
+    t0 = time.perf_counter()
+    privs, vs = fixtures.make_validators(P2P_A_VALS)
+    gen = fixtures.make_genesis(chain_id, privs)
+    hashes = fixtures.kvstore_app_hashes(P2P_A_BLOCKS)
+    chain = fixtures.build_chain(privs, vs, chain_id, P2P_A_BLOCKS,
+                                 app_hashes=hashes, backend=be)
+    build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    nodes = [_p2p_node(gen, chain, plane, be, p, f"val{i}")
+             for i, p in enumerate(privs)]
+    setup_s = time.perf_counter() - t1
+    log(f"[p2p A] fixture {P2P_A_BLOCKS} blocks x {P2P_A_VALS} validators "
+        f"signed on K3 one height a call in {build_s:.3f} s "
+        f"({P2P_A_BLOCKS / build_s:.1f} heights/s); {len(nodes)} nodes "
+        f"stored and applied it in {setup_s:.3f} s")
+    tip = P2P_A_BLOCKS
+    commits: dict = {}
+    forged_counted, evidence = [], []
+    for i, n in enumerate(nodes):
+        n.cs.evsw.subscribe("smoke", ev.NEW_BLOCK, lambda b, i=i: (
+            commits.setdefault(b.height, []).append(
+                (i, time.perf_counter()))))
+        n.cs.evsw.subscribe("smoke", "EvidenceDoubleSign", evidence.append)
+
+        def check_tx(tx, tx_hash=None, _f=n.mempool.check_tx, _n=n):
+            res = _f(tx, tx_hash=tx_hash)
+            if len(tx) > 98 and tx[0] == TAG_ED25519:     # an envelope
+                _n.admitted.setdefault(tx, []).append(
+                    None if res is None else res.code)
+            return res
+        n.mempool.check_tx = check_tx
+    # the forged vote: validator 0's nil prevote at tip + FORGE_AT, signed,
+    # then one signature bit flipped; sent from node 0 to node 1 only
+    p0 = privs[0]
+    fh = tip + P2P_A_FORGE_AT
+    forged = Vote(p0.address, vs.index_of(p0.address), fh, 0, TYPE_PREVOTE,
+                  ZERO_BLOCK_ID)
+    sig = bytearray(p0.priv_key.sign(forged.sign_bytes(chain_id)))
+    sig[17] ^= 0x08
+    forged = Vote(**{**forged.__dict__, "signature": bytes(sig)})
+    for i, n in enumerate(nodes):
+        n.cs.evsw.subscribe("smoke-forged", ev.VOTE, lambda v, i=i: (
+            forged_counted.append(i) if v.signature == forged.signature
+            else None))
+
+        def seen(vote, peer_id, preverified=False, _f=n.cs._try_add_vote,
+                 _n=n):
+            if vote.signature == forged.signature:
+                _n.forged_seen.append(peer_id)
+            return _f(vote, peer_id, preverified=preverified)
+        n.cs._try_add_vote = seen
+    t_start = time.perf_counter()
+    for n in nodes:                        # each dials the ones started
+        n.sw.config.persistent_peers = [
+            m.sw.node_info.listen_addr for m in nodes if m.sw._listener]
+        n.sw.start()
+    switches = [n.sw for n in nodes]
+    mesh_s = _p2p_wait(lambda: all(n.sw.n_peers() == len(nodes) - 1
+                                   for n in nodes), "testnet mesh", switches)
+    log(f"[p2p A] {len(nodes)} validators listening on "
+        f"{[n.sw.node_info.listen_addr for n in nodes]}, full mesh in "
+        f"{mesh_s:.3f} s")
+    # signed and forged envelopes (K3) into node 0
+    corpus = loadgen.build_corpus(random.Random(SEED), loadgen.Mix(
+        unsigned=0, signed=P2P_A_SIGNED, bad_sig=P2P_A_FORGED,
+        dup_frac=0.0), backend=be)
+    txs = [bytes.fromhex(e["tx"]) for e in corpus]
+    out, submit_s = loadgen.LoadGen(loadgen.broadcast_tx_sync(
+        nodes[0].mempool), corpus, workers=8).submit_each(corpus)
+    outcomes = [o for o, _ in out]
+    for tx, o in zip(txs, outcomes):
+        want = "admitted" if _envelope_kind(tx) == "signed" else "bad_sig"
+        require(o == want, f"node 0: a {_envelope_kind(tx)} envelope "
+                f"{o}, not {want}")
+    log(f"[p2p A] {len(txs)} envelopes into node 0 in {submit_s:.3f} s: "
+        f"{outcomes.count('admitted')} admitted, "
+        f"{outcomes.count('bad_sig')} bad_sig")
+    injected = []
+
+    def inject():
+        link = nodes[0].sw.get_peer(nodes[1].sw.node_info.id)
+        if link is not None and link.send(
+                VOTE_CHANNEL, M.encode_msg(M.VoteMessage(forged))):
+            injected.append(time.perf_counter())
+    _p2p_wait(lambda: nodes[0].cs.height >= fh, "forge height", switches)
+    inject()
+    require(injected, "the forged vote could not be sent")
+    _p2p_wait(lambda: (min(n.store.height for n in nodes) >= tip + P2P_A_MORE
+                       and all(n.mempool.size() == 0 for n in nodes)),
+              f"{P2P_A_MORE} heights past the tip", switches)
+    wall = time.perf_counter() - t_start
+    # the joiner: empty store, genesis state, dials all four
+    joiner = _p2p_node(gen, chain, plane, be, None, "joiner", joiner=True)
+    joiner.sw.config.persistent_peers = [n.sw.node_info.listen_addr
+                                         for n in nodes]
+    t_dial = time.perf_counter()
+    joiner.sw.start()
+    switches.append(joiner.sw)
+    _p2p_wait(lambda: joiner.sw.n_peers() == len(nodes), "joiner's links",
+              switches)
+    since = _recv_totals(joiner.sw)
+    t_links = time.perf_counter()
+    catch_up_s = _p2p_wait(lambda: joiner.bc._switched, "joiner's fast-sync",
+                           switches) + (t_links - t_dial)
+    sync_dt = time.perf_counter() - t_links
+    rates = _link_rates(joiner.sw, since, sync_dt)
+    synced = joiner.bc.state.last_block_height
+    at_switch = max(n.store.height for n in nodes)
+    switch_s = _p2p_wait(lambda: joiner.store.height >= at_switch,
+                         "joiner's catch-up in consensus", switches)
+    _p2p_wait(lambda: joiner.store.height >= at_switch + P2P_A_FOLLOW,
+              "joiner following", switches)
+    follow_s = time.perf_counter() - t_dial
+    every = nodes + [joiner]
+    sw_list = [n.sw for n in every]
+    link_totals = [(n.sw.node_info.moniker, sorted(
+        (p.mconn.send_monitor.total, p.mconn.recv_monitor.total)
+        for p in n.sw.peers())) for n in every]
+    faults = _stop_all(sw_list)
+    require(not faults, f"faults on stop: {faults[:3]}")
+    run_s = time.perf_counter() - t_start
+    win = joiner.bc.windows
+    log(f"[p2p A] joiner: fast-synced {synced} blocks in {catch_up_s:.3f} s "
+        f"from its first dial ({synced / catch_up_s:.1f} blocks/s; "
+        f"{len(win)} windows, {sum(w.lanes for w in win)} sigs, lookahead "
+        f"hits {joiner.bc.lookahead_hits}), switched to consensus and "
+        f"reached the net's height {at_switch} at switch {switch_s:.3f} s "
+        f"later, followed {P2P_A_FOLLOW} more heights ({follow_s:.3f} s "
+        f"from dial); bytes/s received per link over its sync "
+        f"{[round(r) for r in rates]} (cap 512,000)")
+    return {"nodes": nodes, "joiner": joiner, "chain": chain, "gen": gen,
+            "txs": txs, "forged": forged, "injected": injected,
+            "forged_counted": forged_counted, "evidence": evidence,
+            "commits": commits, "t_start": t_start, "wall": wall,
+            "tip": tip, "synced": synced, "catch_up_s": catch_up_s,
+            "switch_s": switch_s, "rates": rates, "run_s": run_s,
+            "link_totals": link_totals, "build_s": build_s}
+
+
+def check_p2p_testnet(ctx: dict) -> None:
+    """Cell A's agreement, store, app-hash, tx and forged-vote checks, and
+    its rates."""
+    import numpy as np
+    from tendermint_tpu_torch.abci.types import OK
+    nodes, joiner, tip = ctx["nodes"], ctx["joiner"], ctx["tip"]
+    every = nodes + [joiner]
+    top = min(n.store.height for n in every)
+    require(top >= tip + P2P_A_MORE + P2P_A_FOLLOW, f"stores reach {top}")
+    tallest = max(nodes, key=lambda n: n.store.height)
+    for h in range(1, top + 1):
+        ids = {n.store.load_block_meta(h).block_id.key() for n in every}
+        require(len(ids) == 1, f"nodes disagree at height {h}")
+    rng = np.random.default_rng(SEED)
+    for h in sorted(rng.choice(np.arange(1, tip), P2P_SAMPLE,
+                               replace=False)):
+        h = int(h)
+        for load in ("load_block", "load_seen_commit"):
+            a = getattr(joiner.store, load)(h).encode()
+            require(a == getattr(nodes[0].store, load)(h).encode(),
+                    f"joiner's {load}({h}) != validator 0's")
+    blocks = [tallest.store.load_block(h)
+              for h in range(1, tallest.store.height + 1)]
+    host = _host_app_hashes(blocks)
+    for n in every:
+        h = n.cs.state.last_block_height
+        require(n.cs.state.app_hash == host[h - 1],
+                f"{n.sw.node_info.moniker}: app hash at {h} != host "
+                f"kvstore run")
+    committed = {tx for b in blocks for tx in b.txs}
+    signed = [tx for tx in ctx["txs"] if _envelope_kind(tx) == "signed"]
+    forged = [tx for tx in ctx["txs"] if _envelope_kind(tx) == "forged"]
+    require(all(tx in committed for tx in signed),
+            "a signed envelope was never committed")
+    require(not any(tx in committed for tx in forged),
+            "a forged envelope was committed")
+    # every signed envelope reaches every validator (node 0 by submission,
+    # the others by gossip) and is admitted there, or found in its cache
+    # with no admission there, i.e. committed before it arrived
+    gossiped = []
+    for i, n in enumerate(nodes):
+        for tx in signed:
+            codes = n.admitted.get(tx, [])
+            require(codes, f"validator {i}: a signed envelope never "
+                    f"reached its mempool")
+            require(all(c in (None, OK) for c in codes),
+                    f"validator {i} rejected a signed envelope: {codes}")
+        require(not any(c == OK for tx in forged
+                        for c in n.admitted.get(tx, [])),
+                f"validator {i} admitted a forged envelope")
+        gossiped.append(sum(OK in n.admitted[tx] for tx in signed))
+    require(nodes[1].forged_seen, "the forged vote never reached node 1")
+    require(not ctx["forged_counted"],
+            f"nodes {ctx['forged_counted']} counted the forged vote")
+    require(not ctx["evidence"], "evidence fired in an honest net")
+    hs = range(tip + 1, tip + P2P_A_MORE + 1)
+    t_all = [max(t for _, t in ctx["commits"][h]) for h in hs]
+    lat = np.diff([ctx["t_start"]] + t_all)
+    rounds = [nodes[0].store.load_seen_commit(h).round() + 1 for h in hs]
+    steady = (len(t_all) - 1) / (t_all[-1] - t_all[0])
+    log(f"[p2p A] {len(nodes)} validators committed {P2P_A_MORE} heights "
+        f"past the tip in {ctx['wall']:.3f} s from their start "
+        f"({P2P_A_MORE / ctx['wall']:.3f} heights/s; {steady:.3f} heights/s "
+        f"from the first of them to the last); commit latency per "
+        f"height p50 {float(np.median(lat)):.3f} s, max "
+        f"{float(lat.max()):.3f} s ({', '.join(f'{x:.3f}' for x in lat)}); "
+        f"rounds per height {rounds}")
+    log(f"[p2p A] checks: {len(every)} stores agree on {top} heights, the "
+        f"joiner's blocks and seen commits == validator 0's on "
+        f"{P2P_SAMPLE} heights, every app hash == host kvstore run; "
+        f"{len(signed)} signed envelopes committed, each reaching all "
+        f"{len(nodes)} validators and rejected nowhere (admitted on "
+        f"validators 0-3: {gossiped}, the rest found committed on "
+        f"arrival), "
+        f"{len(forged)} forged ones admitted nowhere; the forged vote "
+        f"reached node 1 ({len(nodes[1].forged_seen)} times) and was "
+        f"counted by no node")
+    log(f"[p2p A] bytes (sent, received) per link over the whole run "
+        f"({ctx['run_s']:.3f} s): {ctx['link_totals']}")
+
+
+def p2p_fastsync_cell(be) -> dict:
+    """Cell B's chain and sources: BASELINE config 3's width (100
+    validators of power 10, a 12 KB kvstore tx a block) cut to
+    P2P_B_BLOCKS blocks, each height's commit signed by K3, served by
+    four source nodes (`BlockchainReactor(fast_sync=False)`, the JAX
+    `harness.fastsync_source` layout) sharing one store."""
+    from tendermint_tpu_torch.blockchain import replay as rp
+    from tendermint_tpu_torch.blockchain.reactor import BlockchainReactor
+    from tendermint_tpu_torch.scenarios import fixtures
+    chain_id = "p2p-fastsync"
+    privs, vs = fixtures.make_validators(P2P_B_VALS)
+    gen = fixtures.make_genesis(chain_id, privs)
+
+    def txs(h):
+        return rp.payload_txs(h, P2P_B_PAYLOAD)
+    hashes = fixtures.kvstore_app_hashes(P2P_B_BLOCKS, txs=txs)
+    t0 = time.perf_counter()
+    chain = fixtures.build_chain(privs, vs, chain_id, P2P_B_BLOCKS,
+                                 app_hashes=hashes, backend=be, txs=txs)
+    build_s = time.perf_counter() - t0
+    state, conns, store = _served(gen, chain)
+    sizes = [len(b.encode()) for b, _, _ in chain]
+    sources = [_p2p_switch(chain_id, f"source{i}", {
+        "blockchain": BlockchainReactor(state, conns.consensus, store,
+                                        fast_sync=False, backend=be)})
+        for i in range(P2P_B_SOURCES)]
+    for sw in sources:
+        sw.start()
+    log(f"[p2p B] fixture {P2P_B_BLOCKS} blocks x {P2P_B_VALS} "
+        f"validators signed on K3 one height a call in {build_s:.3f} s "
+        f"({P2P_B_BLOCKS / build_s:.1f} heights/s); encoded block "
+        f"{min(sizes)}-{max(sizes)} B (mean {sum(sizes) / len(sizes):.0f}"
+        f" B, {sum(sizes)} B in all); {P2P_B_SOURCES} sources on "
+        f"{[sw.node_info.listen_addr for sw in sources]}")
+    return {"chain": chain, "gen": gen, "privs": privs, "hashes": hashes,
+            "store": store, "sources": sources, "build_s": build_s,
+            "sizes": sizes}
+
+
+def phase_p2p_fastsync(be, cell: dict, liar: bool) -> dict:
+    """Cell B's sync: a fresh node dials the cell's four sources over TCP
+    at the default rates and fast-syncs to the tip less one, where its
+    `ConsensusReactor(fast_sync=True)` takes over.  With `liar`, source 0
+    serves the first block it is asked for at or above P2P_B_LIE_FROM
+    with one precommit signature of its LastCommit flipped."""
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.blockchain import messages as BM
+    from tendermint_tpu_torch.blockchain.reactor import BLOCKCHAIN_CHANNEL
+    from tendermint_tpu_torch.types import Block, Commit, Vote
+    chain, gen, sources = cell["chain"], cell["gen"], cell["sources"]
+    lie = {}
+    if liar:
+        reactor = sources[0].reactor("blockchain")
+        honest = reactor.receive
+        store = cell["store"]
+
+        def lying(ch_id, peer, raw):
+            msg = BM.decode_msg(raw)
+            if (isinstance(msg, BM.BlockRequest) and not lie and
+                    msg.height >= P2P_B_LIE_FROM):
+                block = store.load_block(msg.height)
+                lc = block.last_commit
+                v = lc.precommits[0]
+                sig = bytearray(v.signature)
+                sig[5] ^= 0x01
+                evil = Block(header=block.header, txs=block.txs,
+                             last_commit=Commit(lc.block_id, [Vote(**{
+                                 **v.__dict__, "signature": bytes(sig)})] +
+                                 list(lc.precommits[1:])))
+                lie.update(height=msg.height, to=peer.id)
+                peer.try_send(BLOCKCHAIN_CHANNEL, BM.encode_msg(
+                    BM.BlockResponse(evil.encode())))
+                return
+            honest(ch_id, peer, raw)
+        reactor.receive = lying
+    plane = BatchPlane(be)
+    node = _p2p_node(gen, chain, plane, be, None,
+                     "liar-syncer" if liar else "syncer", joiner=True)
+    node.sw.config.persistent_peers = [sw.node_info.listen_addr
+                                       for sw in sources]
+    evicted, redone = [], []
+    on_evict, redo = node.bc.pool.on_evict, node.bc.pool.redo
+    node.bc.pool.on_evict = lambda p, r: (evicted.append((p, r)),
+                                          on_evict(p, r))
+    node.bc.pool.redo = lambda h: (redone.append(h), redo(h))
+    tip = P2P_B_BLOCKS
+    switches = sources + [node.sw]
+    rates = []
+
+    def run():
+        t_dial = time.perf_counter()
+        node.sw.start()
+        _p2p_wait(lambda: node.sw.n_peers() == P2P_B_SOURCES,
+                  "syncer's links", switches)
+        since, t_links = _recv_totals(node.sw), time.perf_counter()
+        _p2p_wait(lambda: node.bc._switched and node.store.height >= tip - 1,
+                  "fast-sync to the tip less one", switches)
+        rates.extend(_link_rates(node.sw, since, time.perf_counter()
+                                 - t_links))
+        return time.perf_counter() - t_dial
+
+    sync_s, wall, busy, names = device_busy(run)
+    _p2p_wait(lambda: not node.cons.fast_sync, "switch to consensus",
+              switches)
+    took_over = node.cons.cs.height
+    faults = _stop_all([node.sw])
+    plane.stop()
+    if liar:
+        sources[0].reactor("blockchain").receive = honest
+    require(not faults, f"faults on stop: {faults[:3]}")
+    win = node.bc.windows
+    blocks = node.bc.state.last_block_height
+    sigs = sum(w.lanes for w in win)
+    steady = win[1:] or win
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    label = "liar run" if liar else "honest run"
+    log(f"[p2p B] {label}: {blocks} blocks, {sigs} sigs in {sync_s:.3f} s "
+        f"from the first dial: {blocks / sync_s:.1f} blocks/s, "
+        f"{sigs / sync_s:.0f} sigs/s; {len(win)} windows (steady mean: "
+        f"prepare {mean([w.prepare_s for w in steady]):.4f} s, verify "
+        f"{mean([w.verify_s for w in steady]):.4f} s, apply "
+        f"{mean([w.apply_s for w in steady]):.4f} s), lookahead hits "
+        f"{node.bc.lookahead_hits}; bytes/s received per link "
+        f"{[round(r) for r in rates]} (cap 512,000); device busy "
+        f"{busy:.3f} s of {wall:.3f} (busy share {busy / wall:.4f}; ms by "
+        f"name {names}); consensus took over at {took_over}")
+    return {**cell, "node": node, "lie": lie, "evicted": evicted,
+            "redone": redone, "took_over": took_over, "sync_s": sync_s,
+            "wall": wall, "busy": busy, "rates": rates, "liar": liar}
+
+
+def check_p2p_fastsync(ctx: dict) -> None:
+    """Cell B's store, app-hash, handoff and (with the liar) eviction
+    checks."""
+    import numpy as np
+    node, chain, tip = ctx["node"], ctx["chain"], P2P_B_BLOCKS
+    bc = node.bc
+    require(node.store.height >= tip - 1 and
+            bc.state.last_block_height >= tip - 1,
+            f"synced to {node.store.height}")
+    require(bc.state.app_hash == ctx["hashes"][tip - 1],
+            "app hash != host kvstore run")
+    require(ctx["took_over"] == bc.state.last_block_height + 1,
+            f"consensus took over at {ctx['took_over']}, not "
+            f"{bc.state.last_block_height + 1}")
+    rng = np.random.default_rng(SEED + ctx["liar"])
+    heights = sorted(int(h) for h in rng.choice(
+        np.arange(1, tip), P2P_SAMPLE, replace=False))
+    if ctx["liar"]:
+        heights = sorted(set(heights) | {ctx["lie"]["height"]})
+    for h in heights:
+        block, _, seen = chain[h - 1]
+        require(node.store.load_block(h).encode() == block.encode(),
+                f"stored block {h} != fixture")
+        require(node.store.load_seen_commit(h).encode() == seen.encode(),
+                f"stored seen commit {h} != fixture")
+    if ctx["liar"]:
+        lie, liar_id = ctx["lie"], ctx["sources"][0].node_info.id
+        require(lie, "the liar was never asked for a block to tamper")
+        require(ctx["evicted"] == [(liar_id,
+                                    f"bad block at height {lie['height']}")],
+                f"evictions {ctx['evicted']}")
+        require(ctx["redone"] == [lie["height"]],
+                f"redone heights {ctx['redone']}, tampered "
+                f"{lie['height']}")
+        require(node.sw.is_banned(liar_id), "the liar is not banned")
+        log(f"[p2p B] the liar served block {lie['height']} with a flipped "
+            f"precommit signature: blamed at that height, evicted and "
+            f"banned, the height re-fetched from an honest source; the "
+            f"sync completed")
+    else:
+        require(not ctx["evicted"] and not ctx["redone"],
+                f"honest run: evictions {ctx['evicted']}, redone "
+                f"{ctx['redone']}")
+    log(f"[p2p B] checks ({'liar' if ctx['liar'] else 'honest'} run): "
+        f"synced to {node.store.height}, blocks and seen commits == the "
+        f"fixture on {len(heights)} heights, app hash == host kvstore run, "
+        f"consensus took over at {ctx['took_over']}")
+
+
+def secret_rates(total: int = 8 << 20) -> tuple:
+    """(bytes/s sealed, bytes/s opened) by one direction of a
+    `SecretConnection` on this host, over `total` bytes of 1,029-byte
+    plaintexts (one MConnection packet of a full 1,024-byte chunk)."""
+    import os
+    from tendermint_tpu_torch.p2p import secret
+    key, mac = os.urandom(32), os.urandom(32)
+    sealer, opener = secret._Direction(key, mac), secret._Direction(key, mac)
+    pt = os.urandom(1029)
+    n = total // len(pt)
+    t0 = time.perf_counter()
+    frames = [sealer.seal(pt) for _ in range(n)]
+    t1 = time.perf_counter()
+    for f in frames:
+        require(opener.open(f) == pt, "secret connection: frame != sealed")
+    t2 = time.perf_counter()
+    return n * len(pt) / (t1 - t0), n * len(pt) / (t2 - t1)
+
+
+def phase_p2p() -> dict:
+    """Cells A and B on one recording `CudaBackend`, then every K1 call of
+    cell A and one of cell B's windows against the plain version, K2 at
+    both sets, K3 at one height of cell B and K5 at cell A's envelopes."""
+    from tendermint_tpu_torch.batchplane import BatchPlane
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    t0 = time.perf_counter()
+    seal, opened = secret_rates()
+    log(f"[p2p] one secret-connection direction on this host: seal "
+        f"{seal:.0f} B/s, open {opened:.0f} B/s (1,029-byte packets; a "
+        f"link's cap is 512,000 B/s each way)")
+    be = CudaBackend()
+    rec = _K1Recorder(be)
+    plane = BatchPlane(be)
+    try:
+        a = phase_p2p_testnet(be, plane)
+    finally:
+        plane.stop()
+    calls_a = list(rec.calls)
+    cell = p2p_fastsync_cell(be)
+    try:
+        b = phase_p2p_fastsync(be, cell, liar=False)
+        b_liar = phase_p2p_fastsync(be, cell, liar=True)
+    finally:
+        faults = _stop_all(cell["sources"])
+    require(not faults, f"sources' faults on stop: {faults[:3]}")
+    return {"backend": be, "a": a, "b": b, "b_liar": b_liar,
+            "calls_a": calls_a, "calls": list(rec.calls),
+            "wall": time.perf_counter() - t0}
+
+
+def check_p2p(ctx: dict, launches: dict) -> list:
+    """Cells A and B's checks, the kernels of the path against their plain
+    versions, and the path's K1 row (1P: templated K1 at cell B's median
+    window, counting the path's launches at its padded shape)."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.crypto.backend import _bucket
+    from tendermint_tpu_torch.mempool.mempool import _priority_digest
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    be = ctx["backend"]
+    check_p2p_testnet(ctx["a"])
+    check_p2p_fastsync(ctx["b"])
+    check_p2p_fastsync(ctx["b_liar"])
+    checked, bad, plain_s = _plain_k1(be, ctx["calls_a"])
+    require(checked and bad == 0, f"cell A: {bad} of {checked} K1 lanes "
+            f"!= plain")
+    # cell B's K1 calls, both runs: a window holds the blocks at hand, so
+    # at the links' rate most are far below P2P_WINDOW blocks
+    rest = ctx["calls"][len(ctx["calls_a"]):]
+    calls_b = sorted((c for c in rest if c[0] == "templated"),
+                     key=lambda c: len(c[4]))
+    lanes_b = [c for c in rest if c[0] == "grouped"]
+    require(calls_b, "cell B: no templated K1 call recorded")
+    window = calls_b[-1]                 # the largest, checked on every lane
+    checked_b, bad_b, plain_b = _plain_k1(be, [window] + lanes_b)
+    require(bad_b == 0, f"cell B: {bad_b} of {checked_b} K1 lanes != plain")
+    # K2 at both sets, K3 at one height of cell B, K5 at cell A's envelopes
+    for gen in (ctx["a"]["gen"], ctx["b"]["gen"]):
+        vals = gen.validator_set()
+        tbl, ok, v, _ = be.tables(vals.set_key(), vals.pubs_matrix())
+        ptbl, pok = ed.build_neg_comb_plain(be._t(vals.pubs_matrix()))
+        require(torch.equal(tbl[:, :, :v], ptbl) and torch.equal(ok[:v], pok),
+                f"K2 != plain at the {vals.size()}-key set")
+    privs = ctx["b"]["privs"]
+    vote = ctx["b"]["chain"][0][2].precommits[0]
+    template = np.frombuffer(vote.sign_bytes(ctx["b"]["gen"].chain_id),
+                             np.uint8).reshape(1, -1)
+    lanes = np.arange(P2P_B_VALS, dtype=np.int32)
+    args = be.sign_args([p.priv_key.seed for p in privs], lanes,
+                        np.zeros_like(lanes), template)
+    require(torch.equal(ed.sign_grouped_templated(*args),
+                        ed.sign_grouped_templated_plain(*args)),
+            "K3 != plain at a height of cell B")
+    env = ctx["a"]["txs"]             # tag, priority, pubkey, sig, payload
+    pubs, msgs, sigs = (np.frombuffer(b"".join(x), np.uint8).reshape(
+        len(env), -1) for x in (
+        [tx[2:34] for tx in env],
+        [_priority_digest(tx[1], tx[98:]) for tx in env],
+        [tx[34:98] for tx in env]))
+    base = ed.base_table(be.device)
+    got = ed.verify_batch(*map(be._t, (pubs, msgs, sigs)), base)
+    want = ed.verify_batch_plain(*map(be._t, (pubs, msgs, sigs)), base)
+    kinds = np.array([_envelope_kind(tx) == "signed" for tx in env])
+    require(torch.equal(got, want) and
+            (got.cpu().numpy() == kinds).all(),
+            "K5 != plain (or != the envelopes' kinds) at cell A's envelopes")
+    a_lanes = [c for c in ctx["calls_a"] if c[0] == "grouped"]
+    for cell, cs in (("A", sorted(len(c[4]) for c in ctx["calls_a"]
+                                  if c[0] == "templated")),
+                     ("B", [len(c[4]) for c in calls_b])):
+        log(f"[p2p] cell {cell}: {len(cs)} templated K1 calls, lanes min "
+            f"{cs[0] if cs else 0} / p50 {_pctl(cs, 0.5) if cs else 0} / "
+            f"max {cs[-1] if cs else 0}, "
+            f"{sum(n >= P2P_WINDOW * (P2P_A_VALS if cell == 'A' else P2P_B_VALS) for n in cs)} "
+            f"of a full {P2P_WINDOW}-block window")
+    for cell, cs in (("A", a_lanes), ("B", lanes_b)):
+        log(f"[p2p] cell {cell}: {len(cs)} K1 calls with per-lane keys "
+            f"(vote bursts), lanes {sorted(len(c[4]) for c in cs)}")
+    log(f"[p2p] every K1 call of cell A, templated and per-lane "
+        f"({len(ctx['calls_a']) - len(a_lanes)} + {len(a_lanes)} calls, "
+        f"{checked} lanes), and cell B's largest window and per-lane calls "
+        f"({1 + len(lanes_b)} calls, {checked_b} lanes) "
+        f"== plain ({plain_s + plain_b:.1f} s); K2 == plain at the "
+        f"{P2P_A_VALS}- and {P2P_B_VALS}-key sets; K3 == plain at a height "
+        f"of cell B; K5 == plain at cell A's {len(env)} envelopes; launches "
+        f"on the path {launches}; the phase {ctx['wall']:.1f} s")
+    # row 1P: templated K1 at cell B's median window
+    window = calls_b[len(calls_b) // 2]
+    kernel, plain, args, cost = _k1_call(be, window)
+
+    def padded(c):                     # a call's (lanes, templates) padded
+        return _bucket(len(c[4])), _bucket(len(c[3][2]))
+    at_shape = sum(c[0] == "templated" and padded(c) == padded(window) and
+                   c[1] == window[1] for c in ctx["calls"])
+    ms, got = cuda_ms(lambda: kernel(*args), 10)
+    plain_ms, want = cuda_ms(lambda: plain(*args), 1)
+    require(torch.equal(got, want), "K1 != plain at cell B's window")
+    require(got[:len(window[4])].cpu().numpy().tolist() ==
+            window[4].tolist(), "K1 at cell B's median window != the "
+            "reactor's mask")
+    return [{**_entry(
+        "verify_grouped_templated [p2p fast-sync median window]",
+        "tendermint_tpu_torch/csrc/verify_grouped.cu",
+        "tendermint_tpu/ops/ed25519.py:153", at_shape,
+        max_abs_err(got, want), ms, plain_ms, *cost(),
+        f"row 1P, cell B's median fast-sync window over the reactor: "
+        f"{len(window[4])} lanes ({P2P_B_VALS} validators x "
+        f"{len(window[4]) // P2P_B_VALS} blocks), padded to "
+        f"{args[3].shape[0]}"),
+        "shape": f"row 1P: {len(window[4])} lanes padded to "
+                 f"{args[3].shape[0]}, {args[5].shape[0]} padded templates "
+                 f"(cell B's median window)"}]
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -3128,6 +3989,8 @@ def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
 
 K5_TIMED_LANES = (32, 64, 1024, 4096, 65536)
 K5_ROW_LANES = 64
+K4_REPEATS = 10          # K4's readings at the part sets
+MESH_REPEATS = 10        # whole calls per mesh row, their median taken
 
 
 def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
@@ -3288,7 +4151,16 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     # K4 at the Merkle cell's part sets (2,048 full 64 KB parts); beside
     # it, at the trees' leaves (2,097,152 x 64 B), its rows before K7
     parts = torch.as_tensor(mk_ctx["blocks"], device=dev)
-    ms, got = cuda_ms(lambda: s256.sha256_prefixed(parts, 0), 10)
+    # the row's time: `k4_readings`' per-launch device time, taken before
+    # the fast-sync phase's profiles (see `check_merkle`); beside it the
+    # back-to-back mean here, at the end of the run, where the row's time
+    # was taken before
+    ms = mk_ctx["k4_ms"]
+    late_ms, got = cuda_ms(lambda: s256.sha256_prefixed(parts, 0),
+                           K4_REPEATS)
+    log(f"[kernels] K4 at the part sets: {ms:.4f} ms per launch (the "
+        f"profiler's median, before the fast-sync phase); back to back "
+        f"now, mean of {K4_REPEATS}: {late_ms:.4f} ms")
     plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(parts, 0), 0)
     require(torch.equal(got, want), "K4 != plain at the main path's shape")
     err = max_abs_err(got, want)
@@ -3487,7 +4359,10 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
              f"templated, {len(mask)} lanes"),
         )
         for name, line, fn, swaps, n_launch, cost, what in rows:
-            ms, got = cuda_ms(fn, 3)
+            ms, times, got = median_ms(fn, MESH_REPEATS)
+            log(f"[kernels] {name} [{label}] whole call, {MESH_REPEATS} "
+                f"calls: median {ms:.3f} ms, sorted "
+                f"{[round(t, 3) for t in times]}")
             plain_ms, want = plain_cuda_ms(fn, swaps)
             got, want = _flat_tuple(got), _flat_tuple(want)
             require(all(_same(g, w) for g, w in zip(got, want)),
@@ -3597,6 +4472,12 @@ def main() -> int:
     consensus = read_launches("consensus", ("K1", "K2"))
     check_consensus(cs_ctx, consensus)
     log(f"[consensus] phase and checks {time.perf_counter() - t_cs:.1f} s")
+    t_p2p = time.perf_counter()
+    kernels.reset_launches()                # the p2p path starts here
+    p2p_ctx = phase_p2p()
+    p2p = read_launches("p2p", ("K1", "K2", "K3", "K5"))
+    p2p_rows = check_p2p(p2p_ctx, p2p)
+    log(f"[p2p] phase and checks {time.perf_counter() - t_p2p:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -3621,6 +4502,7 @@ def main() -> int:
     line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
     line.append(light_kernel_row(lt_ctx, light))
     line += consensus_kernel_rows(cs_ctx, consensus)
+    line += p2p_rows
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))

@@ -1,15 +1,49 @@
 """Node configuration the port needs so far.
 
-Copy of `tendermint_tpu/config.py`'s `MempoolConfig` and
-`ConsensusConfig` (reference `config/config.go`, Mempool and Consensus
-sections) with the reference's defaults, and the consensus part of
-`test_config()`; the other sections come with the slices that read them.
+Copy of `tendermint_tpu/config.py`'s `P2PConfig`, `MempoolConfig` and
+`ConsensusConfig` (reference `config/config.go`, P2P, Mempool and
+Consensus sections) with the reference's defaults, and the consensus part
+of `test_config()`; the other sections come with the slices that read
+them.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+
+
+@dataclass
+class P2PConfig:
+    laddr: str = "tcp://0.0.0.0:26656"
+    seeds: list[str] = field(default_factory=list)
+    persistent_peers: list[str] = field(default_factory=list)
+    max_num_peers: int = 50
+    pex: bool = True
+    send_rate: int = 512_000             # B/s (reference p2p/connection.go:31)
+    recv_rate: int = 512_000
+    flush_throttle_ms: int = 100
+    handshake_timeout_s: float = 20.0
+    dial_timeout_s: float = 3.0
+    # the fuzzed connection's profile (`p2p/fuzz.py`, not ported yet: the
+    # port's switch refuses fuzz=True); kept so the sections round-trip
+    fuzz: bool = False
+    fuzz_drop_prob: float = 0.05
+    fuzz_delay_prob: float = 0.1
+    fuzz_max_delay: float = 0.05
+    # persistent-peer reconnect: exponential backoff capped in SECONDS
+    # (reference p2p/switch.go reconnectToPeer), a separate attempt cap,
+    # and +-jitter_frac jitter so a healed partition does not bring every
+    # dialer back at the same instant
+    reconnect_max_attempts: int = 16
+    reconnect_backoff_base_s: float = 1.0
+    reconnect_backoff_max_s: float = 32.0
+    reconnect_jitter_frac: float = 0.2
+    # peer misbehavior scoring (p2p/switch.py): strikes accumulate per
+    # peer id (across reconnects); at ban_score the peer is evicted and
+    # refused in dial/accept for ban_window_s
+    misbehavior_ban_score: float = 3.0
+    misbehavior_ban_window_s: float = 30.0
 
 
 @dataclass
@@ -81,6 +115,7 @@ class ConsensusConfig:
 
 @dataclass
 class Config:
+    p2p: P2PConfig = field(default_factory=P2PConfig)
     mempool: MempoolConfig = field(default_factory=MempoolConfig)
     consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
 
