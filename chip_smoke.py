@@ -50,10 +50,11 @@ Phases, in order; any mismatch or exception exits non-zero:
       shard) and one of its windows through that backend's
       `verify_grouped` with the messages assembled on the host (K1 with
       per-lane keys and messages per shard);
-   d. BASELINE config 3 at its full 100,000 blocks x 100 validators
-      (fixture signed by K3): `replay_pipelined` with a `BlockStore` on
-      `MemDB`, then two pairs of `replay_pipelined` without a store and
-      the serial `replay` (the second pair on the first 20,000 blocks),
+   d. BASELINE config 3's width, 100 validators, at 50,000 of its
+      100,000 blocks (fixture signed by K3): `replay_pipelined` with a
+      `BlockStore` on `MemDB`, then two pairs of `replay_pipelined`
+      without a store and the serial `replay` (the second pair on the
+      first 10,000 blocks),
       each on a fresh state and under `torch.profiler`'s CUDA
       activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
       K1 launches, device-idle share);
@@ -89,10 +90,25 @@ Phases, in order; any mismatch or exception exits non-zero:
       link; after 10 more heights a fifth node with an empty store
       fast-syncs through `BlockchainReactor` (K1 per 64-block window),
       switches to consensus and follows 3 more heights.  Cell B, BASELINE
-      config 3's width cut to 2,000 blocks (100 validators, a 12 KB tx a
+      config 3's width cut to 1,000 blocks (100 validators, a 12 KB tx a
       block, each height's commit signed by K3) served by four source
       nodes and fast-synced by a fifth, under `torch.profiler`, then again
       with one source serving a block with a flipped precommit signature;
+   h. the node as its users start it: cell C, BASELINE config 1 as `cli
+      testnet --n 4` writes it, four `cli node` processes on the card
+      (kvstore, SQLite stores, the JAX P2P, consensus and mempool
+      defaults), nodes 1-3 knowing node 0 only and meshing through PEX;
+      300 signed envelopes (K3 in this process), 20 of them over
+      `broadcast_tx_commit` and the rest over `broadcast_tx_sync`, and
+      20 forged ones, spread over the four RPC ports; node 3 SIGKILLed after 20 heights, down for 10,
+      restarted with `--fast-sync` and followed; every node read over
+      RPC (blocks, commits, `tx?hash=`, `abci_query`), then stopped with
+      SIGINT.  Cell D, one validator `Node` in this process on a tmp
+      SQLite home, its kvstore behind `abci/server.ABCIServer` in a
+      child process, on a `CudaBackend` that records every K1, K2 and K5
+      call: 80 envelopes over HTTP, a `WSClient` on NewBlock, a
+      conflicting precommit signed with the validator's key fed to the
+      consensus state, a stop and a restart from the home;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -132,7 +148,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    at the tip, the liar blamed on its height, evicted and banned; every
    K1 call of cell A (templated and per-lane) and of cell B the largest
    window and every per-lane call equal to the plain version, K2, K3 and
-   K5 on the path's inputs too; log heights per
+   K5 on the path's inputs too; in cell C every node on one block hash
+   and app hash per height, each signed envelope committed once and
+   found and read back on every node, no forged one in any block, each
+   node process holding a CUDA context, no node running nvcc, every node
+   exiting 0 after SIGINT; in cell D every K1, K2 and K5 call equal to
+   the plain version on every lane, the evidence served over RPC, the
+   app hash kept across the restart; log heights per
    second, commit latency, rounds, the share
    of received votes pre-verified on K1, scalar verifies, K1 launches
    and lanes, the flush sizes, the thread CPU of scalar verifies,
@@ -146,7 +168,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    65,536-lane slices, and at the consensus net's median vote burst and
    median LastCommit, rows 1C and 6C, each with the net's launches at
    that call's shape, and at cell B's fast-sync window over the reactor,
-   row 1P, with the p2p path's launches at its shape), and its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
+   row 1P, with the p2p path's launches at its shape; K1 at cell D's
+   median LastCommit, K5 at its median envelope flush and K2 at its
+   1-key set, rows 1N, 7N and 2N, with the node path's launches), and
+   its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64; K4 at the part sets, with its chain bound
    `chain_bound_ms` beside the operations bound, and beside it at the
    trees' leaves, each shape's route logged; K4's time is the median of
@@ -1859,8 +1884,9 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 
 # -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
 
-FS_BLOCKS = 100_000                     # BASELINE config 3: 160 windows
-FS_PAIR2_BLOCKS = 20_000                # the second pair's depth: 32 windows
+FS_BLOCKS = 50_000                      # BASELINE config 3's width cut to
+#                                         half its depth: 80 windows
+FS_PAIR2_BLOCKS = 10_000                # the second pair's depth: 16 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
 FS_TIMED_CALLS = 10                     # whole-call timings, each route
@@ -1930,7 +1956,7 @@ def _fs_run(label: str, chain, be, pipelined: bool, n: int,
 
 
 def phase_fastsync() -> dict:
-    """BASELINE config 3 at its full 100,000 blocks x 100 validators: sign
+    """BASELINE config 3's width at FS_BLOCKS of its 100,000 blocks: sign
     the chain (K3), then replay it on fresh states: the pipeline with a
     `BlockStore` on `MemDB` (each block stored before it is applied, the
     state saved after every block), then two pairs, in turn, of the
@@ -3096,10 +3122,10 @@ P2P_A_MORE, P2P_A_FOLLOW = 10, 3         # heights before the joiner dials,
 #                                          and after it switches
 P2P_A_SIGNED, P2P_A_FORGED = 300, 16     # envelope txs submitted to node 0
 P2P_A_FORGE_AT = 3                       # the forged vote, heights past tip
-P2P_B_VALS, P2P_B_BLOCKS = 100, 2000     # BASELINE config 3's width, cut
+P2P_B_VALS, P2P_B_BLOCKS = 100, 1000     # BASELINE config 3's width, cut
 P2P_B_SOURCES = 4
 P2P_B_PAYLOAD = 12 * 1024                # `replay.build_chain`'s kvstore tx
-P2P_B_LIE_FROM = 1000                    # the liar's first tampered height
+P2P_B_LIE_FROM = 500                     # the liar's first tampered height
 P2P_WINDOW = 64                          # blocks per K1 call (the reactor's)
 P2P_SAMPLE = 16                          # stored blocks checked
 P2P_DEADLINE_S = 600.0
@@ -3842,6 +3868,697 @@ def check_p2p(ctx: dict, launches: dict) -> list:
                  f"(cell B's median window)"}]
 
 
+# -- the node as its users start it: cells C and D ----------------------
+
+CLI_NODES = 4                            # BASELINE config 1's testnet
+CLI_SIGNED, CLI_COMMIT, CLI_FORGED = 300, 20, 20   # envelopes (K3)
+CLI_KILL_AT, CLI_DOWN, CLI_FOLLOW = 20, 10, 3      # heights
+CLI_PEX_S = 30.0                # the PEX ensure interval (p2p/pex.py:23)
+CLI_UP_S = 180.0                # a node process must answer RPC by then
+CLI_DEADLINE_S = 300.0          # each wait of the cell
+CLI_STOP_S = 60.0               # a node must exit by then after SIGINT
+NODE_SIGNED, NODE_COMMIT, NODE_FORGED = 64, 8, 8   # cell D's envelopes
+NODE_HEIGHTS = 8                # cell D's node runs until this height
+
+
+def _free_base_port(n: int) -> int:
+    """The first base port below the ephemeral range with `n` consecutive
+    ports free to bind on every address."""
+    import socket
+    for base in range(26000, 32000, 50):
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                socks.append(s)
+                s.bind(("0.0.0.0", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError("no free block of ports in 26000-32000")
+
+
+def _rpc(port: int, method: str, timeout: float = 70.0, **params):
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    return HTTPClient(f"http://127.0.0.1:{port}", timeout).call(method,
+                                                               **params)
+
+
+def _repo_env() -> dict:
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _cli(*args, **popen):
+    """`python -m tendermint_tpu_torch.cli <args>` from the repository
+    root, as a user starts it."""
+    import os
+    return subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch.cli", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=_repo_env(),
+        **popen)
+
+
+def _tail(path: str, n: int = 40) -> str:
+    with open(path, errors="replace") as f:
+        return "".join(f.readlines()[-n:])
+
+
+def _kernel_builds() -> list:
+    """(name, size, mtime) of every file under build/kernels (none while
+    nothing was built)."""
+    from tendermint_tpu_torch.ops import kernels
+    d = kernels.BUILD_DIR
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in d.iterdir()) if d.is_dir() else []
+
+
+def _compute_apps() -> str:
+    """nvidia-smi's compute processes (pid, used MiB) and the card's used
+    memory.  In a container nvidia-smi may not see the container's pids
+    (the card's machine lists one process, pid 1, for all of them), so
+    `_holds_cuda_context` is the per-process check."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().replace("\n", "; ") + (
+        "; card memory.used " + subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+
+
+def _holds_cuda_context(pid: int) -> bool:
+    """Whether process `pid` has `libcuda.so` mapped and the card's
+    device files open (what creating a CUDA context does), read from
+    /proc."""
+    import os
+    fd_dir = f"/proc/{pid}/fd"
+    devices = set()
+    for fd in os.listdir(fd_dir):
+        try:
+            devices.add(os.readlink(os.path.join(fd_dir, fd)))
+        except OSError:
+            continue
+    with open(f"/proc/{pid}/maps") as f:
+        libcuda = "libcuda.so" in f.read()
+    return libcuda and "/dev/nvidiactl" in devices and any(
+        d.startswith("/dev/nvidia") and d[11:].isdigit() for d in devices)
+
+
+class _CliNet:
+    """Cell C's node processes: `cli node --home nodeI` each, its output
+    in nodeI/node.log, its RPC port from `cli testnet`'s layout; `flags`
+    go to every `cli node`."""
+
+    def __init__(self, root: str, base: int, flags=()):
+        import os
+        self.root, self.base, self.flags = root, base, tuple(flags)
+        self.homes = [os.path.join(root, f"node{i}")
+                      for i in range(CLI_NODES)]
+        self.ports = [base + 1 + 2 * i for i in range(CLI_NODES)]
+        self.procs: list = [None] * CLI_NODES
+        self.logs = [os.path.join(h, "node.log") for h in self.homes]
+
+    def start(self, i: int, *flags) -> None:
+        with open(self.logs[i], "a") as f:
+            self.procs[i] = _cli("--home", self.homes[i], "node",
+                                 *self.flags, *flags,
+                                 stdout=f, stderr=subprocess.STDOUT,
+                                 start_new_session=True)
+
+    def alive(self, i: int) -> None:
+        rc = self.procs[i].poll()
+        require(rc is None, f"node{i} exited with {rc}:\n"
+                f"{_tail(self.logs[i])}")
+
+    def wait_up(self, i: int) -> float:
+        t0 = time.perf_counter()
+        while True:
+            self.alive(i)
+            try:
+                _rpc(self.ports[i], "status", timeout=5)
+                return time.perf_counter() - t0
+            except OSError:
+                pass
+            require(time.perf_counter() - t0 < CLI_UP_S,
+                    f"node{i} answered no RPC in {CLI_UP_S} s:\n"
+                    f"{_tail(self.logs[i])}")
+            time.sleep(0.2)
+
+    def height(self, i: int) -> int:
+        return _rpc(self.ports[i], "status")["latest_block_height"]
+
+    def wait(self, cond, what: str, nodes) -> float:
+        """Seconds until `cond()`; fails past the deadline or when one
+        of `nodes` has exited."""
+        t0 = time.perf_counter()
+        while not cond():
+            for i in nodes:
+                self.alive(i)
+            require(time.perf_counter() - t0 < CLI_DEADLINE_S,
+                    f"cell C: {what} not done after {CLI_DEADLINE_S} s")
+            time.sleep(0.2)
+        return time.perf_counter() - t0
+
+    def kill_all(self) -> None:
+        for p in self.procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_cli_testnet(be, node_flags=()) -> dict:
+    """Cell C, BASELINE config 1 as its users start it: `cli testnet --n
+    4` writes the homes, four `cli node` processes run on the card
+    (kvstore, SQLite stores, the JAX P2P, consensus and mempool
+    defaults), nodes 1-3 knowing only node 0 and meshing through PEX;
+    signed envelopes (K3 here) over `broadcast_tx_sync` and
+    `broadcast_tx_commit` spread over the four RPC ports, forged ones
+    refused; node 3 killed with SIGKILL after 20 heights, left down for
+    10, restarted with `--fast-sync` and followed; every node read over
+    RPC, then stopped with SIGINT.  `node_flags` (e.g. a CPU backend)
+    are for rehearsals off the card."""
+    import random
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from tendermint_tpu_torch.scenarios import loadgen
+    builds = _kernel_builds()
+    tmp = tempfile.TemporaryDirectory(prefix="cli-testnet-")
+    base = _free_base_port(2 * CLI_NODES)
+    rc = _cli("testnet", "--n", str(CLI_NODES), "--output", tmp.name,
+              "--chain-id", "cli-testnet", "--base-port", str(base)).wait()
+    require(rc == 0, f"cli testnet exited with {rc}")
+    net = _CliNet(tmp.name, base, node_flags)
+    corpus = loadgen.build_corpus(random.Random(SEED + 12), loadgen.Mix(
+        unsigned=0, signed=CLI_SIGNED, bad_sig=CLI_FORGED, dup_frac=0.0),
+        backend=be)
+    txs = [bytes.fromhex(e["tx"]) for e in corpus]
+    signed = [tx for tx in txs if _envelope_kind(tx) == "signed"]
+    forged = [tx for tx in txs if _envelope_kind(tx) == "forged"]
+    apps_before = _compute_apps()
+    try:
+        t0 = time.perf_counter()
+        for i in range(CLI_NODES):
+            net.start(i)
+        up = [net.wait_up(i) for i in range(CLI_NODES)]
+        t_up = time.perf_counter()
+        log(f"[cli C] {CLI_NODES} `cli node` processes on ports "
+            f"{base}-{base + 2 * CLI_NODES - 1} answered RPC "
+            f"{t_up - t0:.3f} s after the first started "
+            f"({', '.join(f'{u:.3f}' for u in up)} s each in turn)")
+        h_first = [net.height(i) for i in range(CLI_NODES)]
+        t_traffic = time.perf_counter()
+
+        def sync(k):
+            tx = txs_sync[k]
+            return _rpc(net.ports[k % CLI_NODES], "broadcast_tx_sync",
+                        tx="0x" + tx.hex())["code"]
+
+        def commit(k):
+            t = time.perf_counter()
+            r = _rpc(net.ports[k % CLI_NODES], "broadcast_tx_commit",
+                     tx="0x" + signed[k].hex())
+            return time.perf_counter() - t, r
+
+        txs_sync = signed[CLI_COMMIT:] + forged
+        with ThreadPoolExecutor(CLI_COMMIT + 8) as pool:
+            commits = [pool.submit(commit, k) for k in range(CLI_COMMIT)]
+            codes = list(pool.map(sync, range(len(txs_sync))))
+            commits = [f.result() for f in commits]
+        for tx, code in zip(txs_sync, codes):
+            want_ok = _envelope_kind(tx) == "signed"
+            require((code == 0) == want_ok, f"a {_envelope_kind(tx)} "
+                    f"envelope got check_tx code {code}")
+        for _, r in commits:
+            require(r["check_tx"]["code"] == 0 and
+                    r["deliver_tx"]["code"] == 0 and r["height"] > 0,
+                    f"broadcast_tx_commit: {r}")
+        lat = sorted(t for t, _ in commits)
+        log(f"[cli C] {len(txs_sync)} envelopes over broadcast_tx_sync "
+            f"and {CLI_COMMIT} over broadcast_tx_commit, spread over the "
+            f"4 RPC ports, in {time.perf_counter() - t_traffic:.3f} s; "
+            f"every signed one admitted (code 0), every forged one "
+            f"refused (codes {sorted(set(c for c in codes if c))}); "
+            f"broadcast_tx_commit as the client saw it: p50 "
+            f"{_pctl(lat, 0.5):.3f} s, p99 {_pctl(lat, 0.99):.3f} s, max "
+            f"{lat[-1]:.3f} s")
+        mesh = {}
+
+        def meshed():
+            if not mesh and all(_rpc(p, "net_info")["n_peers"] ==
+                                CLI_NODES - 1 for p in net.ports):
+                mesh["s"] = time.perf_counter() - t_up
+            return bool(mesh)
+        net.wait(meshed, "the PEX mesh", range(CLI_NODES))
+        require(mesh["s"] <= 2 * CLI_PEX_S + 15.0,
+                f"cell C: the full mesh took {mesh['s']:.1f} s from the "
+                f"last node's start, past two PEX ensure intervals")
+        log(f"[cli C] full mesh through PEX (nodes 1-3 started knowing "
+            f"node 0 only): every net_info lists {CLI_NODES - 1} peers "
+            f"{mesh['s']:.3f} s after the last node answered RPC")
+        net.wait(lambda: min(net.height(i) for i in range(CLI_NODES)) >=
+                 CLI_KILL_AT and all(
+                     _rpc(p, "num_unconfirmed_txs")["n_txs"] == 0
+                     for p in net.ports),
+                 f"{CLI_KILL_AT} heights and empty mempools",
+                 range(CLI_NODES))
+        t_kill = time.perf_counter()
+        h_kill = net.height(0)
+        run_s = t_kill - t_up
+        rate = (h_kill - max(h_first)) / (t_kill - t_traffic)
+        net.procs[3].send_signal(signal.SIGKILL)
+        net.procs[3].wait()
+        net.wait(lambda: min(net.height(i) for i in range(3)) >=
+                 h_kill + CLI_DOWN, f"{CLI_DOWN} heights without node 3",
+                 range(3))
+        h_restart = net.height(0)
+        t_restart = time.perf_counter()
+        net.start(3, "--fast-sync")
+        net.wait_up(3)
+        up3 = time.perf_counter() - t_restart
+        catch = net.wait(lambda: net.height(3) >= h_restart,
+                         "node 3's catch-up", range(CLI_NODES))
+        catch_s = time.perf_counter() - t_restart
+        switch = net.wait(lambda: "fast-sync caught up" in open(
+            net.logs[3], errors="replace").read(), "node 3's switch to "
+            "consensus", range(CLI_NODES))
+        switch_s = time.perf_counter() - t_restart
+        h_follow = net.height(0) + CLI_FOLLOW
+        net.wait(lambda: net.height(3) >= h_follow, "node 3 following",
+                 range(CLI_NODES))
+        follow_s = time.perf_counter() - t_restart
+        log(f"[cli C] {CLI_NODES} nodes committed {h_kill - max(h_first)} "
+            f"heights in {t_kill - t_traffic:.3f} s from the first "
+            f"envelope ({rate:.3f} heights/s); node 3 SIGKILLed at height "
+            f"{h_kill}, the other three reached {h_restart} without it; "
+            f"restarted with --fast-sync it answered RPC in {up3:.3f} s, "
+            f"caught up to {h_restart} {catch_s:.3f} s after the restart "
+            f"(the wait {catch:.3f} s), switched to consensus at "
+            f"{switch_s:.3f} s (the wait {switch:.3f} s) and followed "
+            f"{CLI_FOLLOW} more heights by {follow_s:.3f} s")
+        apps = _compute_apps()
+        pids = [p.pid for p in net.procs]
+        contexts = [_holds_cuda_context(pid) for pid in pids]
+        log(f"[cli C] nvidia-smi compute apps (pid, used memory): {apps} "
+            f"before the nodes {apps_before}; the nodes' pids {pids}, "
+            f"each with libcuda mapped and the card open: "
+            f"{contexts}")
+        reading = read_cli_testnet(net, signed, forged)
+        for i in range(CLI_NODES):
+            net.alive(i)
+            net.procs[i].send_signal(signal.SIGINT)
+        rcs = []
+        for i, p in enumerate(net.procs):
+            try:
+                rcs.append(p.wait(CLI_STOP_S))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        require(rcs == [0] * CLI_NODES, f"exit codes after SIGINT {rcs}:\n"
+                + "\n".join(_tail(lg, 15) for lg in net.logs))
+        require(_kernel_builds() == builds,
+                "build/kernels changed while the node processes ran")
+        return {**reading, "pids": pids, "apps": apps, "rcs": rcs,
+                "contexts": contexts,
+                "lat": lat, "mesh_s": mesh["s"], "rate": rate,
+                "h_kill": h_kill, "h_restart": h_restart,
+                "catch_s": catch_s, "switch_s": switch_s,
+                "follow_s": follow_s, "run_s": run_s,
+                "wall": time.perf_counter() - t0}
+    except BaseException:
+        for lg in net.logs:
+            log(f"[cli C] {lg}:\n{_tail(lg)}")
+        raise
+    finally:
+        net.kill_all()
+        tmp.cleanup()
+
+
+def read_cli_testnet(net, signed: list, forged: list) -> dict:
+    """Every node's blocks, commits, tx lookups and app queries, read over
+    RPC while the nodes run."""
+    from concurrent.futures import ThreadPoolExecutor
+    from tendermint_tpu_torch.abci.app import create_app
+    from tendermint_tpu_torch.types import merkle
+    top = min(net.height(i) for i in range(CLI_NODES))
+    blocks = {}
+    for h in range(1, top + 1):
+        seen = set()
+        for p in net.ports:
+            b = _rpc(p, "block", height=h)["block"]
+            c = _rpc(p, "commit", height=h)
+            require(c["block_id"]["hash"] == b["block_hash"],
+                    f"port {p}: commit and block disagree at {h}")
+            seen.add((b["block_hash"], b["header"]["app_hash"]))
+            blocks.setdefault(h, b)
+        require(len(seen) == 1, f"nodes disagree at height {h}: {seen}")
+    txs = [bytes.fromhex(t) for h in sorted(blocks)
+           for t in blocks[h]["txs"]]
+    require(not set(forged) & set(txs), "a forged envelope was committed")
+    host = create_app("kvstore")
+    for tx in txs:
+        host.deliver_tx(tx)
+    for tx in signed:
+        require(txs.count(tx) == 1, f"a signed envelope committed "
+                f"{txs.count(tx)} times")
+    def lookup(p, tx):
+        r = _rpc(p, "tx", hash=merkle.leaf_hash(tx).hex())
+        require(bytes.fromhex(r["tx"]) == tx and r["tx_result"][
+            "code"] == 0 and bytes.fromhex(blocks[r["height"]]["txs"][
+                r["index"]]) == tx, f"port {p}: tx lookup {r}")
+        key = tx.split(b"=", 1)[0]
+        q = _rpc(p, "abci_query", data=key.hex())
+        require(bytes.fromhex(q["value"]) == host.state[key],
+                f"port {p}: an envelope's key reads back wrong")
+    with ThreadPoolExecutor(16) as pool:
+        for f in [pool.submit(lookup, p, tx) for p in net.ports
+                  for tx in signed]:
+            f.result()
+    return {"top": top, "n_txs": len(txs)}
+
+
+def check_cli_testnet(ctx: dict) -> None:
+    """Cell C's checks that need no RPC: CUDA contexts and its figures."""
+    require(all(ctx["contexts"]), f"node pids {ctx['pids']}: CUDA "
+            f"context {ctx['contexts']}")
+    log(f"[cli C] checks: {CLI_NODES} `cli node` processes, each holding "
+        f"a CUDA context (nvidia-smi: {ctx['apps']}), meshed through PEX "
+        f"in {ctx['mesh_s']:.3f} s; every node gives one block hash and "
+        f"app hash at each of {ctx['top']} heights (commit and block "
+        f"routes); {CLI_SIGNED} signed envelopes each committed once "
+        f"({ctx['n_txs']} txs in all), found by tx?hash= and read back by "
+        f"abci_query on every node; no forged envelope in any block; "
+        f"build/kernels unchanged (no node ran nvcc); exit codes after "
+        f"SIGINT {ctx['rcs']}; {ctx['rate']:.3f} heights/s, "
+        f"broadcast_tx_commit p50 {_pctl(ctx['lat'], 0.5):.3f} s / p99 "
+        f"{_pctl(ctx['lat'], 0.99):.3f} s, node 3 caught up in "
+        f"{ctx['catch_s']:.3f} s and switched at {ctx['switch_s']:.3f} s "
+        f"after its restart; the cell {ctx['wall']:.1f} s")
+
+
+ABCI_CHILD = """
+import signal, sys
+from tendermint_tpu_torch.abci.app import create_app
+from tendermint_tpu_torch.abci.server import ABCIServer
+srv = ABCIServer(create_app("kvstore"), "tcp://127.0.0.1:0")
+srv.start()
+print(srv.addr, flush=True)
+signal.sigwait({signal.SIGTERM})
+"""
+
+
+class _RawRecorder:
+    """Wraps a backend's raw-lane verify (`verify_batch`: K5 on
+    `CudaBackend`) to keep each call's lanes and mask."""
+
+    def __init__(self, be):
+        import threading
+        import numpy as np
+        self.calls = []
+        lock, route = threading.Lock(), be.verify_batch
+
+        def recorded(pubkeys, msgs, sigs):
+            out = route(pubkeys, msgs, sigs)
+            if len(out):
+                with lock:
+                    self.calls.append((*(np.array(a) for a in (
+                        pubkeys, msgs, sigs)), out.copy()))
+            return out
+        be.verify_batch = recorded
+
+
+def _node_home(root: str):
+    """A one-validator home as `cli init` writes it, from the seed."""
+    import os
+    from tendermint_tpu_torch.config import (Config, config_file,
+                                             save_config_file)
+    from tendermint_tpu_torch.types import (GenesisDoc, GenesisValidator,
+                                            PrivKey, PrivValidator)
+    pv = PrivValidator(PrivKey(hashlib.sha256(b"%d/node" % SEED).digest()),
+                       os.path.join(root, "priv_validator.json"))
+    pv.save()
+    GenesisDoc(chain_id="node-cell", validators=[GenesisValidator(
+        pv.pub_key.bytes_, 10)], genesis_time_ns=1_000_000_000).save(
+            os.path.join(root, "genesis.json"))
+    cfg = Config()
+    cfg.base.home = root
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.laddr = ""
+    save_config_file(cfg, config_file(root))
+    return cfg, pv
+
+
+def phase_node(be) -> dict:
+    """Cell D: one validator `Node` in process on a tmp home (SQLite), its
+    app the kvstore behind `abci/server.ABCIServer` in a child process
+    (`proxy_app` tcp://), on a backend that records every K1, K2 and K5
+    call; envelopes over HTTP, a `WSClient` on NewBlock, a conflicting
+    precommit signed with the validator's key fed to the consensus state,
+    then a stop and a restart from the home."""
+    import random
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from tendermint_tpu_torch.config import config_file, load_config_file
+    from tendermint_tpu_torch.consensus.state import STEP_NEW_HEIGHT
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.rpc.client import HTTPClient, WSClient
+    from tendermint_tpu_torch.scenarios import loadgen
+    from tendermint_tpu_torch.types import Vote, ZERO_BLOCK_ID
+    from tendermint_tpu_torch.types import events as ev
+    raw = _RawRecorder(be)
+    tmp = tempfile.TemporaryDirectory(prefix="node-cell-")
+    child = subprocess.Popen([sys.executable, "-c", ABCI_CHILD],
+                             env=_repo_env(), stdout=subprocess.PIPE,
+                             text=True)
+    nodes = []
+    try:
+        addr = child.stdout.readline().strip()
+        require(addr.startswith("tcp://"), f"ABCI server said {addr!r}")
+        _, pv = _node_home(tmp.name)
+        cfg = load_config_file(config_file(tmp.name))
+        cfg.base.home = tmp.name
+        cfg.base.proxy_app = addr
+        t0 = time.perf_counter()
+        node = Node(cfg, backend=be)
+        nodes.append(node)
+        node.start()
+        boot_s = time.perf_counter() - t0
+        http = HTTPClient(node.rpc_server.addr)
+        ws = WSClient(node.rpc_server.addr)
+        ws.subscribe(ev.NEW_BLOCK)
+        events = []
+        reader = threading.Thread(target=lambda: _ws_drain(ws, events),
+                                  daemon=True)
+        reader.start()
+        corpus = loadgen.build_corpus(random.Random(SEED + 13), loadgen.Mix(
+            unsigned=0, signed=NODE_SIGNED, bad_sig=NODE_FORGED,
+            dup_frac=0.0), backend=be)
+        txs = [bytes.fromhex(e["tx"]) for e in corpus]
+        signed = [tx for tx in txs if _envelope_kind(tx) == "signed"]
+        rest = signed[NODE_COMMIT:] + [tx for tx in txs
+                                       if _envelope_kind(tx) == "forged"]
+        with ThreadPoolExecutor(NODE_COMMIT + 4) as pool:
+            com = [pool.submit(http.call, "broadcast_tx_commit",
+                               tx="0x" + tx.hex())
+                   for tx in signed[:NODE_COMMIT]]
+            codes = list(pool.map(lambda tx: HTTPClient(
+                node.rpc_server.addr).call("broadcast_tx_sync",
+                                           tx="0x" + tx.hex())["code"],
+                rest))
+            com = [f.result() for f in com]
+        for tx, code in zip(rest, codes):
+            require((code == 0) == (_envelope_kind(tx) == "signed"),
+                    f"cell D: a {_envelope_kind(tx)} envelope got {code}")
+        require(all(r["deliver_tx"]["code"] == 0 for r in com),
+                f"cell D: broadcast_tx_commit {com}")
+        # the conflicting precommit: the validator's own precommit of the
+        # last height, re-signed for nil, fed while the state waits out
+        # the commit timeout (its LastCommit still takes that height)
+        cs = node.consensus
+        for _ in range(200):
+            with cs._mtx:
+                own = (cs.last_commit.get_by_index(0)
+                       if cs.step == STEP_NEW_HEIGHT and
+                       cs.last_commit is not None else None)
+            if own is not None:
+                nil = Vote(**{**own.__dict__, "block_id": ZERO_BLOCK_ID,
+                              "signature": b""})
+                nil = Vote(**{**nil.__dict__, "signature": pv.priv_key.sign(
+                    nil.sign_bytes(node.genesis_doc.chain_id))})
+                cs.add_vote(nil, peer_id="smoke")
+                t_ev = time.perf_counter()
+                while (not http.evidence()["count"] and
+                       time.perf_counter() - t_ev < 2.0):
+                    time.sleep(0.02)
+                if http.evidence()["count"]:
+                    break
+            time.sleep(0.05)
+        evidence = http.evidence()
+        require(evidence["count"] == 1 and evidence["evidence"][0][
+            "vote_a"]["validator"] == pv.address.hex(),
+            f"cell D: the evidence route gave {evidence}")
+        while node.block_store.height < NODE_HEIGHTS:
+            require(node.fault() is None, f"cell D: {node.fault()!r}")
+            time.sleep(0.05)
+        status = http.status()
+        ws.close()
+        reader.join(5)
+        app_hash, height = node.state.app_hash, node.block_store.height
+        nodes.remove(node)
+        node.stop()
+        t1 = time.perf_counter()
+        again = Node(cfg, backend=be)
+        nodes.append(again)
+        restart_s = time.perf_counter() - t1
+        require(again.state.app_hash == app_hash and
+                again.block_store.height == height,
+                f"cell D: after the restart's handshake app hash "
+                f"{again.state.app_hash.hex()} at {again.block_store.height}"
+                f", before {app_hash.hex()} at {height}")
+        require(again.evidence_pool.size() == 1,
+                "cell D: the evidence did not survive the restart")
+        again.start()
+        while again.block_store.height < height + 2:
+            require(again.fault() is None, f"cell D: {again.fault()!r}")
+            time.sleep(0.05)
+        nodes.remove(again)
+        again.stop()
+        blocks = [again.block_store.load_block(h)
+                  for h in range(1, again.block_store.height + 1)]
+        return {"backend": be, "raw": raw.calls, "signed": signed,
+                "blocks": blocks, "events": events, "status": status,
+                "evidence": evidence, "boot_s": boot_s,
+                "restart_s": restart_s, "height": height,
+                "gen": again.genesis_doc,
+                "wall": time.perf_counter() - t0}
+    finally:
+        for n in nodes:
+            n.stop()
+        child.terminate()
+        child.wait(30)
+        tmp.cleanup()
+
+
+def _ws_drain(ws, events: list) -> None:
+    """Keep the WebSocket's NewBlock events until it closes."""
+    try:
+        while True:
+            msg = ws.recv()
+            if msg.get("method") == "event":
+                events.append(msg["params"]["data"])
+    except (OSError, ValueError):
+        pass
+
+
+def check_node(ctx: dict, launches: dict) -> list:
+    """Cell D's checks: blocks and events, every K1, K2 and K5 call of the
+    node against the plain version on every lane; then its rows of the
+    kernels line (K1 templated at the median LastCommit, K5 at the median
+    envelope flush, K2 at the one-key set)."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.crypto.backend import _bucket, _pad_rows
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    be = ctx["backend"]
+    blocks = ctx["blocks"]
+    committed = [tx for b in blocks for tx in b.txs]
+    require(all(committed.count(tx) == 1 for tx in ctx["signed"]),
+            "cell D: a signed envelope not committed exactly once")
+    require(all(_envelope_kind(tx) == "signed" for tx in committed),
+            "cell D: a forged envelope was committed")
+    heights = [e["height"] for e in ctx["events"]]
+    require(heights and heights == sorted(heights) and all(
+        e["hash"] == blocks[e["height"] - 1].hash().hex()
+        for e in ctx["events"]), "cell D: NewBlock events != the store")
+    host = _host_app_hashes(blocks)
+    require(all(b.header.app_hash == host[b.height - 2]
+                for b in blocks[1:]), "cell D: an app hash != host kvstore")
+    checked, bad, plain_s = _plain_k1(be, be.calls)
+    require(checked and bad == 0, f"cell D: {bad} of {checked} K1 lanes "
+            f"!= plain")
+    base = ed.base_table(be.device)
+    # every K5 call's lanes in one plain call (each plain call costs ~3 s
+    # on the card whatever its lanes)
+    lanes = [np.concatenate([c[k] for c in ctx["raw"]]) for k in range(4)]
+    want = ed.verify_batch_plain(*map(be._t, lanes[:3]), base)
+    require(want.cpu().numpy().tolist() == lanes[3].tolist(),
+            "cell D: a K5 lane != plain")
+    raw_lanes = len(lanes[3])
+    require(raw_lanes >= NODE_SIGNED + NODE_FORGED,
+            f"cell D: K5 saw {raw_lanes} lanes")
+    vals = ctx["gen"].validator_set()
+    tbl, ok, v, _ = be.tables(vals.set_key(), vals.pubs_matrix())
+    ptbl, pok = ed.build_neg_comb_plain(be._t(vals.pubs_matrix()))
+    require(torch.equal(tbl[:, :, :v], ptbl) and torch.equal(ok[:v], pok),
+            "cell D: K2 != plain at the node's set")
+    kinds = {}
+    for c in be.calls:
+        kinds.setdefault(c[0], []).append(len(c[4]))
+    log(f"[node D] boot {ctx['boot_s']:.3f} s, {ctx['height']} heights, "
+        f"restart through the handshake {ctx['restart_s']:.3f} s with the "
+        f"app hash kept; {len(ctx['events'])} NewBlock events over the "
+        f"WebSocket; evidence route {ctx['evidence']['count']}; K1 calls "
+        f"by route and lanes {kinds}, every lane == plain ({checked} "
+        f"lanes, {plain_s:.1f} s); {len(ctx['raw'])} K5 calls, "
+        f"{raw_lanes} lanes == plain; K2 == plain at the 1-key set; "
+        f"launches on the node path {launches}; the cell "
+        f"{ctx['wall']:.1f} s")
+    rows = []
+    tmpl = sorted((c for c in be.calls if c[0] == "templated"),
+                  key=lambda c: len(c[4]))
+    require(tmpl, "cell D: no templated K1 call")
+    call = tmpl[len(tmpl) // 2]
+    kernel, plain, args, cost = _k1_call(be, call)
+    at_shape = sum(c[0] == "templated" and _bucket(len(c[4])) ==
+                   _bucket(len(call[4])) for c in be.calls)
+    ms, got = cuda_ms(lambda: kernel(*args), 10)
+    plain_ms, want = cuda_ms(lambda: plain(*args), 1)
+    require(torch.equal(got, want), "K1 != plain at the node's LastCommit")
+    rows.append(_entry(
+        "verify_grouped_templated [node: LastCommit]",
+        "tendermint_tpu_torch/csrc/verify_grouped.cu",
+        "tendermint_tpu/ops/ed25519.py:153", at_shape,
+        max_abs_err(got, want), ms, plain_ms, *cost(),
+        f"row 1N, cell D's median LastCommit: {len(call[4])} lane(s) "
+        f"padded to {args[3].shape[0]}"))
+    flush = sorted(ctx["raw"], key=lambda c: len(c[3]))[len(ctx["raw"]) // 2]
+    b = _bucket(len(flush[3]))
+    host = tuple(_pad_rows(a, b) for a in flush[:3])
+    rargs = tuple(be._t(a) for a in host)
+    at_shape = sum(_bucket(len(c[3])) == b for c in ctx["raw"])
+    ms, got = cuda_ms(lambda: ed.verify_batch(*rargs, base), 10)
+    plain_ms, want = cuda_ms(lambda: ed.verify_batch_plain(*rargs, base), 1)
+    require(torch.equal(got, want), "K5 != plain at the node's flush")
+    rows.append(_entry(
+        "verify_raw [node: envelopes]",
+        "tendermint_tpu_torch/csrc/verify_raw.cu",
+        "tendermint_tpu/ops/ed25519.py:46", at_shape,
+        max_abs_err(got, want), ms, plain_ms, *_raw_verify_cost(*host),
+        f"row 7N, cell D's median envelope flush: {len(flush[3])} lanes "
+        f"padded to {b}"))
+    pubs = be._t(vals.pubs_matrix())
+    ms, (tbl, ok) = cuda_ms(lambda: ed.build_neg_comb(pubs), 3)
+    plain_ms, (ptbl, pok) = cuda_ms(lambda: ed.build_neg_comb_plain(pubs), 0)
+    require(torch.equal(tbl, ptbl) and torch.equal(ok, pok),
+            "K2 != plain at the node's set")
+    rows.append(_entry(
+        "build_neg_comb [node: 1 key]",
+        "tendermint_tpu_torch/csrc/build_neg_comb.cu",
+        "tendermint_tpu/ops/ed25519.py:60", launches["K2"],
+        max(max_abs_err(tbl, ptbl), max_abs_err(ok, pok)), ms, plain_ms,
+        *_neg_comb_cost(pubs.shape[0]), "row 2N, the node's 1-key set"))
+    return rows
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -3955,6 +4672,20 @@ def _templated_cost(args) -> tuple:
     return _grouped_verify_cost(
         h_sg, h_vp[h_vi], h_tm[h_ti], h_vi, 64 + 4 + 4 + 1,
         h_tm.nbytes + h_vp.nbytes + args[1].numel())
+
+
+def _neg_comb_cost(v: int) -> tuple:
+    """(bytes, operations) of K2 over `v` keys.  Per key: decompress, 25 x
+    10 doublings for the window bases, each base made affine (one batch
+    inversion over the 26 x V bases and its pack); per entry (1,023 of
+    1,024 per window; digit 0 is a constant): one mixed add of the affine
+    base onto entry j - 1, the batch inversion, and the affine pack (x, y,
+    x*y, *2d)."""
+    entries = v * 26 * 1023
+    ops = _macs((v, DECOMPRESS), (v * 250, DBL), (v * 26, BATCH_INV),
+                (v * 26, (4, 0)), (entries, MIXED_ADD), (entries, BATCH_INV),
+                (entries, (4, 0)), (2, INVERT))
+    return v * 32 + v * 1 + 26 * 1024 * v * 96, ops
 
 
 def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
@@ -4098,19 +4829,9 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
             "shape")
     err = max(max_abs_err(ok, pok), max_abs_err(tbl, ptbl))
     del tbl, ptbl
-    # per key: decompress, 25 x 10 doublings for the window bases, each
-    # base made affine (one batch inversion over the 26 x V bases and its
-    # pack); per entry (1,023 of 1,024 per window; digit 0 is a constant):
-    # one mixed add of the affine base onto entry j - 1, the batch
-    # inversion, and the affine pack (x, y, x*y, *2d)
-    entries = v * 26 * 1023
-    ops = _macs((v, DECOMPRESS), (v * 250, DBL), (v * 26, BATCH_INV),
-                (v * 26, (4, 0)), (entries, MIXED_ADD), (entries, BATCH_INV),
-                (entries, (4, 0)), (2, INVERT))
-    nbytes = v * 32 + v * 1 + 26 * 1024 * v * 96
     rows.append(("build_neg_comb", "build_neg_comb.cu",
                  "tendermint_tpu/ops/ed25519.py:60", "K2", ms, plain_ms,
-                 err, nbytes, ops, f"{v} keys"))
+                 err, *_neg_comb_cost(v), f"{v} keys"))
 
     # K3 at one fixture signing call's shape (655 blocks x 100 lanes)
     nb = rp.SIGN_CHUNK_BLOCKS
@@ -4478,6 +5199,21 @@ def main() -> int:
     p2p = read_launches("p2p", ("K1", "K2", "K3", "K5"))
     p2p_rows = check_p2p(p2p_ctx, p2p)
     log(f"[p2p] phase and checks {time.perf_counter() - t_p2p:.1f} s")
+    t_cli = time.perf_counter()
+    kernels.reset_launches()                # the CLI testnet path starts here
+    cli_ctx = phase_cli_testnet(CudaBackend())
+    # the four node processes launch their kernels out of this process's
+    # count (each holds its CUDA context: `check_cli_testnet`); here only
+    # the envelopes' signing (K3)
+    read_launches("cli", ("K3",))
+    check_cli_testnet(cli_ctx)
+    log(f"[cli C] cell and checks {time.perf_counter() - t_cli:.1f} s")
+    t_node = time.perf_counter()
+    kernels.reset_launches()                # the node path starts here
+    node_ctx = phase_node(_recording_backend())
+    node = read_launches("node", ("K1", "K2", "K3", "K5"))
+    node_rows = check_node(node_ctx, node)
+    log(f"[node D] cell and checks {time.perf_counter() - t_node:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -4503,6 +5239,7 @@ def main() -> int:
     line.append(light_kernel_row(lt_ctx, light))
     line += consensus_kernel_rows(cs_ctx, consensus)
     line += p2p_rows
+    line += node_rows
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))

@@ -54,7 +54,8 @@ def register_app(name: str, cls: type) -> None:
 
 def create_app(name: str) -> Application:
     """In-proc app by name (reference `proxy/client.go:65-79`)."""
-    from tendermint_tpu_torch.abci.apps import kvstore  # noqa: F401 - registers
+    from tendermint_tpu_torch.abci.apps import (  # noqa: F401 - registers
+        counter, kvstore)
     if name not in _REGISTRY:
         raise ValueError(f"unknown in-proc app {name!r}; "
                          f"known: {sorted(_REGISTRY)}")

@@ -131,15 +131,17 @@ class ConsensusState:
 
     def __init__(self, cfg: config_mod.ConsensusConfig, state: State,
                  proxy_consensus, block_store, mempool, plane,
-                 priv_validator=None, wal_path: str = "", tx_indexer=None):
+                 priv_validator=None, evsw: EventSwitch | None = None,
+                 wal_path: str = "", tx_indexer=None, node_id: str = ""):
         self.cfg = cfg
         self.proxy = proxy_consensus
         self.block_store = block_store
         self.mempool = mempool
         self.plane = plane
         self.priv_validator = priv_validator
-        self.evsw = EventSwitch()
+        self.evsw = evsw or EventSwitch()
         self.tx_indexer = tx_indexer
+        self.node_id = node_id            # the node's moniker
         self.broadcast_cb = None          # reactor hook: fn(msg)
         # the plane error that ended the receive routine (`stop` raises it)
         self.fault: BaseException | None = None

@@ -8,9 +8,12 @@ socket apps (`proxy/client.go:65-79`).
 
 In-proc apps are not thread-safe, so all three conns share one lock —
 the same serialization the reference's local client mutex provides.
+Remote socket apps (`tendermint_tpu_torch.abci.server/client`) get one
+socket per conn like the reference.
 
-Copy of `tendermint_tpu/proxy/__init__.py` for in-proc apps; remote
-socket and gRPC apps wait for a later slice of the port.
+Copy of `tendermint_tpu/proxy/__init__.py` without the gRPC branch, which
+waits until `grpcio` is on the card's machine: a `grpc://` spec is
+refused.
 """
 
 from __future__ import annotations
@@ -88,8 +91,8 @@ class AppConns:
 class ClientCreator:
     """Creates AppConns for an app spec (reference `proxy/client.go`).
 
-    spec: in-proc registry name ("kvstore", ...) or an Application
-    instance.
+    spec: in-proc registry name ("kvstore", "counter", ...) or
+    "tcp://host:port" for a remote socket app, or an Application instance.
     """
 
     def __init__(self, spec):
@@ -98,6 +101,13 @@ class ClientCreator:
     def new_app_conns(self) -> AppConns:
         if isinstance(self.spec, Application):
             app = self.spec
+        elif isinstance(self.spec, str) and self.spec.startswith("tcp://"):
+            from tendermint_tpu_torch.abci.client import new_socket_app_conns
+            return new_socket_app_conns(self.spec)
+        elif isinstance(self.spec, str) and self.spec.startswith("grpc://"):
+            raise ValueError(
+                f"ABCI over gRPC ({self.spec}) is not ported: it waits "
+                "until grpcio is on the card's machine (ROADMAP A.4)")
         else:
             app = create_app(self.spec)
         lock = threading.Lock()

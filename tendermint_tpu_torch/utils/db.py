@@ -113,3 +113,14 @@ def _prefix_upper_bound(prefix: bytes) -> bytes | None:
         return None
     p[-1] += 1
     return bytes(p)
+
+
+def new_db(backend: str, path: str | None = None):
+    """Factory (reference `config/config.go:102` DBBackend)."""
+    if backend == "memdb":
+        return MemDB()
+    if backend == "sqlite":
+        if not path:
+            raise ValueError("sqlite backend needs a path")
+        return SQLiteDB(path)
+    raise ValueError(f"unknown db backend {backend!r}")
