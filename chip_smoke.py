@@ -50,7 +50,7 @@ Phases, in order; any mismatch or exception exits non-zero:
       shard) and one of its windows through that backend's
       `verify_grouped` with the messages assembled on the host (K1 with
       per-lane keys and messages per shard);
-   d. BASELINE config 3's width, 100 validators, at 50,000 of its
+   d. BASELINE config 3's width, 100 validators, at 25,000 of its
       100,000 blocks (fixture signed by K3): `replay_pipelined` with a
       `BlockStore` on `MemDB`, then two pairs of `replay_pipelined`
       without a store and the serial `replay` (the second pair on the
@@ -90,7 +90,7 @@ Phases, in order; any mismatch or exception exits non-zero:
       link; after 10 more heights a fifth node with an empty store
       fast-syncs through `BlockchainReactor` (K1 per 64-block window),
       switches to consensus and follows 3 more heights.  Cell B, BASELINE
-      config 3's width cut to 1,000 blocks (100 validators, a 12 KB tx a
+      config 3's width cut to 500 blocks (100 validators, a 12 KB tx a
       block, each height's commit signed by K3) served by four source
       nodes and fast-synced by a fifth, under `torch.profiler`, then again
       with one source serving a block with a flipped precommit signature;
@@ -100,7 +100,7 @@ Phases, in order; any mismatch or exception exits non-zero:
       defaults), nodes 1-3 knowing node 0 only and meshing through PEX;
       300 signed envelopes (K3 in this process), 20 of them over
       `broadcast_tx_commit` and the rest over `broadcast_tx_sync`, and
-      20 forged ones, spread over the four RPC ports; node 3 SIGKILLed after 20 heights, down for 10,
+      20 forged ones, spread over the four RPC ports; node 3 SIGKILLed after 8 heights, down for 4,
       restarted with `--fast-sync` and followed; every node read over
       RPC (blocks, commits, `tx?hash=`, `abci_query`), then stopped with
       SIGINT.  Cell D, one validator `Node` in this process on a tmp
@@ -109,6 +109,22 @@ Phases, in order; any mismatch or exception exits non-zero:
       call: 80 envelopes over HTTP, a `WSClient` on NewBlock, a
       conflicting precommit signed with the validator's key fed to the
       consensus state, a stop and a restart from the home;
+   i. cell E, the crypto ladder and state sync: the native rung (the
+      host C++ ed25519 and tmhash, built with g++) held against
+      `pure_ed25519` on the edge lanes, K5 on 4,096 random lanes (a
+      quarter forged) and K3 on 1,024 signatures, and timed (scalar
+      calls, a batch on every host core); a validator `Node` with
+      `crypto.supervised` (the ladder cuda -> native -> python it builds)
+      taking 32 envelopes over HTTP for 4 heights, every call served on
+      cuda; the same node on a ladder whose cuda rung is this script's
+      fault injector (every third call raises, one sleeps past the call
+      timeout), tripping, serving on native and recovering; state sync at
+      1,000,000 keys (a ~104 MB snapshot in 64 KB chunks, every chunk hash
+      on K4): create, verify, and a restore from three sources, one
+      serving tampered chunks and one a forged manifest; then the user's
+      path: `cli snapshot create`, `list`, `verify`, `restore` into a
+      fresh home (a second refused, a corrupt chunk flagged) and `cli
+      node` on the restored home;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -154,7 +170,12 @@ Phases, in order; any mismatch or exception exits non-zero:
    node process holding a CUDA context, no node running nvcc, every node
    exiting 0 after SIGINT; in cell D every K1, K2 and K5 call equal to
    the plain version on every lane, the evidence served over RPC, the
-   app hash kept across the restart; log heights per
+   app hash kept across the restart; in cell E every K1 and K5 call of
+   the cuda rung equal to the plain version, every K4 row equal to
+   hashlib, no call of the healthy ladder below cuda, the faulted one
+   tripped, served on native and recovered with the same envelopes and
+   app state, the tampering and forging sources banned, the restored app
+   hash and the restored node's the source's; log heights per
    second, commit latency, rounds, the share
    of received votes pre-verified on K1, scalar verifies, K1 launches
    and lanes, the flush sizes, the thread CPU of scalar verifies,
@@ -170,7 +191,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    that call's shape, and at cell B's fast-sync window over the reactor,
    row 1P, with the p2p path's launches at its shape; K1 at cell D's
    median LastCommit, K5 at its median envelope flush and K2 at its
-   1-key set, rows 1N, 7N and 2N, with the node path's launches), and
+   1-key set, rows 1N, 7N and 2N, with the node path's launches; K4 at
+   the snapshot's 64 KB chunks, row 4S, with cell E's launches, its plain
+   version on 8 chunks in row 4's plain call), and
    its bound (K5 timed at 32, 64, 1,024, 4,096 and 65,536 lanes, its
    entry at the mempool's 64; K4 at the part sets, with its chain bound
    `chain_bound_ms` beside the operations bound, and beside it at the
@@ -1341,8 +1364,10 @@ def k4_readings(blocks, dev) -> float:
     of each launch.  Returns the kernel's time: the median of the
     profiler's per-launch device times of the K4 kernel (a single call's
     events also hold its launch gap); the other two readings are logged
-    only.  Fails unless the profiler saw K4_REPEATS launches of one K4
-    kernel."""
+    only.  The profiler's CUDA activity trace can drop a kernel's record,
+    so a capture that does not hold K4_REPEATS launches of one K4 kernel
+    is logged and taken again, up to K4_CAPTURES times; fails unless one
+    capture held them all."""
     import statistics
     import torch
     from tendermint_tpu_torch.ops import sha256 as s256
@@ -1350,7 +1375,14 @@ def k4_readings(blocks, dev) -> float:
     k4 = lambda: s256.sha256_prefixed(parts, 0)  # noqa: E731
     mean_ms, _ = cuda_ms(k4, K4_REPEATS)
     ms, times, _ = median_ms(k4, K4_REPEATS)
-    split = profiled_launches(k4, K4_REPEATS)
+    for capture in range(1, K4_CAPTURES + 1):
+        split = profiled_launches(k4, K4_REPEATS)
+        k4_launches = [v for k, v in split.items() if k.startswith("sha256_")]
+        if len(k4_launches) == 1 and len(k4_launches[0]) == K4_REPEATS:
+            break
+        log(f"[merkle] K4 capture {capture} of {K4_CAPTURES}: the profiler "
+            f"recorded {[len(v) for v in k4_launches]} sha256_* launches of "
+            f"{K4_REPEATS} calls")
     log(f"[merkle] K4 at the part sets ({parts.shape[0]} x {parts.shape[1]}"
         f" B), {K4_REPEATS} calls each: mean back to back {mean_ms:.4f} ms; "
         f"single calls between their own events, median {ms:.4f} ms "
@@ -1358,10 +1390,10 @@ def k4_readings(blocks, dev) -> float:
         f"launch, median (launches): " + ", ".join(
             f"{k} {statistics.median(v):.4f} ms ({len(v)})"
             for k, v in split.items()))
-    k4_launches = [v for k, v in split.items() if k.startswith("sha256_")]
     require(len(k4_launches) == 1 and len(k4_launches[0]) == K4_REPEATS,
             f"the profiler saw K4 launches {[len(v) for v in k4_launches]}"
-            f" of sha256_* kernels, not {K4_REPEATS} of one")
+            f" of sha256_* kernels, not {K4_REPEATS} of one, in "
+            f"{K4_CAPTURES} captures")
     return statistics.median(k4_launches[0])
 
 
@@ -1884,8 +1916,8 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 
 # -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
 
-FS_BLOCKS = 50_000                      # BASELINE config 3's width cut to
-#                                         half its depth: 80 windows
+FS_BLOCKS = 25_000                      # BASELINE config 3's width cut to
+#                                         25 % of its depth: 40 windows
 FS_PAIR2_BLOCKS = 10_000                # the second pair's depth: 16 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
@@ -2651,7 +2683,7 @@ def phase_consensus(be=None) -> dict:
     stores, and `Playback` over one node's WAL."""
     from tendermint_tpu_torch.batchplane import BatchPlane
     from tendermint_tpu_torch.consensus import messages as M
-    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.crypto import native
     from tendermint_tpu_torch.types import TYPE_PREVOTE, Vote, ZERO_BLOCK_ID
     from tendermint_tpu_torch.types import events as ev
     from tendermint_tpu_torch.types import keys
@@ -2716,8 +2748,9 @@ def phase_consensus(be=None) -> dict:
 
     _wire(nodes, deliver)
     # the host's work over the net's run: scalar verifies (the memo's
-    # misses reach `pure_ed25519.verify`), signing (votes and proposals)
-    # and vote accounting (`_try_add_vote`, its scalar verifies included)
+    # misses reach the native rung, `crypto.native.verify_one`), signing
+    # (votes and proposals, `native.sign_one`) and vote accounting
+    # (`_try_add_vote`, its scalar verifies included)
     host = _HostTimes("verify", "sign", "accounting")
     counted_forged, evidence, commits = [], [], {}
     received = [[0, 0] for _ in nodes]
@@ -2742,9 +2775,9 @@ def phase_consensus(be=None) -> dict:
         for tx in txs:
             cs.mempool.check_tx(tx)
     memo0 = keys._verify_memo.cache_info().misses
-    scalar_fns = (ref.verify, ref.sign)
-    ref.verify = host.timed("verify", ref.verify)
-    ref.sign = host.timed("sign", ref.sign)
+    scalar_fns = (native.verify_one, native.sign_one)
+    native.verify_one = host.timed("verify", native.verify_one)
+    native.sign_one = host.timed("sign", native.sign_one)
     cpu0, t_start = time.process_time(), time.perf_counter()
     for cs in nodes:
         cs.start()
@@ -2759,7 +2792,7 @@ def phase_consensus(be=None) -> dict:
         plane.stop()
         run_s = time.perf_counter() - t_start
         cpu_s = time.process_time() - cpu0
-        ref.verify, ref.sign = scalar_fns
+        native.verify_one, native.sign_one = scalar_fns
     require(not faults, f"plane faults on stop: {faults[:3]}")
     scalar = keys._verify_memo.cache_info().misses - memo0
     log(f"[consensus] {CONS_VALS} validators committed {CONS_HEIGHTS} "
@@ -3122,10 +3155,10 @@ P2P_A_MORE, P2P_A_FOLLOW = 10, 3         # heights before the joiner dials,
 #                                          and after it switches
 P2P_A_SIGNED, P2P_A_FORGED = 300, 16     # envelope txs submitted to node 0
 P2P_A_FORGE_AT = 3                       # the forged vote, heights past tip
-P2P_B_VALS, P2P_B_BLOCKS = 100, 1000     # BASELINE config 3's width, cut
+P2P_B_VALS, P2P_B_BLOCKS = 100, 500      # BASELINE config 3's width, cut
 P2P_B_SOURCES = 4
 P2P_B_PAYLOAD = 12 * 1024                # `replay.build_chain`'s kvstore tx
-P2P_B_LIE_FROM = 500                     # the liar's first tampered height
+P2P_B_LIE_FROM = 250                     # the liar's first tampered height
 P2P_WINDOW = 64                          # blocks per K1 call (the reactor's)
 P2P_SAMPLE = 16                          # stored blocks checked
 P2P_DEADLINE_S = 600.0
@@ -3872,7 +3905,7 @@ def check_p2p(ctx: dict, launches: dict) -> list:
 
 CLI_NODES = 4                            # BASELINE config 1's testnet
 CLI_SIGNED, CLI_COMMIT, CLI_FORGED = 300, 20, 20   # envelopes (K3)
-CLI_KILL_AT, CLI_DOWN, CLI_FOLLOW = 20, 10, 3      # heights
+CLI_KILL_AT, CLI_DOWN, CLI_FOLLOW = 8, 4, 3        # heights
 CLI_PEX_S = 30.0                # the PEX ensure interval (p2p/pex.py:23)
 CLI_UP_S = 180.0                # a node process must answer RPC by then
 CLI_DEADLINE_S = 300.0          # each wait of the cell
@@ -4042,8 +4075,9 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
     defaults), nodes 1-3 knowing only node 0 and meshing through PEX;
     signed envelopes (K3 here) over `broadcast_tx_sync` and
     `broadcast_tx_commit` spread over the four RPC ports, forged ones
-    refused; node 3 killed with SIGKILL after 20 heights, left down for
-    10, restarted with `--fast-sync` and followed; every node read over
+    refused; node 3 killed with SIGKILL after CLI_KILL_AT heights, left
+    down for CLI_DOWN, restarted with `--fast-sync` and followed; every
+    node read over
     RPC, then stopped with SIGINT.  `node_flags` (e.g. a CPU backend)
     are for rehearsals off the card."""
     import random
@@ -4559,6 +4593,701 @@ def check_node(ctx: dict, launches: dict) -> list:
     return rows
 
 
+# -- cell E: the crypto ladder and state sync (K4 on a node path) ---------
+
+NATIVE_LANES, NATIVE_FORGED = 4096, 1024   # (a): held against K5
+NATIVE_SIGN_LANES, NATIVE_SIGN_KEYS = 1024, 64   # (a): against K3
+NATIVE_TIMED = 2000                 # (a): scalar verifies and signings timed
+NATIVE_BATCH_REPEAT = 8             # (a): verify_batch over 8 x the lanes
+LADDER_HEIGHTS = 4                  # (b), (c): heights each node runs
+LADDER_SIGNED, LADDER_FORGED = 24, 8   # envelopes over RPC, one at a time
+LADDER_DEADLINE_S = 180.0
+LADDER_FAULT_EVERY = 3              # (c): every third call of the rung raises
+LADDER_HANG_CALL = 5                # (c): and this one sleeps past the timeout
+LADDER_KNOBS = dict(breaker_threshold=1, breaker_cooldown_s=1.0,
+                    call_timeout_s=2.0, retries=1)
+SYNC_KEYS, SYNC_KEY_LEN, SYNC_VALUE_LEN = 1_000_000, 32, 64
+SYNC_HEIGHT = 1000                  # the snapshot's height
+SYNC_SAMPLE = 8                     # rows also held against the plain K4
+SYNC_TAMPER_EVERY = 3               # the lying source flips these chunks
+SNAP_HEIGHTS = 5                    # (e): the chain the CLI home runs
+
+
+def cpu_model() -> str:
+    """The host CPU's model name, from /proc/cpuinfo or `lscpu`, with the
+    machine type."""
+    import platform
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        for line in out.splitlines():
+            if line.startswith("Model name:"):
+                return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return f"{platform.machine()}, model not reported"
+
+
+def phase_native(be) -> dict:
+    """Cell E (a), the native rung: build the host library (the C++
+    ed25519 and tmhash, `utils.nativelib`), hold `verify_one` against
+    `pure_ed25519` on the edge lanes, `NativeBackend.verify_batch` against
+    K5 on 4,096 random lanes (a quarter forged) and `sign_one` against K3
+    on 1,024 lanes; time the scalar calls (wall and thread CPU each) and a
+    batch on every host core."""
+    import os
+    import tempfile
+    from pathlib import Path
+    import numpy as np
+    from tendermint_tpu_torch.crypto import native
+    from tendermint_tpu_torch.crypto import pure_ed25519 as ref
+    from tendermint_tpu_torch.utils import nativelib
+    saved = nativelib.BUILD_DIR
+    with tempfile.TemporaryDirectory(prefix="native-build-") as d:
+        nativelib.BUILD_DIR = Path(d)  # a build from the sources, timed
+        try:
+            t0 = time.perf_counter()
+            so = nativelib.build()
+            build_s = time.perf_counter() - t0
+        finally:
+            nativelib.BUILD_DIR = saved
+    nativelib.get()
+    cxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    host = f"{cpu_model()}, os.cpu_count() {os.cpu_count()}"
+    log(f"[native E] library {so.name} built from the sources in "
+        f"{build_s:.2f} s ({cxx}); host CPU {host}")
+    rng = np.random.default_rng(SEED + 21)
+    edge = 0
+    for msg_len in (32, 96):
+        lanes = edge_lanes(msg_len, rng)
+        got = [native.verify_one(*x) for x in lanes]
+        want = [ref.verify(*x) for x in lanes]
+        require(got == want, f"native != pure_ed25519 on the edge lanes "
+                f"({msg_len} B): {got} != {want}")
+        edge += len(lanes)
+    n = NATIVE_LANES
+    seeds = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    msgs = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    pubs = np.zeros((n, 32), np.uint8)
+    sigs = np.zeros((n, 64), np.uint8)
+    for i in range(n):
+        sd, m = seeds[i].tobytes(), msgs[i].tobytes()
+        pubs[i] = np.frombuffer(native.pubkey_from_seed(sd), np.uint8)
+        sigs[i] = np.frombuffer(native.sign_one(sd, m), np.uint8)
+    forged = rng.permutation(n)[:NATIVE_FORGED]
+    bits = rng.integers(0, 512, NATIVE_FORGED)
+    for i, b in zip(forged, bits):
+        sigs[i, b // 8] ^= 1 << (b % 8)
+    mask = native.NativeBackend().verify_batch(pubs, msgs, sigs)
+    k5 = be.verify_batch(pubs, msgs, sigs)
+    require(np.array_equal(mask, k5), f"native != K5 on "
+            f"{int((mask != k5).sum())} of {n} lanes")
+    require(int(mask.sum()) == n - NATIVE_FORGED, "native: forged lanes "
+            f"accepted or valid ones rejected ({int(mask.sum())} true)")
+    vi = np.arange(NATIVE_SIGN_LANES, dtype=np.int32) % NATIVE_SIGN_KEYS
+    ti = np.arange(NATIVE_SIGN_LANES, dtype=np.int32)
+    tm = rng.integers(0, 256, (NATIVE_SIGN_LANES, 40), dtype=np.uint8)
+    keys = [seeds[i].tobytes() for i in range(NATIVE_SIGN_KEYS)]
+    k3 = be.sign_grouped_templated(keys, vi, ti, tm)
+    mine = np.frombuffer(b"".join(native.sign_one(keys[v], tm[t].tobytes())
+                                  for v, t in zip(vi, ti)),
+                         np.uint8).reshape(-1, 64)
+    require(np.array_equal(k3, mine), f"native sign != K3 on "
+            f"{int((k3 != mine).any(axis=1).sum())} lanes")
+    lanes = [(pubs[i].tobytes(), msgs[i].tobytes(), sigs[i].tobytes())
+             for i in range(NATIVE_TIMED)]
+    c0, w0 = time.thread_time(), time.perf_counter()
+    for x in lanes:
+        native.verify_one(*x)
+    v_us = (time.perf_counter() - w0) / NATIVE_TIMED * 1e6
+    v_cpu = (time.thread_time() - c0) / NATIVE_TIMED * 1e6
+    work = [(seeds[i].tobytes(), msgs[i].tobytes())
+            for i in range(NATIVE_TIMED)]
+    c0, w0 = time.thread_time(), time.perf_counter()
+    for x in work:
+        native.sign_one(*x)
+    s_us = (time.perf_counter() - w0) / NATIVE_TIMED * 1e6
+    s_cpu = (time.thread_time() - c0) / NATIVE_TIMED * 1e6
+    big = [np.tile(a, (NATIVE_BATCH_REPEAT, 1)) for a in (pubs, msgs, sigs)]
+    batch = native.NativeBackend()
+    w0 = time.perf_counter()
+    out = batch.verify_batch(*big)
+    b_s = time.perf_counter() - w0
+    require(np.array_equal(out, np.tile(mask, NATIVE_BATCH_REPEAT)),
+            "native batch != its own scalar mask")
+    rate = len(out) / b_s
+    log(f"[native E] == pure_ed25519 on {edge} edge lanes; == K5 on {n} "
+        f"lanes ({NATIVE_FORGED} forged); sign == K3 on "
+        f"{NATIVE_SIGN_LANES} lanes over {NATIVE_SIGN_KEYS} keys; "
+        f"verify_one {v_us:.1f} us wall, {v_cpu:.1f} us thread CPU; "
+        f"sign_one {s_us:.1f} us wall, {s_cpu:.1f} us thread CPU (means of "
+        f"{NATIVE_TIMED}); verify_batch {len(out)} lanes on "
+        f"{batch._workers} threads in {b_s:.3f} s = {rate:,.0f} sigs/s; "
+        f"host CPU {host}")
+    return {"verify_us": v_us, "verify_cpu_us": v_cpu, "sign_us": s_us,
+            "sign_cpu_us": s_cpu, "batch_rate": rate, "host": host}
+
+
+class _FaultyRung:
+    """The smoke's own fault injector (not package code): a `CudaBackend`
+    whose every `LADDER_FAULT_EVERY`-th verify call raises before it
+    launches, and whose `LADDER_HANG_CALL`-th sleeps past the ladder's
+    call timeout first."""
+
+    def __init__(self, be, hang_s: float):
+        import threading
+        self.be, self.hang_s = be, hang_s
+        self.calls = self.raised = 0
+        self.hung = False
+        self._lock = threading.Lock()
+
+    def _gate(self):
+        with self._lock:
+            self.calls += 1
+            k = self.calls
+        if k % LADDER_FAULT_EVERY == 0:
+            self.raised += 1
+            raise RuntimeError(f"injected rung fault (call {k})")
+        if k == LADDER_HANG_CALL:
+            self.hung = True
+            time.sleep(self.hang_s)
+
+    def verify_batch(self, *a):
+        self._gate()
+        return self.be.verify_batch(*a)
+
+    def verify_grouped(self, *a):
+        self._gate()
+        return self.be.verify_grouped(*a)
+
+    def verify_grouped_templated(self, *a):
+        self._gate()
+        return self.be.verify_grouped_templated(*a)
+
+
+def _ladder_corpus(be) -> list:
+    """The envelopes cells E (b) and (c) send, signed by K3."""
+    import random
+    from tendermint_tpu_torch.scenarios import loadgen
+    corpus = loadgen.build_corpus(random.Random(SEED + 31), loadgen.Mix(
+        unsigned=0, signed=LADDER_SIGNED, bad_sig=LADDER_FORGED,
+        dup_frac=0.0), backend=be)
+    return [bytes.fromhex(e["tx"]) for e in corpus]
+
+
+def phase_ladder(txs: list, faults: bool) -> dict:
+    """Cell E (b) and (c): a validator `Node` with `crypto.supervised` on
+    a tmp home, the envelopes over HTTP one at a time, run to
+    `LADDER_HEIGHTS` with every signed envelope committed.  Healthy, the
+    node builds its own ladder (cuda -> native -> python); with faults it
+    is given `SupervisedBackend([("cuda", _FaultyRung), ("native", ...),
+    ("python", ...)], **LADDER_KNOBS)`.  Every K1 and K5 call of the cuda
+    rung is recorded for the plain-version checks."""
+    import tempfile
+    from tendermint_tpu_torch.config import config_file, load_config_file
+    from tendermint_tpu_torch.crypto.backend import CudaBackend, PythonBackend
+    from tendermint_tpu_torch.crypto.native import NativeBackend
+    from tendermint_tpu_torch.crypto.supervised import SupervisedBackend
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    tmp = tempfile.TemporaryDirectory(prefix="ladder-")
+    node = None
+    try:
+        _node_home(tmp.name)
+        cfg = load_config_file(config_file(tmp.name))
+        cfg.base.home = tmp.name
+        cfg.crypto.supervised = True
+        faulty = None
+        t0 = time.perf_counter()
+        if faults:
+            cuda = CudaBackend()
+            faulty = _FaultyRung(cuda, LADDER_KNOBS["call_timeout_s"] + 1.0)
+            backend = SupervisedBackend(
+                [("cuda", faulty), ("native", NativeBackend()),
+                 ("python", PythonBackend())], **LADDER_KNOBS)
+            node = Node(cfg, backend=backend)
+        else:
+            node = Node(cfg)
+            rungs = [r.name for r in node.backend._rungs]
+            require(node.backend.name == "supervised" and
+                    rungs == ["cuda", "native", "python"],
+                    f"cell E (b): the node built {node.backend.name} "
+                    f"{rungs}")
+            cuda = node.backend._rungs[0].backend
+        k1, raw = _K1Recorder(cuda), _RawRecorder(cuda)
+        node.start()
+        http = HTTPClient(node.rpc_server.addr)
+        codes = [http.call("broadcast_tx_sync", tx="0x" + tx.hex())["code"]
+                 for tx in txs]
+        for tx, code in zip(txs, codes):
+            require((code == 0) == (_envelope_kind(tx) == "signed"),
+                    f"cell E: a {_envelope_kind(tx)} envelope got {code}")
+        signed = {tx for tx in txs if _envelope_kind(tx) == "signed"}
+
+        def committed():
+            bs = node.block_store
+            return {tx for h in range(1, bs.height + 1)
+                    for tx in bs.load_block(h).txs}
+
+        def recovered():
+            # with faults, until the breaker has tripped and closed again
+            st = node.backend.supervisor_status()["rungs"][0]
+            return faulty is None or (st["recoveries"] >= 1 and
+                                      st["state"] == "closed")
+
+        while (node.block_store.height < LADDER_HEIGHTS or
+               not signed <= committed() or not recovered()):
+            require(node.fault() is None, f"cell E: {node.fault()!r}")
+            require(time.perf_counter() - t0 < LADDER_DEADLINE_S,
+                    f"cell E: {LADDER_HEIGHTS} heights and the envelopes "
+                    f"not committed in {LADDER_DEADLINE_S} s")
+            time.sleep(0.05)
+        status = http.status()
+        wall = time.perf_counter() - t0
+        blocks = [node.block_store.load_block(h)
+                  for h in range(1, node.block_store.height + 1)]
+        n, node = node, None
+        n.stop()
+        return {"status": status, "blocks": blocks, "signed": signed,
+                "backend": cuda, "k1": k1.calls, "raw": raw.calls,
+                "faulty": faulty, "wall": wall}
+    finally:
+        if node is not None:
+            node.stop()
+        tmp.cleanup()
+
+
+def _ladder_summary(st: dict) -> str:
+    return "; ".join(f"{r['name']} {r['state']}: {r['calls']} calls, "
+                     f"{r['faults']} faults, {r['trips']} trips, "
+                     f"{r['recoveries']} recoveries" for r in st["rungs"])
+
+
+def _kv_state(blocks) -> dict:
+    """The kvstore's contents after a host run over the blocks' txs."""
+    from tendermint_tpu_torch.abci.app import create_app
+    app = create_app("kvstore")
+    for b in blocks:
+        for tx in b.txs:
+            app.deliver_tx(tx)
+        app.commit()
+    return app.state
+
+
+def check_ladder(healthy: dict, faulty: dict) -> dict:
+    """Cell E (b) and (c): the healthy ladder served every call on cuda
+    (no fault, trip or call below it); the faulted one tripped, served on
+    native, recovered, and committed the same envelopes to the same app
+    state; every block's app hash a host kvstore run's; every recorded K1
+    and K5 call of both runs equal to the plain version on every lane."""
+    import numpy as np
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    out = {}
+    for name, ctx in (("healthy", healthy), ("faults", faulty)):
+        sup = ctx["status"]["crypto_supervisor"]
+        blocks = ctx["blocks"]
+        committed = [tx for b in blocks for tx in b.txs]
+        require(all(committed.count(tx) == 1 for tx in ctx["signed"]) and
+                set(committed) == ctx["signed"],
+                f"cell E {name}: the committed txs != the signed envelopes")
+        host = _host_app_hashes(blocks)
+        require(all(b.header.app_hash == host[b.height - 2]
+                    for b in blocks[1:]),
+                f"cell E {name}: an app hash != host kvstore")
+        be = ctx["backend"]
+        checked, bad, plain_s = _plain_k1(be, ctx["k1"])
+        require(checked and bad == 0, f"cell E {name}: {bad} of {checked} "
+                f"K1 lanes != plain")
+        require(ctx["raw"], f"cell E {name}: no K5 call on the cuda rung")
+        lanes = [np.concatenate([c[k] for c in ctx["raw"]])
+                 for k in range(4)]
+        want = ed.verify_batch_plain(*map(be._t, lanes[:3]),
+                                     ed.base_table(be.device))
+        require(want.cpu().numpy().tolist() == lanes[3].tolist(),
+                f"cell E {name}: a K5 lane != plain")
+        out[name] = (sup, len(blocks), checked, len(lanes[3]), plain_s)
+        log(f"[ladder E] {name}: {len(blocks)} heights in "
+            f"{ctx['wall']:.2f} s; {len(ctx['signed'])} envelopes committed "
+            f"once, forged ones refused; active rung {sup['active_rung']}; "
+            f"{_ladder_summary(sup)}; the cuda rung's {len(ctx['k1'])} K1 "
+            f"calls ({checked} lanes) and {len(ctx['raw'])} K5 calls "
+            f"({len(lanes[3])} lanes) == plain ({plain_s:.1f} s)")
+    hs = healthy["status"]["crypto_supervisor"]
+    cuda, *below = hs["rungs"]
+    require(hs["active_rung"] == "cuda" and cuda["calls"] > 0 and
+            cuda["faults"] == cuda["trips"] == 0 and
+            all(r["calls"] == 0 for r in below),
+            f"cell E (b): a call served below cuda: {_ladder_summary(hs)}")
+    fs = faulty["status"]["crypto_supervisor"]
+    fcuda, fnative, fpython = fs["rungs"]
+    rung = faulty["faulty"]
+    require(rung.raised > 0 and rung.hung and fcuda["trips"] >= 1 and
+            fcuda["recoveries"] >= 1 and fnative["calls"] >= 1 and
+            fnative["faults"] == 0 and fpython["calls"] == 0,
+            f"cell E (c): the breaker did not trip, serve on native and "
+            f"recover: {_ladder_summary(fs)}; {rung.raised} faults "
+            f"injected, hung {rung.hung}")
+    require(_kv_state(healthy["blocks"]) == _kv_state(faulty["blocks"]),
+            "cell E (c): the app state != the healthy run's")
+    log(f"[ladder E] faults: {rung.calls} calls reached the cuda rung, "
+        f"{rung.raised} raised, one slept past the "
+        f"{LADDER_KNOBS['call_timeout_s']} s timeout; the same envelopes "
+        f"and app state as the healthy run")
+    return out
+
+
+class _K4Rows:
+    """A backend's `leaf_hashes` (K4) with every row held to hashlib as it
+    returns, each call's row count kept, and the first call's rows kept
+    for the kernels line."""
+
+    def __init__(self, be):
+        self.be, self.rows, self.first = be, [], None
+
+    def leaf_hashes(self, chunks):
+        out = self.be.leaf_hashes(chunks)
+        bad = sum(out[i].tobytes() != hashlib.sha256(
+            b"\x00" + chunks[i].tobytes()).digest()
+            for i in range(len(chunks)))
+        require(bad == 0, f"cell E (d): {bad} of {len(chunks)} K4 rows != "
+                "hashlib")
+        if self.first is None:
+            self.first = chunks.copy()
+        self.rows.append(len(chunks))
+        return out
+
+
+class _TamperedSource:
+    """A snapshot source that serves every `SYNC_TAMPER_EVERY`-th chunk
+    with its first byte flipped."""
+
+    def __init__(self, peer_id, store):
+        from tendermint_tpu_torch.statesync import StoreSource
+        self.peer_id, self._src = peer_id, StoreSource(peer_id, store)
+
+    def manifests(self):
+        return self._src.manifests()
+
+    def chunk(self, height, index):
+        c = self._src.chunk(height, index)
+        if c is not None and index % SYNC_TAMPER_EVERY == 0:
+            c = bytes([c[0] ^ 0x5A]) + c[1:]
+        return c
+
+
+class _ForgedSource:
+    """A snapshot source that offers the honest chunks under a forged
+    manifest one height later, with another app hash."""
+
+    def __init__(self, peer_id, store, honest):
+        import dataclasses
+        self.peer_id, self.store = peer_id, store
+        self.forged = dataclasses.replace(
+            honest, height=honest.height + 1, app_hash=b"\x77" * 20)
+
+    def manifests(self):
+        return [self.forged]
+
+    def chunk(self, height, index):
+        return (self.store.load_chunk(height - 1, index)
+                if height == self.forged.height else None)
+
+
+def _sync_app(rng):
+    """A kvstore of SYNC_KEYS random keys and values at SYNC_HEIGHT, built
+    from its snapshot blob (keys sorted, as `snapshot_state` lays them)."""
+    import numpy as np
+    from tendermint_tpu_torch.abci.apps.kvstore import KVStoreApp
+    kv = rng.integers(0, 256, (SYNC_KEYS, SYNC_KEY_LEN + SYNC_VALUE_LEN),
+                      dtype=np.uint8)
+    keys = kv[:, :SYNC_KEY_LEN]
+    order = np.lexsort(keys.T[::-1])
+    kv = kv[order]
+    rec = np.zeros((SYNC_KEYS, 8 + SYNC_KEY_LEN + SYNC_VALUE_LEN), np.uint8)
+    rec[:, 3] = SYNC_KEY_LEN
+    rec[:, 4:4 + SYNC_KEY_LEN] = kv[:, :SYNC_KEY_LEN]
+    rec[:, 4 + SYNC_KEY_LEN + 3] = SYNC_VALUE_LEN
+    rec[:, 8 + SYNC_KEY_LEN:] = kv[:, SYNC_KEY_LEN:]
+    blob = SYNC_HEIGHT.to_bytes(8, "big") + rec.tobytes()
+    app = KVStoreApp()
+    app.restore_state(blob)
+    require(len(app.state) == SYNC_KEYS and app.snapshot_state() == blob,
+            "cell E (d): the source kvstore's blob")
+    return app, blob
+
+
+def phase_statesync(be) -> dict:
+    """Cell E (d): state sync at a size users run.  A kvstore of 1,000,000
+    keys (32 B keys, 64 B values, from the seed) at height 1,000 beside a
+    `State` whose app hash is that app's; `SnapshotStore(backend=K4
+    recorder over `be`)` creates the snapshot (~104 MB in 64 KB chunks)
+    and verifies it; a `StateSyncer` over three sources (honest, one
+    serving tampered chunks, one offering a forged manifest), with the
+    light-client cross-check against the app hash of the header at
+    1,001, restores it into a fresh kvstore and `MemDB`.  Every K4 row is
+    held to hashlib as it returns."""
+    import tempfile
+    import types
+    import numpy as np
+    from tendermint_tpu_torch.abci.apps.kvstore import KVStoreApp
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.statesync import (SnapshotStore, StateSyncer,
+                                                StoreSource,
+                                                verify_manifest_app_hash)
+    from tendermint_tpu_torch.types import (GenesisDoc, GenesisValidator,
+                                            PrivKey)
+    from tendermint_tpu_torch.utils.db import MemDB
+    rng = np.random.default_rng(SEED + 41)
+    t0 = time.perf_counter()
+    app, blob = _sync_app(rng)
+    priv = PrivKey(hashlib.sha256(b"%d/sync" % SEED).digest())
+    gen = GenesisDoc(chain_id="sync-cell", validators=[GenesisValidator(
+        priv.pub_key.bytes_, 10)], genesis_time_ns=1_000_000_000)
+    state = get_state(MemDB(), gen)
+    state.last_block_height = SYNC_HEIGHT
+    state.app_hash = app.info().last_block_app_hash
+    setup_s = time.perf_counter() - t0
+    k4 = _K4Rows(be)
+    tmp = tempfile.TemporaryDirectory(prefix="statesync-")
+    try:
+        store = SnapshotStore(tmp.name, backend=k4)
+        t1 = time.perf_counter()
+        manifest = store.create(state, blob)
+        create_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        report = store.verify(manifest.height)
+        verify_s = time.perf_counter() - t1
+        require(report["ok"] and report["chunks"] == manifest.chunks,
+                f"cell E (d): verify {report}")
+        header = types.SimpleNamespace(height=SYNC_HEIGHT + 1,
+                                       app_hash=state.app_hash)
+        blamed = []
+        syncer = StateSyncer(
+            [_ForgedSource("forger", store, manifest),
+             _TamperedSource("liar", store), StoreSource("honest", store)],
+            report_misbehavior=lambda pid, reason, ban=False:
+                blamed.append((pid, reason, ban)),
+            verify_offer=lambda m: verify_manifest_app_hash(m, header),
+            backend=k4)
+        fresh = KVStoreApp()
+        t1 = time.perf_counter()
+        restored, got = syncer.restore(MemDB(), gen, fresh)
+        restore_s = time.perf_counter() - t1
+    finally:
+        tmp.cleanup()
+    require(got == manifest and restored.encode() == state.encode(),
+            "cell E (d): the restored state != the source's")
+    require(fresh.info().last_block_app_hash == state.app_hash and
+            len(fresh.state) == SYNC_KEYS,
+            "cell E (d): the restored app hash != the source's")
+    who = {pid for pid, _r, _b in blamed}
+    require(who == {"forger", "liar"} and all(b for *_x, b in blamed) and
+            any("cross-check" in r for p, r, _b in blamed if p == "forger")
+            and any("bad chunk" in r for p, r, _b in blamed if p == "liar"),
+            f"cell E (d): blamed {[(p, r[:60]) for p, r, _b in blamed]}")
+    log(f"[statesync E] {SYNC_KEYS} keys ({len(blob)} B app blob, "
+        f"{manifest.chunks} chunks of {manifest.chunk_size} B) at height "
+        f"{SYNC_HEIGHT}: setup {setup_s:.2f} s, create {create_s:.3f} s, "
+        f"verify {verify_s:.3f} s, restore {restore_s:.3f} s from 3 sources "
+        f"(the forger banned by the cross-check, the liar for "
+        f"{sum(p == 'liar' for p, _r, _b in blamed)} bad chunks, then "
+        f"refetched); the restored app hash == the source's; K4 calls "
+        f"by rows {k4.rows}, every row == hashlib")
+    return {"k4": k4, "manifest": manifest, "create_s": create_s,
+            "verify_s": verify_s, "restore_s": restore_s,
+            "blamed": blamed, "backend": be}
+
+
+def statesync_sample(sync: dict) -> dict:
+    """The first SYNC_SAMPLE snapshot chunks on the card, for row 4's
+    plain K4 call (`phase_kernels(k4_also=...)`)."""
+    import torch
+    k4 = sync["k4"]
+    return {"rows": torch.as_tensor(k4.first[:SYNC_SAMPLE],
+                                    device=sync["backend"].device)}
+
+
+def statesync_kernel_row(sync: dict, launches: dict, k4_also: dict) -> dict:
+    """Row 4S: K4 at the snapshot's uniform chunks (every chunk but the
+    tail, 64 KB each), the mean of 10 launches on CUDA events; held to
+    the plain K4 on a sample of SYNC_SAMPLE rows, computed in row 4's
+    plain call (`k4_also`, whose time stands as `plain_ms`: the plain
+    version takes its 1,025 dependent steps whatever the row count); its
+    launches are cell E's at that row count."""
+    import torch
+    from tendermint_tpu_torch.ops import sha256 as s256
+    be, k4 = sync["backend"], sync["k4"]
+    rows = torch.as_tensor(k4.first, device=be.device)
+    n, width = rows.shape
+    ms, got = cuda_ms(lambda: s256.sha256_prefixed(rows, 0), 10)
+    want, plain_ms = k4_also["plain"], k4_also["plain_ms"]
+    require(torch.equal(got[:SYNC_SAMPLE], want),
+            "K4 != plain on the snapshot's sample rows")
+    nblocks = (width + 1 + 9 + 63) // 64
+    at_shape = sum(r == n for r in k4.rows)
+    require(launches["K4"] >= at_shape > 0, f"cell E: {at_shape} K4 calls "
+            f"at {n} rows, {launches['K4']} launches")
+    log(f"[kernels] K4 route at {n} x {width} B (snapshot chunks): "
+        f"{s256._k4_route(width, rows.data_ptr())}")
+    return _entry("sha256_prefixed [state sync: snapshot chunks]",
+                  "tendermint_tpu_torch/csrc/sha256_prefixed.cu",
+                  "tendermint_tpu/ops/merkle.py:98", at_shape,
+                  max_abs_err(got[:SYNC_SAMPLE], want), ms, plain_ms,
+                  n * (width + 32), n * nblocks * SHA256_OPS_PER_BLOCK,
+                  f"row 4S, {n} chunks x {width} B (plain_ms: row 4's "
+                  f"plain call, {SYNC_SAMPLE} of them beside its parts)")
+
+
+def phase_snapshot_cli(crypto_backend: str = "cuda") -> dict:
+    """Cell E (e), the user's path: a validator home (`persistent_kvstore`,
+    SQLite) runs SNAP_HEIGHTS heights with txs in this process on the
+    card; then `python -m tendermint_tpu_torch.cli snapshot create`;
+    `list` and `verify` on it and `snapshot restore` into a fresh home
+    given the same genesis and another key, at once; a chunk corrupted,
+    then a second restore (refused) and `verify` (exits 1) at once; and
+    `cli node` on the restored home,
+    read over RPC and stopped with SIGINT.  Both homes' `crypto_backend`
+    is `crypto_backend` ("cpu" to rehearse without a card)."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from tendermint_tpu_torch.config import (Config, config_file,
+                                             load_config_file,
+                                             save_config_file)
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.types import PrivKey, PrivValidator
+    tmp = tempfile.TemporaryDirectory(prefix="snapshot-cli-")
+    procs = []
+    try:
+        src = os.path.join(tmp.name, "src")
+        dst = os.path.join(tmp.name, "dst")
+        os.makedirs(src)
+        _node_home(src)
+        cfg = load_config_file(config_file(src))
+        cfg.base.home = src
+        cfg.base.proxy_app = "persistent_kvstore"
+        cfg.base.crypto_backend = crypto_backend
+        save_config_file(cfg, config_file(src))
+        t0 = time.perf_counter()
+        node = Node(cfg)
+        node.start()
+        try:
+            for i in range(20):
+                node.mempool.check_tx(b"snap%d=v%d" % (i, i))
+            while node.block_store.height < SNAP_HEIGHTS:
+                require(node.fault() is None, f"cell E (e): {node.fault()!r}")
+                require(time.perf_counter() - t0 < LADDER_DEADLINE_S,
+                        "cell E (e): the home's chain did not grow")
+                time.sleep(0.05)
+        finally:
+            node.stop()
+        height, app_hash = node.block_store.height, node.state.app_hash
+        runs = []
+
+        def cli(*calls):
+            """Run `(home, expected exit code, args)` commands at once;
+            their outputs, in order."""
+            t = time.perf_counter()
+            ps = [(home, rc, args, subprocess.Popen(
+                [sys.executable, "-m", "tendermint_tpu_torch.cli", "--home",
+                 home, *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                env=_repo_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)) for home, rc, args in calls]
+            outs = []
+            for home, rc, args, proc in ps:
+                out, err = proc.communicate(timeout=300)
+                runs.append((" ".join(args[:2]), proc.returncode,
+                             time.perf_counter() - t))
+                require(proc.returncode == rc, f"cli {' '.join(args)} exited "
+                        f"{proc.returncode}, not {rc}:\n{out}{err}")
+                outs.append(out + err)
+            return outs
+        snaps = os.path.join(cfg.base.db_dir(), "snapshots")
+        # the fresh home: its own key (not a validator), the source's
+        # genesis, the same app
+        os.makedirs(dst)
+        PrivValidator(PrivKey(hashlib.sha256(b"%d/restored" % SEED)
+                              .digest()),
+                      os.path.join(dst, "priv_validator.json")).save()
+        shutil.copy(os.path.join(src, "genesis.json"),
+                    os.path.join(dst, "genesis.json"))
+        dcfg = Config()
+        dcfg.base.home = dst
+        dcfg.base.proxy_app = "persistent_kvstore"
+        dcfg.base.crypto_backend = crypto_backend
+        save_config_file(dcfg, config_file(dst))
+        # in three rounds, each round's commands at once
+        cli((src, 0, ("snapshot", "create")))
+        listed, _, _ = cli((src, 0, ("snapshot", "list")),
+                           (src, 0, ("snapshot", "verify", snaps)),
+                           (dst, 0, ("snapshot", "restore", "--dir", snaps)))
+        require(f"height {height}:" in listed, f"cell E (e): list {listed}")
+        chunk = os.path.join(snaps, f"snapshot-{height:010d}",
+                             "chunk-000000.bin")
+        data = bytearray(open(chunk, "rb").read())
+        data[0] ^= 0xFF
+        open(chunk, "wb").write(bytes(data))
+        refused, corrupt = cli(
+            (dst, 1, ("snapshot", "restore", "--dir", snaps)),
+            (src, 1, ("snapshot", "verify", snaps)))
+        require("corrupt" in corrupt, f"cell E (e): verify said {corrupt}")
+        base = _free_base_port(2)
+        log_path = os.path.join(dst, "node.log")
+        t1 = time.perf_counter()
+        with open(log_path, "w") as f:
+            p = _cli("--home", dst, "node", "--rpc-laddr",
+                     f"tcp://127.0.0.1:{base + 1}", "--p2p-laddr",
+                     f"tcp://127.0.0.1:{base}", stdout=f,
+                     stderr=subprocess.STDOUT, start_new_session=True)
+        procs.append(p)
+        status = None
+        while status is None:
+            require(p.poll() is None, f"cell E (e): cli node exited "
+                    f"{p.returncode}:\n{_tail(log_path)}")
+            require(time.perf_counter() - t1 < CLI_UP_S,
+                    f"cell E (e): cli node answered no RPC:\n"
+                    f"{_tail(log_path)}")
+            try:
+                status = _rpc(base + 1, "status", timeout=5)
+            except OSError:
+                time.sleep(0.2)
+        up_s = time.perf_counter() - t1
+        p.send_signal(signal.SIGINT)
+        rc = p.wait(CLI_STOP_S)
+        require(status["latest_block_height"] == height and
+                status["latest_app_hash"] == app_hash.hex(),
+                f"cell E (e): the restored node says height "
+                f"{status['latest_block_height']}, app hash "
+                f"{status['latest_app_hash']}; the snapshot {height}, "
+                f"{app_hash.hex()}")
+        require(rc == 0, f"cell E (e): cli node exited {rc} after SIGINT:\n"
+                f"{_tail(log_path)}")
+        log(f"[snapshot E] a {height}-height persistent kvstore home; cli "
+            f"commands (exit code, s): "
+            + ", ".join(f"{c} {r} {s:.1f}" for c, r, s in runs)
+            + f"; the second restore refused ({refused.strip()[:60]!r}); "
+            f"`cli node` on the restored home answered status at height "
+            f"{height} with the source's app hash {up_s:.1f} s after its "
+            f"start and exited 0 on SIGINT")
+        return {"runs": runs, "height": height, "up_s": up_s,
+                "wall": time.perf_counter() - t0}
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tmp.cleanup()
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -4721,13 +5450,18 @@ def _raw_verify_cost(pubs, msgs, sigs) -> tuple:
 K5_TIMED_LANES = (32, 64, 1024, 4096, 65536)
 K5_ROW_LANES = 64
 K4_REPEATS = 10          # K4's readings at the part sets
+K4_CAPTURES = 3          # profiler captures of them, until one holds all
 MESH_REPEATS = 10        # whole calls per mesh row, their median taken
 
 
 def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
-                  mp_ctx: dict) -> list:
+                  mp_ctx: dict, k4_also: dict | None = None) -> list:
     """Time each kernel and its plain version at the main path's shapes,
-    hold the two results equal, and work out each kernel's bound."""
+    hold the two results equal, and work out each kernel's bound.
+    `k4_also["rows"]`, rows of the part sets' width from another path, go
+    through row 4's one plain K4 call beside the parts (its time is 1,025
+    dependent steps whatever the row count); their plain digests and that
+    call's time are left in `k4_also["plain"]` and `["plain_ms"]`."""
     import numpy as np
     import torch
     from tendermint_tpu_torch.blockchain import replay as rp
@@ -4882,7 +5616,14 @@ def phase_kernels(launches: dict, rp_ctx: dict, mk_ctx: dict,
     log(f"[kernels] K4 at the part sets: {ms:.4f} ms per launch (the "
         f"profiler's median, before the fast-sync phase); back to back "
         f"now, mean of {K4_REPEATS}: {late_ms:.4f} ms")
-    plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(parts, 0), 0)
+    both = parts if k4_also is None else torch.cat([parts, k4_also["rows"]])
+    plain_ms, want = cuda_ms(lambda: s256.sha256_prefixed_plain(both, 0), 0)
+    if k4_also is not None:
+        want, k4_also["plain"] = want[:len(parts)], want[len(parts):]
+        k4_also["plain_ms"] = plain_ms
+        log(f"[kernels] K4's plain version over the part sets and "
+            f"{len(k4_also['rows'])} snapshot chunks in one call: "
+            f"{plain_ms:.1f} ms")
     require(torch.equal(got, want), "K4 != plain at the main path's shape")
     err = max_abs_err(got, want)
     n, width = parts.shape
@@ -5214,6 +5955,19 @@ def main() -> int:
     node = read_launches("node", ("K1", "K2", "K3", "K5"))
     node_rows = check_node(node_ctx, node)
     log(f"[node D] cell and checks {time.perf_counter() - t_node:.1f} s")
+    t_e = time.perf_counter()
+    phase_native(CudaBackend())
+    ladder_txs = _ladder_corpus(CudaBackend())
+    kernels.reset_launches()                # cell E's path starts here
+    healthy = phase_ladder(ladder_txs, faults=False)
+    faulty = phase_ladder(ladder_txs, faults=True)
+    sync = phase_statesync(CudaBackend())
+    cell_e = read_launches("cell E", ("K1", "K2", "K4", "K5"))
+    # the user's path: its node processes launch out of this count
+    phase_snapshot_cli()
+    check_ladder(healthy, faulty)
+    k4_also = statesync_sample(sync)
+    log(f"[cell E] cell and checks {time.perf_counter() - t_e:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -5235,11 +5989,12 @@ def main() -> int:
     launches["K5"] = mp_ctx["k5_by_size"].get(K5_ROW_LANES, 0)
     launches["K2"] += mesh["K2"]
     launches["K6"] = mesh["K6"]
-    line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx)
+    line = phase_kernels(launches, rp_ctx, mk_ctx, mp_ctx, k4_also)
     line.append(light_kernel_row(lt_ctx, light))
     line += consensus_kernel_rows(cs_ctx, consensus)
     line += p2p_rows
     line += node_rows
+    line.append(statesync_kernel_row(sync, cell_e, k4_also))
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(card)
     print(json.dumps({"kernels": line}))

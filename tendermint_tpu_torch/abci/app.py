@@ -3,7 +3,7 @@
 Reference: the abci repo's Application interface (CheckTx / DeliverTx /
 BeginBlock / EndBlock / Commit / Query / Info / InitChain) plus the
 in-proc client creator table (`proxy/client.go:65-79`).  Copy of
-`tendermint_tpu/abci/app.py` without the state-sync snapshot hooks.
+`tendermint_tpu/abci/app.py`.
 """
 
 from __future__ import annotations
@@ -43,6 +43,26 @@ class Application:
     def commit(self) -> Result:
         """Returns the new app hash in `data`."""
         return Result(OK)
+
+    # -- state sync (statesync/ snapshot plane) -------------------------
+    # Modeled on ABCI's ListSnapshots/ApplySnapshotChunk pair, collapsed
+    # to one blob: the statesync layer owns chunking and verification,
+    # the app only (de)serializes its full state.  Apps that don't
+    # override these are not snapshottable (`supports_snapshots()` is
+    # how callers gate snapshot creation).
+
+    def snapshot_state(self) -> bytes:
+        """Serialize the full app state at the current committed height."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support state snapshots")
+
+    def restore_state(self, data: bytes) -> None:
+        """Replace the app state with a previously serialized snapshot."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support state snapshots")
+
+    def supports_snapshots(self) -> bool:
+        return type(self).snapshot_state is not Application.snapshot_state
 
 
 _REGISTRY: dict[str, type] = {}

@@ -9,7 +9,8 @@ unresponsive peers evicted (`removeTimedoutPeers` `:100-118`),
 reactor's pool routine drives (`schedule()` returns what to request),
 which batches naturally with the device-verify window.  Copy of
 `tendermint_tpu/blockchain/pool.py` without tracing and the lock witness,
-and with one difference in when a request is redone.
+and with two differences: when a request is redone, and how a young
+peer's rate is read.
 
 The JAX pool redoes a request REQUEST_TIMEOUT after it was sent, and
 evicts a peer after MAX_PEER_TIMEOUTS redos in a row.  A peer serves its
@@ -23,6 +24,13 @@ of its sending and its peer's last delivery, as long as that peer has
 answered no request sent after it; once it has, the request was skipped
 or lost and times out as in the JAX pool.  A silent peer is redone and
 evicted as before, a slow one by the rate rule.
+
+The rate rule reads a peer's meter through `Meter.unbiased_rate`.  The
+meter's moving average starts at zero, so the JAX pool reads a peer that
+delivered one ~31 KB block and then nothing for half a second (its host
+busy elsewhere) as under MIN_RECV_RATE, and evicts a source streaming at
+hundreds of KB/s a second after it joined.  Without the bias it reads the
+mean of what the peer delivered; a peer that drips is evicted as before.
 """
 
 from __future__ import annotations
@@ -132,7 +140,7 @@ class BlockPool:
                 # timeout handles truly dead peers
                 if m is not None and m.total > 0 and \
                         m.age(now) >= STARVE_AGE and \
-                        m.rate(now) < self.min_recv_rate:
+                        m.unbiased_rate(now) < self.min_recv_rate:
                     evictions.add(pid)
             # redo timed-out requests on a different peer
             for slot in self._slots.values():

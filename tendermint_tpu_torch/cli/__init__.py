@@ -8,11 +8,15 @@ every command takes --home.
 Run as `python -m tendermint_tpu_torch.cli <command>`.
 
 Copy of `tendermint_tpu/cli/__init__.py` with the commands `init`,
-`node`, `testnet`, `gen_validator`, `show_validator`, `unsafe_reset_all`,
-`replay`, `replay_console`, `wal-fsck` and `version` and their flags.
-The supervised-ladder flags, `init --warm-crypto` and the `snapshot`,
-`trace`, `doctor`, `timeline`, `bench-history`, `lint`, `chaos` and
-`probe_upnp` commands wait for the modules they drive.  `--home` defaults
+`node` (the supervised-ladder flags among its flags), `testnet`,
+`gen_validator`, `show_validator`, `unsafe_reset_all`, `replay`,
+`replay_console`, `wal-fsck`, `snapshot list | create | verify |
+restore` and `version`.  `init --warm-crypto` and the `trace`,
+`doctor`, `timeline`, `bench-history`, `lint`, `chaos` and `probe_upnp`
+commands wait for the modules they drive.  The snapshot commands hash
+chunks through `make_backend(base.crypto_backend)` (kernel K4 on the
+card), and a persistent kvstore keeps its file in
+`<data dir>/kvstore_app.json`.  `--home` defaults
 to `~/.tendermint_tpu_torch`, so a port node and a JAX node never share a
 home, and no environment variable (`TM_HOME`) sets it.  A node runs on
 the card unless its config or `--crypto-backend` says otherwise; a fault
@@ -56,6 +60,14 @@ def _load_config(args) -> Config:
         cfg.base.crypto_backend = args.crypto_backend
     if getattr(args, "fast_sync", None) is not None:
         cfg.base.fast_sync = args.fast_sync
+    if getattr(args, "crypto_supervised", None) is not None:
+        cfg.crypto.supervised = args.crypto_supervised
+    if getattr(args, "crypto_breaker_threshold", None):
+        cfg.crypto.breaker_threshold = args.crypto_breaker_threshold
+    if getattr(args, "crypto_call_timeout", None):
+        cfg.crypto.call_timeout_s = args.crypto_call_timeout
+    if getattr(args, "crypto_spot_check", None):
+        cfg.crypto.spot_check_every = args.crypto_spot_check
     return cfg
 
 
@@ -355,11 +367,193 @@ def cmd_wal_fsck(args) -> int:
     return 1
 
 
-def cmd_version(args) -> int:
-    print(__version__)
+def _snapshot_store(args, hashing: bool = True):
+    """The home's config and its snapshot store; the store hashes chunks
+    on `make_backend(base.crypto_backend)` unless `hashing` is False
+    (listing re-roots manifests on the host and hashes no chunk)."""
+    from tendermint_tpu_torch.statesync import SnapshotStore
+    cfg = _load_config(args)
+    root = args.dir or os.path.join(cfg.base.db_dir(), "snapshots")
+    backend = None
+    if hashing:
+        from tendermint_tpu_torch.node.node import make_backend
+        backend = make_backend(cfg.base.crypto_backend)
+    return cfg, SnapshotStore(root, backend=backend)
+
+
+def _home_app(cfg):
+    """The home's Application instance, for snapshot create/restore.
+    Remote app specs (tcp://, grpc://) cannot serialize their state from
+    here — the operator snapshots on the app side instead."""
+    from tendermint_tpu_torch.abci.app import Application, create_app
+    from tendermint_tpu_torch.node.node import home_app
+    spec = cfg.base.proxy_app
+    if spec.startswith(("tcp://", "grpc://")):
+        raise SystemExit(f"cannot snapshot a remote app ({spec}); "
+                         "snapshots need in-process app state")
+    app = home_app(cfg.base)
+    return app if isinstance(app, Application) else create_app(app)
+
+
+def cmd_snapshot_list(args) -> int:
+    """List snapshots under the home (or --dir), torn ones included."""
+    _cfg, store = _snapshot_store(args, hashing=False)
+    valid, rejects = store.scan()
+    if args.json:
+        print(json.dumps({
+            "dir": store.root_dir,
+            "snapshots": [m.canonical_body() for m in valid],
+            "rejected": [{"dir": d, "why": w} for d, w in rejects]},
+            indent=1))
+        return 0
+    for m in valid:
+        print(f"height {m.height}: {m.chunks} chunks "
+              f"x {m.chunk_size}B, root {m.root.hex()[:16]}, "
+              f"app_hash {m.app_hash.hex()[:16]}")
+    for sdir, why in rejects:
+        print(f"REJECTED {sdir}: {why}")
+    if not valid and not rejects:
+        print(f"no snapshots under {store.root_dir}")
     return 0
 
 
+def cmd_snapshot_create(args) -> int:
+    """Snapshot the home's committed state + app state."""
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+    from tendermint_tpu_torch.utils.db import new_db
+    cfg, store = _snapshot_store(args)
+    gen = GenesisDoc.load(cfg.base.genesis_file())
+    state_db = new_db("sqlite", os.path.join(cfg.base.db_dir(),
+                                             "state.db"))
+    state = get_state(state_db, gen)
+    if state.last_block_height == 0:
+        print("state is at height 0; nothing to snapshot",
+              file=sys.stderr)
+        return 1
+    app = _home_app(cfg)
+    if not app.supports_snapshots():
+        print(f"app {cfg.base.proxy_app!r} does not support state "
+              "snapshots", file=sys.stderr)
+        return 1
+    app_height = app.info().last_block_height
+    if app_height != state.last_block_height:
+        print(f"app height {app_height} != state height "
+              f"{state.last_block_height}; refusing an inconsistent "
+              "snapshot (is the node still running?)", file=sys.stderr)
+        return 1
+    m = store.create(state, app.snapshot_state())
+    print(f"snapshot at height {m.height}: {m.chunks} chunks, "
+          f"root {m.root.hex()[:16]} -> {store.snapshot_dir(m.height)}")
+    return 0
+
+
+def cmd_snapshot_verify(args) -> int:
+    """Re-hash every chunk of every snapshot under a directory against
+    its manifest (wal-fsck for snapshots).  Exit 0 only when every
+    snapshot is intact; torn/corrupt ones are listed and exit 1."""
+    from tendermint_tpu_torch.node.node import make_backend
+    from tendermint_tpu_torch.statesync import SnapshotStore
+    from tendermint_tpu_torch.statesync.snapshot import MANIFEST_NAME
+    backend = make_backend(_load_config(args).base.crypto_backend)
+    target = os.path.expanduser(args.dir)
+    if os.path.exists(os.path.join(target, MANIFEST_NAME)):
+        # a single snapshot-XXXX dir: verify through its parent store
+        root, name = os.path.split(os.path.abspath(target))
+        store = SnapshotStore(root, backend=backend)
+        valid = [m for m in store.list()
+                 if store.snapshot_dir(m.height) == os.path.abspath(target)]
+        rejects = [(d, w) for d, w in store.scan()[1]
+                   if d == os.path.abspath(target)]
+        if not valid and not rejects:
+            rejects = [(target, "manifest invalid")]
+    else:
+        store = SnapshotStore(target, backend=backend)
+        valid, rejects = store.scan()
+    dirty = False
+    for sdir, why in rejects:
+        print(f"{sdir}: REJECTED ({why})")
+        dirty = True
+    for m in valid:
+        rep = store.verify(m.height)
+        if rep["ok"]:
+            print(f"height {m.height}: {rep['chunks']} chunks clean")
+            continue
+        dirty = True
+        if rep["missing_chunks"]:
+            print(f"height {m.height}: missing chunks "
+                  f"{rep['missing_chunks']}")
+        if rep["bad_chunks"]:
+            print(f"height {m.height}: corrupt chunks "
+                  f"{rep['bad_chunks']} (hash mismatch)")
+    if not valid and not rejects:
+        print(f"no snapshots under {target}")
+        return 1
+    print("clean" if not dirty else
+          "corrupt (a restoring peer would reject these chunks and "
+          "blame the server)")
+    return 1 if dirty else 0
+
+
+def cmd_snapshot_restore(args) -> int:
+    """Restore a home from a local snapshot: state db + app state +
+    a block store bootstrapped at the snapshot height, so the node
+    fast-syncs only `snapshot_height -> tip` on next boot.  The data
+    dir must be fresh (init or unsafe_reset_all first)."""
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.statesync import (RestoreError, StateSyncer,
+                                                StoreSource)
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+    from tendermint_tpu_torch.utils.db import new_db
+    cfg = _load_config(args)
+    gen = GenesisDoc.load(cfg.base.genesis_file())
+    os.makedirs(cfg.base.db_dir(), exist_ok=True)
+    block_store = BlockStore(new_db("sqlite",
+                                    os.path.join(cfg.base.db_dir(),
+                                                 "blockstore.db")))
+    if block_store.height != 0:
+        print(f"block store already at height {block_store.height}; "
+              "restore needs a fresh data dir (unsafe_reset_all first)",
+              file=sys.stderr)
+        return 1
+    cfg, store = _snapshot_store(args)
+    app = _home_app(cfg)
+    if not app.supports_snapshots():
+        print(f"app {cfg.base.proxy_app!r} does not support state "
+              "snapshots", file=sys.stderr)
+        return 1
+    src = StoreSource("local", store)
+    if args.height:
+        # --height pins the offer: only advertise that snapshot (other
+        # heights are skipped, not blamed — they're not lying)
+        all_manifests = src.manifests
+        src.manifests = lambda: [m for m in all_manifests()
+                                 if m.height == args.height]
+        if not src.manifests():
+            print(f"no valid snapshot at height {args.height} under "
+                  f"{store.root_dir}", file=sys.stderr)
+            return 1
+    syncer = StateSyncer([src], backend=store.backend)
+    state_db = new_db("sqlite", os.path.join(cfg.base.db_dir(),
+                                             "state.db"))
+    try:
+        state, manifest = syncer.restore(state_db, gen, app)
+    except RestoreError as e:
+        print(f"restore failed: {e}", file=sys.stderr)
+        return 1
+    if hasattr(app, "persist_state"):
+        app.persist_state()
+    block_store.bootstrap(manifest.height)
+    print(f"restored height {manifest.height} "
+          f"(app_hash {manifest.app_hash.hex()[:16]}); block store "
+          f"bootstrapped — next boot fast-syncs from "
+          f"{manifest.height + 1}")
+    return 0
+
+
+def cmd_version(args) -> int:
+    print(__version__)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -383,6 +577,24 @@ def main(argv=None) -> int:
                     default=None)
     sp.add_argument("--no-fast-sync", dest="fast_sync",
                     action="store_false")
+    sp.add_argument("--crypto-supervised", dest="crypto_supervised",
+                    action="store_true", default=None,
+                    help="wrap the crypto backend in the fault-tolerant "
+                         "ladder (cuda -> native -> python: timeouts, "
+                         "retry, circuit breaker)")
+    sp.add_argument("--no-crypto-supervised", dest="crypto_supervised",
+                    action="store_false")
+    sp.add_argument("--crypto-breaker-threshold", type=int, default=0,
+                    dest="crypto_breaker_threshold",
+                    help="consecutive device faults before the breaker "
+                         "trips to the next rung")
+    sp.add_argument("--crypto-call-timeout", type=float, default=0.0,
+                    dest="crypto_call_timeout",
+                    help="per-call device timeout in seconds")
+    sp.add_argument("--crypto-spot-check", type=int, default=0,
+                    dest="crypto_spot_check",
+                    help="re-verify one lane of every Nth device batch "
+                         "on the reference backend (0 = off)")
     sp.set_defaults(fn=cmd_node)
 
     sp = sub.add_parser("testnet", help="generate a local testnet")
@@ -415,6 +627,42 @@ def main(argv=None) -> int:
     sp.add_argument("--repair", action="store_true",
                     help="rewrite the log keeping only valid records")
     sp.set_defaults(fn=cmd_wal_fsck)
+
+    sp = sub.add_parser("snapshot",
+                        help="state snapshots: create, verify, restore "
+                             "(crashed nodes rejoin from a snapshot + a "
+                             "short fast-sync tail instead of a full "
+                             "replay)")
+    snap_sub = sp.add_subparsers(dest="snapshot_command", required=True)
+
+    ssp = snap_sub.add_parser("list", help="list snapshots (torn ones "
+                                           "flagged)")
+    ssp.add_argument("--dir", default="",
+                     help="snapshot root (default: <data dir>/snapshots)")
+    ssp.add_argument("--json", action="store_true")
+    ssp.set_defaults(fn=cmd_snapshot_list)
+
+    ssp = snap_sub.add_parser("create",
+                              help="snapshot the home's committed state")
+    ssp.add_argument("--dir", default="",
+                     help="snapshot root (default: <data dir>/snapshots)")
+    ssp.set_defaults(fn=cmd_snapshot_create)
+
+    ssp = snap_sub.add_parser(
+        "verify", help="re-hash every chunk against its manifest "
+                       "(wal-fsck for snapshots); exit 1 on any mismatch")
+    ssp.add_argument("dir", help="snapshot root or a single "
+                                 "snapshot-<height> directory")
+    ssp.set_defaults(fn=cmd_snapshot_verify)
+
+    ssp = snap_sub.add_parser(
+        "restore", help="restore a FRESH data dir from a snapshot; the "
+                        "next boot fast-syncs only the tail")
+    ssp.add_argument("--dir", default="",
+                     help="snapshot root (default: <data dir>/snapshots)")
+    ssp.add_argument("--height", type=int, default=0,
+                     help="restore this height (default: best available)")
+    ssp.set_defaults(fn=cmd_snapshot_restore)
 
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)

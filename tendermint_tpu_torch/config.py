@@ -19,8 +19,8 @@ from dataclasses import dataclass, field
 
 # the values `BaseConfig.crypto_backend` takes (`node.node.make_backend`):
 # "cuda" the kernels on the card, "cpu" their plain PyTorch versions,
-# "python" the golden bigint verifier
-CRYPTO_BACKENDS = ("cuda", "cpu", "python")
+# "native" the C++ host rung, "python" the golden bigint verifier
+CRYPTO_BACKENDS = ("cuda", "cpu", "native", "python")
 
 
 @dataclass
@@ -156,9 +156,11 @@ class ConsensusConfig:
 
 @dataclass
 class CryptoConfig:
-    """The supervised crypto ladder's knobs (`crypto/supervised.py` of the
-    JAX package, not ported yet: the port's `Node` refuses
-    `supervised=True`); kept so config files round-trip."""
+    """Supervised-crypto knobs (`crypto/supervised.py`).  `supervised`
+    wraps `base.crypto_backend` in the fault-tolerant ladder (cuda ->
+    native -> python from "cuda"); the rest tune its breaker, timeout,
+    retry and spot-check behavior.  No environment variable overrides
+    them."""
     supervised: bool = False
     breaker_threshold: int = 3       # consecutive faults before trip
     breaker_cooldown_s: float = 30.0  # OPEN -> HALF-OPEN delay

@@ -351,15 +351,19 @@ class ConsensusState:
         `CudaBackend` on the CPU among them, verifies on the scalar
         arrival path.  Before the backend has made two synchronous grouped
         calls (the first holds the kernels' build) the state stays scalar;
-        then 16."""
+        then 16.  A supervised ladder batches exactly when its ACTIVE rung
+        is such a backend: after a breaker demotion it serves from a host
+        rung, where the scalar path is as fast."""
         be = self.plane.backend
+        if getattr(be, "name", "") == "supervised":
+            be = be.active_backend()
         on_card = getattr(getattr(be, "device", None), "type", "") == "cuda"
         if getattr(be, "name", "") != "cuda" or not on_card:
             return 1 << 30
         if be.step_count < 2:
             return 1 << 30
-        # no breakeven term: the port's scalar verify is pure Python, so
-        # any grouped call beats it
+        # no breakeven term: one K1 call on a burst of 16 or more costs
+        # less than the burst's native scalar verifies
         return self.VOTE_MICROBATCH_MIN
 
     def _receive_routine(self) -> None:

@@ -24,6 +24,7 @@ on one.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import threading
 from typing import Protocol
@@ -78,15 +79,32 @@ def _pad_rows(a: np.ndarray, b: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[:1], b - len(a), 0)])
 
 
+# Verification is a pure function of (pubkey, msg, sig): the golden
+# backend memoizes it, so every node of an in-process rig that checks the
+# same LastCommit pays each lane once.
+@functools.lru_cache(maxsize=1 << 16)
+def _golden_memo(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    return _ref.verify(pub, msg, sig)
+
+
+def leaf_hasher(backend):
+    """The batched Merkle leaf hasher `backend.leaf_hashes` (K4 on a
+    `CudaBackend`, the host library on the native rung, the first rung's
+    on a supervised ladder), or None: no backend, or one without it (the
+    python floor)."""
+    return getattr(backend, "leaf_hashes", None)
+
+
 class PythonBackend:
-    """Golden bigint implementation — slow, obviously correct."""
+    """Golden bigint implementation — slow, obviously correct.  It stays on
+    `crypto.pure_ed25519`: the crypto ladder's floor and its spot-checker
+    (the scalar path of `types.keys` runs on the native rung)."""
     name = "python"
 
     def verify_batch(self, pubkeys, msgs, sigs):
-        from tendermint_tpu_torch.types.keys import _verify_memo
         out = np.zeros(len(pubkeys), dtype=bool)
         for i in range(len(pubkeys)):
-            out[i] = _verify_memo(pubkeys[i].tobytes(), msgs[i].tobytes(),
+            out[i] = _golden_memo(pubkeys[i].tobytes(), msgs[i].tobytes(),
                                   sigs[i].tobytes())
         return out
 

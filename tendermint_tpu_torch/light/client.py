@@ -19,23 +19,30 @@ no block execution, no app.  Three layers:
 Copy of `tendermint_tpu/light/client.py`.  Every verify goes through the
 `BatchPlane` the caller passes, as producer "light" in the plane's light
 class: K1 against the set's comb tables, with per-lane keys and messages
-for `verify_commit_any`.  The reference's one retry on a `DeviceFault`
-has no counterpart: a failed build or launch propagates, and the trusted
-state is left as it was.
+for `verify_commit_any`.  `LightClient.update` retries a verify once on
+`DeviceFault`, as the reference does; any other failed build or launch
+propagates, and the trusted state is left as it was either way.  None of
+the port's own backends raises `DeviceFault` (a supervised ladder's floor
+answers or raises its own error), so the retry runs only for a caller's
+backend that raises it; it is kept for the JAX package's contract.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
 
 from tendermint_tpu_torch.batchplane import CLASS_LIGHT
+from tendermint_tpu_torch.crypto.supervised import DeviceFault
 from tendermint_tpu_torch.types.block import BlockID, Commit, Header
 from tendermint_tpu_torch.types.validator import (CommitPowerError,
                                                   CommitSignatureError,
                                                   ValidatorSet,
                                                   verify_commits_batched)
+
+log = logging.getLogger(__name__)
 
 PRODUCER = "light"
 
@@ -166,12 +173,26 @@ class LightClient:
         if block_id.hash != h.hash():
             raise ValueError("commit is not for this header")
         trusted_set = self.trusted.validators
-        if trusted_set.hash() == validators.hash():
-            validators.verify_commit(self.chain_id, block_id, h.height,
-                                     sh.commit, _LightRoute(self.plane))
-        else:
-            verify_commit_any(trusted_set, validators, self.chain_id,
-                              block_id, h.height, sh.commit, self.plane)
+        for attempt in (0, 1):
+            try:
+                if trusted_set.hash() == validators.hash():
+                    validators.verify_commit(self.chain_id, block_id,
+                                             h.height, sh.commit,
+                                             _LightRoute(self.plane))
+                else:
+                    verify_commit_any(trusted_set, validators,
+                                      self.chain_id, block_id, h.height,
+                                      sh.commit, self.plane)
+                break
+            except DeviceFault as e:
+                # our crypto ladder failed, not the header: one bounded
+                # retry (the supervisor may have fallen to a healthy
+                # rung), then propagate as the retryable infra error it
+                # is — the trusted state is untouched either way
+                if attempt:
+                    raise
+                log.warning("device fault verifying header %d; retrying "
+                            "once: %s", h.height, str(e)[:200])
         self.trusted = TrustedState(h.height, h.hash(), validators)
         return self.trusted
 

@@ -14,9 +14,14 @@ the pool was given (ed25519 lanes ride the plane's raw kind, kernel K5 on
 `CudaBackend`) -> app CheckTx -> evict + insert.  Every submission lands
 in exactly one outcome.
 
-The port drops the reference's metrics and lock witness, and its
-scalar-verify fallback on a device fault: a failed verify flush raises
-out of `check_tx`.
+The port drops the reference's metrics and lock witness.  Its
+scalar-verify fallback catches only `DeviceFault`: the tx is then checked
+on the native scalar path rather than rejected.  None of the port's own
+backends lets one out (a supervised ladder's floor answers or raises its
+own error), so the fallback runs only for a caller's backend that raises
+it; it is kept for the JAX package's contract.  Any other failed verify
+flush (a bare `CudaBackend`'s build or launch error) raises out of
+`check_tx`.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ from tendermint_tpu_torch.abci.types import (ERR_BAD_SIG, ERR_ENCODING,
                                              ERR_MEMPOOL_FULL, Result)
 from tendermint_tpu_torch.batchplane import CLASS_MEMPOOL
 from tendermint_tpu_torch.crypto import secp256k1
+from tendermint_tpu_torch.crypto.supervised import DeviceFault
 from tendermint_tpu_torch.types import merkle
-from tendermint_tpu_torch.types.keys import PrivKey
+from tendermint_tpu_torch.types.keys import PrivKey, _verify_memo
 from tendermint_tpu_torch.types.tx import Tx
 
 # -- signed-tx envelope ----------------------------------------------------
@@ -342,8 +348,10 @@ class Mempool:
     def _verify_signed(self, parsed):
         """Envelope signature gate: None when tx may proceed to the app,
         else the rejecting `Result`.  Lanes ride the batch plane in the
-        mempool class (preempted by consensus votes); a failed flush
-        raises out of `check_tx`."""
+        mempool class (preempted by consensus votes); a `DeviceFault`
+        that survives the supervised ladder falls back to the scalar
+        verifier rather than rejecting a possibly-valid tx, and any other
+        failed flush raises out of `check_tx`."""
         if parsed is None:
             return None
         scheme, pub, sig, payload, prio = parsed
@@ -356,11 +364,14 @@ class Mempool:
                 [(pub, digest, sig)], producer="mempool",
                 klass=CLASS_MEMPOOL)[0])
         else:
-            ok = bool(self.plane.verify_batch(
-                np.frombuffer(pub, np.uint8).reshape(1, 32),
-                np.frombuffer(digest, np.uint8).reshape(1, 32),
-                np.frombuffer(sig, np.uint8).reshape(1, 64),
-                producer="mempool", klass=CLASS_MEMPOOL)[0])
+            try:
+                ok = bool(self.plane.verify_batch(
+                    np.frombuffer(pub, np.uint8).reshape(1, 32),
+                    np.frombuffer(digest, np.uint8).reshape(1, 32),
+                    np.frombuffer(sig, np.uint8).reshape(1, 64),
+                    producer="mempool", klass=CLASS_MEMPOOL)[0])
+            except DeviceFault:
+                ok = _verify_memo(pub, digest, sig)
         if not ok:
             return Result(code=ERR_BAD_SIG,
                           log=f"invalid {scheme} tx signature")

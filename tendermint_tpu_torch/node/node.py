@@ -8,19 +8,22 @@ handshake, proxy app conns, mempool, consensus, reactors, switch, and RPC;
 Copy of `tendermint_tpu/node/node.py` with the port's rules:
 
 * The crypto backend is explicit.  The node builds it from
-  `base.crypto_backend` (`make_backend`) unless one is passed in, and
-  hands one `BatchPlane` over it to the mempool and the consensus state;
-  the blockchain reactor and the handshake verify on the backend itself.
-  The JAX node installs a process-wide backend instead.
+  `base.crypto_backend` and `crypto` (`make_backend`: with
+  `crypto.supervised` the ladder of `crypto.supervised`) unless one is
+  passed in, and hands one `BatchPlane` over it to the mempool and the
+  consensus state; the blockchain reactor and the handshake verify on the
+  backend itself.  The JAX node installs a process-wide backend instead.
 * Nothing hides the card or a fault.  No comb-table warmer runs in a
   daemon thread (the first verify builds the tables), the node does not
-  run solo when a p2p listen address is set, `rpc.grpc_laddr` and
-  `crypto.supervised` are refused (the gRPC transport and the supervised
-  ladder are not ported), and `stop()` raises the fault kept by the
-  switch (its reactors') or the consensus state.  `run_forever` stops the
-  node, and so raises, as soon as one of them holds a fault.
-* `status` has no `metrics` and no `crypto_supervisor` keys until the
-  metrics and the supervised ladder are ported.
+  run solo when a p2p listen address is set, `rpc.grpc_laddr` is refused
+  (the gRPC transport is not ported), and `stop()` raises the fault kept
+  by the switch (its reactors') or the consensus state.  `run_forever`
+  stops the node, and so raises, as soon as one of them holds a fault.
+  A demotion down the supervised ladder is counted in its
+  `supervisor_status`, which `status` reports as `crypto_supervisor`.
+* `status` has no `metrics` key until the metrics are ported.
+* The persistent kvstore takes its file as an argument
+  (`<data dir>/kvstore_app.json`, `home_app`); no `TM_KVSTORE_PATH`.
 """
 
 from __future__ import annotations
@@ -32,10 +35,13 @@ import threading
 from tendermint_tpu_torch import __version__
 from tendermint_tpu_torch.batchplane import BatchPlane
 from tendermint_tpu_torch.blockchain.store import BlockStore
-from tendermint_tpu_torch.config import CRYPTO_BACKENDS, Config
+from tendermint_tpu_torch.abci.apps.kvstore import PersistentKVStoreApp
+from tendermint_tpu_torch.config import (CRYPTO_BACKENDS, BaseConfig, Config,
+                                         CryptoConfig)
 from tendermint_tpu_torch.consensus.replay import Handshaker
 from tendermint_tpu_torch.consensus.state import ConsensusState
-from tendermint_tpu_torch.crypto.backend import CudaBackend, PythonBackend
+from tendermint_tpu_torch.crypto.supervised import (SupervisedBackend,
+                                                    make_rung)
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.node.p2p_setup import build_p2p
 from tendermint_tpu_torch.proxy import ClientCreator
@@ -51,20 +57,38 @@ from tendermint_tpu_torch.utils.db import new_db
 log = logging.getLogger(__name__)
 
 
-def make_backend(name: str):
+def make_backend(name: str, crypto: CryptoConfig | None = None):
     """The backend `base.crypto_backend` names: "cuda" the kernels on the
     card (raises without one), "cpu" their plain PyTorch versions,
-    "python" the golden bigint verifier."""
-    if name == "cuda":
-        return CudaBackend()
-    if name == "cpu":
-        return CudaBackend(device="cpu")
-    if name == "python":
-        return PythonBackend()
-    raise ValueError(
-        f"crypto_backend {name!r} is not one of the port's backends "
-        f"{CRYPTO_BACKENDS}; the JAX package's tpu and native rungs come "
-        "with the crypto ladder (ROADMAP A.2)")
+    "native" the C++ host rung, "python" the golden bigint verifier.  With
+    `crypto.supervised` set, the supervised ladder from that rung down to
+    the python floor (`SupervisedBackend.build`, which raises when a rung
+    fails to construct)."""
+    if name not in CRYPTO_BACKENDS:
+        raise ValueError(
+            f"crypto_backend {name!r} is not one of the port's backends "
+            f"{CRYPTO_BACKENDS}")
+    if crypto is not None and crypto.supervised:
+        return SupervisedBackend.build(
+            name, breaker_threshold=crypto.breaker_threshold,
+            breaker_cooldown_s=crypto.breaker_cooldown_s,
+            call_timeout_s=crypto.call_timeout_s, retries=crypto.retries,
+            spot_check_every=crypto.spot_check_every)
+    return make_rung(name)
+
+
+PERSISTENT_APPS = ("persistent_kvstore", "persistent_dummy")
+
+
+def home_app(base: BaseConfig):
+    """`base.proxy_app` as `ClientCreator` takes it: a persistent kvstore
+    as an instance on `<data dir>/kvstore_app.json`, any other spec as
+    it is."""
+    if base.proxy_app in PERSISTENT_APPS:
+        os.makedirs(base.db_dir(), exist_ok=True)
+        return PersistentKVStoreApp(
+            os.path.join(base.db_dir(), "kvstore_app.json"))
+    return base.proxy_app
 
 
 class Node:
@@ -80,16 +104,14 @@ class Node:
         """
         self.config = config
         base = config.base
-        if config.crypto.supervised:
-            raise ValueError("crypto.supervised: the supervised crypto "
-                             "ladder is not ported (ROADMAP A.2)")
         if config.rpc.grpc_laddr:
             raise ValueError(
                 f"rpc.grpc_laddr {config.rpc.grpc_laddr!r}: the gRPC "
                 "server is not ported; it waits until grpcio is on the "
                 "card's machine (ROADMAP A.4)")
         self.backend = (backend if backend is not None
-                        else make_backend(base.crypto_backend))
+                        else make_backend(base.crypto_backend,
+                                          config.crypto))
         self.plane = BatchPlane(self.backend)
 
         # --- storage (reference :70-77) ---
@@ -115,7 +137,7 @@ class Node:
 
         # --- app conns + handshake (reference :83-89) ---
         self.proxy_app = ClientCreator(
-            app if app is not None else base.proxy_app).new_app_conns()
+            app if app is not None else home_app(base)).new_app_conns()
         self.handshaker = Handshaker(initial_state, self.block_store,
                                      self.backend)
         self.handshaker.handshake(self.proxy_app)
@@ -247,4 +269,8 @@ class Node:
             "latest_app_hash": self.state.app_hash.hex(),
             "validator_count": self.state.validators.size(),
             "consensus": self.consensus.get_round_state_summary(),
-        }
+        } | self._crypto_status()
+
+    def _crypto_status(self) -> dict:
+        fn = getattr(self.backend, "supervisor_status", None)
+        return {"crypto_supervisor": fn()} if fn is not None else {}

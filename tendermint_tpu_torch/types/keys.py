@@ -1,9 +1,13 @@
 """ed25519 key types and addresses.
 
 Copy of `tendermint_tpu/types/keys.py` for the port.  Addresses are
-sha256(pubkey)[:20].  Scalar sign/verify run on the golden bigint
-reference (`crypto.pure_ed25519`); bulk verification goes through
-`crypto.backend`.
+sha256(pubkey)[:20].  Scalar verification is the live consensus hot path
+(one ed25519 verify per arriving vote) and signing the priv validator's:
+both run on the native rung (`crypto.native`, the port's C++ ed25519),
+as the JAX package's do on OpenSSL.  Unlike the JAX package there is no
+pure-Python fallback: a failed build of the native library raises.  Key
+derivation stays on the golden bigint reference (`crypto.pure_ed25519`);
+bulk verification goes through `crypto.backend`.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import hashlib
 import secrets
 from dataclasses import dataclass
 
+from tendermint_tpu_torch.crypto import native as _native
 from tendermint_tpu_torch.crypto import pure_ed25519 as _ed
 
 ADDRESS_LEN = 20
@@ -24,7 +29,7 @@ _VERIFY_MEMO_SIZE = 1 << 16
 
 @functools.lru_cache(maxsize=_VERIFY_MEMO_SIZE)
 def _verify_memo(pub: bytes, msg: bytes, sig: bytes) -> bool:
-    return _ed.verify(pub, msg, sig)
+    return _native.verify_one(pub, msg, sig)
 
 
 def address_from_pubkey(pub: bytes) -> bytes:
@@ -73,4 +78,4 @@ class PrivKey:
         return PubKey(_ed.pubkey_from_seed(self.seed))
 
     def sign(self, msg: bytes) -> bytes:
-        return _ed.sign(self.seed, msg)
+        return _native.sign_one(self.seed, msg)

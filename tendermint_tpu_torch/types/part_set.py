@@ -14,8 +14,11 @@ and proof assembly) stays on the host — the reference re-hashes each
 block serially on the CPU inside its sync loop
 (`blockchain/reactor.go:224`, `types/part_set.go:95-122`).
 
-Copy of `tendermint_tpu/types/part_set.py`; the device gate asks the
-caller's backend (name "cuda") instead of a process-wide one.
+Copy of `tendermint_tpu/types/part_set.py`; a batch of at least
+`DEVICE_MIN_CHUNKS` full chunks is hashed by the caller's backend's
+`leaf_hashes` (K4 on the card) instead of a process-wide one's, and with
+no such backend by the native library's threaded `tm_leaf_hashes`
+(`utils.nativelib`), as in the JAX package; its build failing raises.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from dataclasses import dataclass
 import numpy as np
 from torch.profiler import record_function
 
+from tendermint_tpu_torch.crypto.backend import leaf_hasher
 from tendermint_tpu_torch.types import merkle
 from tendermint_tpu_torch.types.codec import Reader, lp_bytes, u32
+from tendermint_tpu_torch.utils import nativelib
 
 PART_SIZE = 64 * 1024  # reference types/block.go:19
 
@@ -150,20 +155,20 @@ class PartSet:
         return b"".join(p.bytes_ for p in self._parts)
 
 
-def _device_full_chunk_hashes(chunks: list[bytes], part_size: int,
-                              backend) -> list[bytes] | None:
-    """Leaf-hash equal-size chunks in one lockstep device batch; None when
-    the device would lose to host hashlib (small batch, or no "cuda"
-    backend)."""
+def _full_chunk_hashes(chunks: list[bytes], part_size: int,
+                       backend) -> list[bytes] | None:
+    """Leaf-hash equal-size chunks in one batch: through the backend's
+    `leaf_hashes` (`crypto.backend.leaf_hasher`: K4 on the card), else the
+    native library's threaded `tm_leaf_hashes`.  None below
+    `DEVICE_MIN_CHUNKS`, where host hashlib wins."""
     if len(chunks) < DEVICE_MIN_CHUNKS:
         return None
-    if backend is None or backend.name != "cuda":
-        return None
+    hasher = leaf_hasher(backend) or nativelib.leaf_hashes
     with record_function("part_set.join"):
         arr = np.frombuffer(b"".join(chunks), np.uint8).reshape(-1,
                                                                 part_size)
     with record_function("part_set.leaf_hashes"):
-        h = backend.leaf_hashes(arr)
+        h = hasher(arr)
         return [h[i].tobytes() for i in range(len(chunks))]
 
 
@@ -172,11 +177,11 @@ def from_data_batched(datas: list[bytes], part_size: int = PART_SIZE,
     """Build PartSets for MANY serialized blocks at once.
 
     All full-size (== part_size) chunks across the whole window are leaf-
-    hashed in one device batch through `backend` (when it is the "cuda"
-    backend and the batch is big enough); short tail chunks and the
+    hashed in one batch through `backend`'s `leaf_hashes` (when it has
+    one and the batch is big enough); short tail chunks and the
     per-block tree/proof assembly stay host-side.  Each step is a
     `torch.profiler` span: `part_set.chunk`, `part_set.join` and
-    `part_set.leaf_hashes` (the device batch) and `part_set.trees`.
+    `part_set.leaf_hashes` (the batch) and `part_set.trees`.
     """
     per_block: list[list[bytes]] = []
     full: list[tuple[int, int]] = []     # (block, part) of full chunks
@@ -191,7 +196,7 @@ def from_data_batched(datas: list[bytes], part_size: int = PART_SIZE,
                     full.append((bi, pi))
                     full_chunks.append(c)
     hashes: list[list[bytes | None]] = [[None] * len(c) for c in per_block]
-    dev = _device_full_chunk_hashes(full_chunks, part_size, backend)
+    dev = _full_chunk_hashes(full_chunks, part_size, backend)
     if dev is not None:
         for (bi, pi), h in zip(full, dev):
             hashes[bi][pi] = h

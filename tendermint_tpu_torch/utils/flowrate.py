@@ -1,6 +1,7 @@
 """Byte-rate metering for connections and fast-sync peers.
 
-Copy of `tendermint_tpu/utils/flowrate.py`.
+Copy of `tendermint_tpu/utils/flowrate.py`, with `Meter.unbiased_rate` added
+for the block pool's rate rule.
 
 Reference: tmlibs/flowrate `Monitor` — the reference samples transfer
 progress into an EMA and exposes `Status{AvgRate, Bytes, ...}`; fast-sync
@@ -63,6 +64,20 @@ class Meter:
         with self._lock:
             self._roll(now)
             return self._rate
+
+    def unbiased_rate(self, now: float | None = None) -> float:
+        """`rate()` without the average's bias toward its zero start: the
+        average divided by the weight its windows so far carry, 1 - (1 -
+        _ALPHA) ** windows.  A young meter then reads the mean rate of
+        what it has seen, not a fraction of it; an old one reads as
+        `rate()`."""
+        now = now if now is not None else time.monotonic()
+        with self._lock:
+            self._roll(now)
+            windows = round((self._window_start - self._start) / _WINDOW)
+            if windows == 0:
+                return self._rate
+            return self._rate / (1 - (1 - _ALPHA) ** windows)
 
     def age(self, now: float | None = None) -> float:
         now = now if now is not None else time.monotonic()

@@ -284,3 +284,160 @@ def test_masked_client_frame_reads_the_same():
         b ^ mask[i % 4] for i, b in enumerate(data))
     assert ws.read_frame(io.BytesIO(frame)) == jws.read_frame(
         io.BytesIO(frame)) == (0x1, data)
+
+
+# -- snapshot list | create | verify | restore ---------------------------------
+
+def _snap_home(tmp_path, name, gen_json, pkg_config):
+    """A home with config.toml (persistent_kvstore, the golden verifier)
+    and the genesis; returns (home, data dir)."""
+    home = str(tmp_path / name)
+    cfg = pkg_config.Config()
+    cfg.base.home = home
+    cfg.base.proxy_app = "persistent_kvstore"
+    cfg.base.crypto_backend = "python"
+    os.makedirs(cfg.base.db_dir(), exist_ok=True)
+    with open(cfg.base.genesis_file(), "w") as f:
+        f.write(gen_json)
+    pkg_config.save_config_file(cfg, pkg_config.config_file(home))
+    return home, cfg.base.db_dir()
+
+
+def _snap_flow(main, home1, db1, home2, db2, capsys,
+               before=lambda db: None):
+    """`tests/test_statesync.py`'s `cli snapshot` flow on one package:
+    (each command's exit code and output with the homes cut out).
+    `before(data dir)` runs before each command."""
+    out = []
+
+    def run(*argv):
+        before(db1 if argv[0] == home1 else db2)
+        rc = main(["--home", argv[0], "snapshot", *argv[1:]])
+        text = capsys.readouterr().out
+        for h in (home1, home2):
+            text = text.replace(h, "H")
+        out.append((argv[1], rc, text))
+        return rc
+
+    snap_root = os.path.join(db1, "snapshots")
+    run(home1, "create")
+    run(home1, "list")
+    run(home1, "list", "--json")
+    run(home1, "verify", snap_root)
+    run(home2, "restore", "--dir", snap_root)
+    run(home2, "restore", "--dir", snap_root)           # refused
+    sdir = [os.path.join(snap_root, d) for d in os.listdir(snap_root)][0]
+    cpath = os.path.join(sdir, "chunk-000000.bin")
+    data = bytearray(open(cpath, "rb").read())
+    data[0] ^= 0xFF
+    open(cpath, "wb").write(bytes(data))
+    run(home1, "verify", snap_root)
+    return out
+
+
+def test_snapshot_commands_match_jax(tmp_path, capsys, monkeypatch):
+    """create, list, verify, restore into a fresh home, a second restore
+    refused and a corrupt chunk flagged, against the JAX commands on the
+    same chain; the snapshot files, the restored state, block store and
+    app file equal; a node built on the restored home reports the
+    snapshot height and app hash."""
+    from chainutil import (build_chain, kvstore_app_hashes, make_genesis,
+                           make_validators)
+    from tendermint_tpu.abci.apps.kvstore import \
+        PersistentKVStoreApp as JPersistent
+    from tendermint_tpu.proxy import ClientCreator as JClientCreator
+    from tendermint_tpu.state import execution as jexecution
+    from tendermint_tpu.state.state import get_state as jget_state
+    from tendermint_tpu.utils.db import new_db as jnew_db
+    from tendermint_tpu_torch.abci.apps.kvstore import PersistentKVStoreApp
+    from tendermint_tpu_torch.blockchain.store import BlockStore
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import new_db
+    from torch_chains import port_chain
+
+    privs, vs = make_validators(2, seed=4)
+    jgen = make_genesis("cli-snap", privs)
+    n = 6
+    jchain = build_chain(privs, vs, "cli-snap", n,
+                         app_hashes=kvstore_app_hashes(n))
+    flows, trees, states = {}, {}, {}
+    for name, pkg_main, pkg_config in (("jax", jcli.main, jconfig),
+                                       ("port", cli.main, config)):
+        home1, db1 = _snap_home(tmp_path / name, "home1", jgen.to_json(),
+                                pkg_config)
+        home2, db2 = _snap_home(tmp_path / name, "home2", jgen.to_json(),
+                                pkg_config)
+        app_file = os.path.join(db1, "kvstore_app.json")
+        if name == "jax":
+            app = JPersistent(app_file)
+            conns = JClientCreator(app).new_app_conns()
+            state = jget_state(jnew_db("sqlite", os.path.join(
+                db1, "state.db")), jgen)
+            for block, ps, _seen in jchain:
+                jexecution.apply_block(state, None, conns.consensus, block,
+                                       ps.header, jexecution.MockMempool(),
+                                       check_last_commit=False)
+            # the JAX commands find the app file through the environment
+            flows[name] = _snap_flow(
+                pkg_main, home1, db1, home2, db2, capsys,
+                before=lambda db: monkeypatch.setenv(
+                    "TM_KVSTORE_PATH", os.path.join(db, "kvstore_app.json")))
+            monkeypatch.delenv("TM_KVSTORE_PATH")
+        else:
+            gen = GenesisDoc.from_json(jgen.to_json())
+            app = PersistentKVStoreApp(app_file)
+            conns = ClientCreator(app).new_app_conns()
+            state = get_state(new_db("sqlite", os.path.join(db1,
+                                                            "state.db")), gen)
+            for block, ps, _seen in port_chain(jchain):
+                execution.apply_block(state, conns.consensus, block,
+                                      ps.header, execution.MockMempool())
+            flows[name] = _snap_flow(pkg_main, home1, db1, home2, db2,
+                                     capsys)
+            bs = BlockStore(new_db("sqlite", os.path.join(db2,
+                                                          "blockstore.db")))
+            assert (bs.height, bs.base) == (n, n + 1)
+            cfg = config.load_config_file(config.config_file(home2))
+            cfg.base.home = home2
+            cfg.rpc.laddr = cfg.p2p.laddr = ""
+            node = Node(cfg)
+            try:
+                st = node.status()
+            finally:
+                node.plane.stop()
+                node.mempool.close()
+            assert st["latest_block_height"] == n
+            assert st["latest_app_hash"] == state.app_hash.hex()
+        trees[name] = {
+            os.path.relpath(os.path.join(d, f), db1):
+                open(os.path.join(d, f), "rb").read()
+            for d, _dirs, files in os.walk(os.path.join(db1, "snapshots"))
+            for f in files}
+        states[name] = (open(os.path.join(db2, "kvstore_app.json")).read(),
+                        state.encode())
+    assert flows["port"] == flows["jax"]
+    assert [(c, rc) for c, rc, _ in flows["port"]] == [
+        ("create", 0), ("list", 0), ("list", 0), ("verify", 0),
+        ("restore", 0), ("restore", 1), ("verify", 1)]
+    assert trees["port"] == trees["jax"]
+    assert json.loads(states["port"][0]) == json.loads(states["jax"][0])
+    assert states["port"][1] == states["jax"][1]
+
+
+@pytest.mark.parametrize("flags", [
+    dict(crypto_supervised=True, crypto_breaker_threshold=2,
+         crypto_call_timeout=5.0, crypto_spot_check=10),
+    dict(crypto_supervised=False, crypto_breaker_threshold=0,
+         crypto_call_timeout=0.0, crypto_spot_check=0)])
+def test_node_ladder_flags_load_as_jax(tmp_path, flags):
+    """`node --crypto-supervised` and its knobs fill `[crypto]` as the JAX
+    command's do."""
+    import argparse
+    home = str(tmp_path / "h")
+    args = argparse.Namespace(home=home, **flags)
+    got = cli._load_config(args).crypto
+    want = jcli._load_config(args).crypto
+    assert vars(got) == vars(want)
+    assert got.supervised is flags["crypto_supervised"]

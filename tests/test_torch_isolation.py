@@ -59,7 +59,17 @@ def test_port_files_found():
             "tendermint_tpu_torch/types/proposal.py",
             "tendermint_tpu_torch/types/vote.py",
             "tendermint_tpu_torch/utils/fmt.py",
-            "tendermint_tpu_torch/light/client.py"} <= rel
+            "tendermint_tpu_torch/light/client.py",
+            "tendermint_tpu_torch/utils/nativelib.py",
+            "tendermint_tpu_torch/crypto/native.py",
+            "tendermint_tpu_torch/crypto/supervised.py",
+            "tendermint_tpu_torch/statesync/__init__.py",
+            "tendermint_tpu_torch/statesync/messages.py",
+            "tendermint_tpu_torch/statesync/snapshot.py",
+            "tendermint_tpu_torch/statesync/restore.py"} <= rel
+    native = {p.name for p in (ROOT / "tendermint_tpu_torch" / "native")
+              .glob("*.cpp")}
+    assert native == {"tmhash.cpp", "ed25519.cpp"}
 
 
 def test_cuda_backend_needs_a_card():

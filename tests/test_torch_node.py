@@ -3,8 +3,8 @@ JAX package's (`tests/test_node_rpc.py`): both nodes in process on the
 same genesis and validator key (memdb, the golden verifier), every route
 answering with the JAX route's keys, `_block_dict` and `_result_dict`
 equal on the same bytes, the same app hash and query values after the
-same blocks, and the port's refusals: no card, gRPC, the supervised
-ladder and the JAX-only backends."""
+same blocks, the supervised ladder's `crypto_supervisor` status, and the
+port's refusals: no card, gRPC and the JAX-only backends."""
 
 import json
 import time
@@ -316,14 +316,50 @@ def test_cuda_backend_refused_without_a_card():
 
 @pytest.mark.parametrize("setting,match", [
     ({"rpc__grpc_laddr": "tcp://127.0.0.1:0"}, "grpcio"),
-    ({"crypto__supervised": True}, "supervised"),
-    ({"base__crypto_backend": "tpu"}, "A.2"),
-    ({"base__crypto_backend": "native"}, "A.2")])
+    ({"crypto__supervised": True, "base__crypto_backend": "tpu"},
+     "port's backends"),
+    ({"base__crypto_backend": "tpu"}, "port's backends"),
+    ({"base__crypto_backend": "supervised"}, "port's backends")])
 def test_refused_settings(setting, match):
-    """gRPC, the supervised ladder and the JAX package's tpu and native
-    backends raise: the port has none of them, and no fallback runs."""
+    """gRPC and the JAX package's tpu backend raise, bare or as the
+    supervised ladder's primary, and so does "supervised" as a backend
+    name (the ladder is `crypto.supervised`): the port has none of them,
+    and no fallback runs."""
     with pytest.raises(ValueError, match=match):
         _node(**setting)
+
+
+@pytest.mark.parametrize("primary", ["python", "native"])
+def test_supervised_status_keys_match_jax(primary):
+    """With `crypto.supervised`, `status` carries `crypto_supervisor` with
+    the JAX node's keys (its rungs' too), and the ladder runs from the
+    configured rung down to the python floor."""
+    old = jcb._current
+    n = _node(crypto__supervised=True, base__crypto_backend=primary)
+    jcfg = jfast_config()
+    jcfg.rpc.laddr = jcfg.p2p.laddr = ""
+    jcfg.crypto.supervised = True
+    jcfg.base.crypto_backend = primary
+    jpv = JPrivValidator(JPrivKey(SEED))
+    try:
+        jn = JNode(jcfg, priv_validator=jpv, genesis_doc=JGenesisDoc(
+            chain_id=CHAIN, validators=[JGenesisValidator(
+                jpv.pub_key.bytes_, 10)], genesis_time_ns=1))
+        got, want = n.status(), jn.status()
+    finally:
+        n.plane.stop()
+        n.mempool.close()
+        jcb._current = old
+    want.pop("metrics")
+    assert _keys(got, 3) == _keys(want, 3)
+    sup, jsup = got["crypto_supervisor"], want["crypto_supervisor"]
+    assert [r.keys() for r in sup["rungs"]] == \
+        [r.keys() for r in jsup["rungs"]]
+    assert [r["name"] for r in sup["rungs"]] == \
+        [r["name"] for r in jsup["rungs"]] == \
+        ["native", "python"][["native", "python"].index(primary):]
+    assert sup["active_rung"] == jsup["active_rung"] == primary
+    assert sup["chaos"] is None
 
 
 def test_evidence_from_the_consensus_state_lands_in_the_pool(nodes):

@@ -230,6 +230,62 @@ def test_block_pool_keeps_a_peer_working_through_its_queue(monkeypatch):
     assert (evicted, popped[:149], redone) == ([], list(range(1, 150)), [])
 
 
+def _stall_script(pool_module, flow_module, monkeypatch):
+    """One peer whose first ~31 KB block lands 0.5 s after it joined, then
+    nothing for a second (its host stalls), then one block every 0.1 s.
+    Returns (evictions, the heights popped)."""
+    clock = _Clock()
+    monkeypatch.setattr(pool_module, "time", clock)
+    monkeypatch.setattr(flow_module, "time", clock)
+    evicted, popped, queue = [], [], []
+    pool = pool_module.BlockPool(start_height=1)
+    pool.on_evict = lambda p, r: evicted.append((p, r))
+    pool.set_peer_height("a", 40)
+    for step in range(120):                # 0.05 s a step
+        clock.t = 1000.0 + step * 0.05
+        queue += [h for h, _p in pool.schedule()]
+        if queue and (step == 10 or (step >= 30 and step % 2 == 0)):
+            h = queue.pop(0)
+            if pool.add_block("a", SimpleNamespace(height=h)):
+                pool.record_bytes("a", 31_000)
+        got = pool.peek_contiguous(64)
+        pool.pop(len(got))
+        popped += [b.height for b in got]
+        if evicted:
+            break
+    return evicted, popped
+
+
+def test_block_pool_keeps_a_peer_through_a_stall_after_its_first_block(
+        monkeypatch):
+    """The rate rule reads the peer's rate without the average's bias
+    toward its zero start (`Meter.unbiased_rate`).  The JAX pool reads one
+    31 KB block and half a second of nothing as under 10 KB/s and evicts
+    a peer streaming at ~300 KB/s; the port's keeps it and gets every
+    block."""
+    theirs = _stall_script(jpool_mod, jflowrate, monkeypatch)
+    assert theirs[0] == [("a", "request timeouts")]
+    evicted, popped = _stall_script(pool_mod, flowrate, monkeypatch)
+    assert (evicted, popped[:40]) == ([], list(range(1, 41)))
+
+
+def test_flowrate_unbiased_rate_reads_the_mean_of_a_young_meter():
+    """A meter that has seen a steady rate for a few windows: `rate()`
+    reads a fraction of it (the JAX reading), `unbiased_rate()` the rate
+    itself; an old meter reads the same either way."""
+    m, jm = flowrate.Meter(now=0.0), jflowrate.Meter(now=0.0)
+    for i in range(12):                    # 4,096 B a 0.25 s window
+        m.update(4096, now=i * 0.25)
+        jm.update(4096, now=i * 0.25)
+    assert m.rate(now=3.0) == jm.rate(now=3.0) < 16_384 * 0.75
+    assert m.unbiased_rate(now=3.0) == pytest.approx(16_384, rel=1e-9)
+    old = flowrate.Meter(now=0.0)
+    for i in range(2000):
+        old.update(4096, now=i * 0.25)
+    assert old.unbiased_rate(now=500.0) == pytest.approx(old.rate(now=500.0),
+                                                         rel=1e-9)
+
+
 def test_block_pool_redoes_a_skipped_request_as_jax_does(monkeypatch):
     """A request its peer skipped (a later one was answered) times out
     REQUEST_TIMEOUT after its sending, as in the JAX pool."""
