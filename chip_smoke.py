@@ -57,7 +57,9 @@ Phases, in order; any mismatch or exception exits non-zero:
       first 10,000 blocks),
       each on a fresh state and under `torch.profiler`'s CUDA
       activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
-      K1 launches, device-idle share);
+      K1 launches, device-idle share); the first pipelined run without a
+      store also with the flight recorder cleared before it, its spans
+      and the metrics kept;
    e. BASELINE config 4 at its full 8 chains x 131,072 header+commit
       pairs x 8 validators (signed by K3): `verify_chains_batched`
       through a `BatchPlane(CudaBackend())` twice (the first pass builds
@@ -103,7 +105,12 @@ Phases, in order; any mismatch or exception exits non-zero:
       20 forged ones, spread over the four RPC ports; node 3 SIGKILLed after 8 heights, down for 4,
       restarted with `--fast-sync` and followed; every node read over
       RPC (blocks, commits, `tx?hash=`, `abci_query`), then stopped with
-      SIGINT.  Cell D, one validator `Node` in this process on a tmp
+      SIGINT.  The nodes run with `rpc.unsafe`: node 0 takes a
+      `torch.profiler` device trace over RPC (`debug_trace_start` /
+      `debug_trace_stop`) around the envelopes and two heights, every
+      node is scraped at `GET /metrics` before the kill, and `cli
+      timeline` over the four RPC ports and `cli doctor` against node 0
+      read them at the end.  Cell D, one validator `Node` in this process on a tmp
       SQLite home, its kvstore behind `abci/server.ABCIServer` in a
       child process, on a `CudaBackend` that records every K1, K2 and K5
       call: 80 envelopes over HTTP, a `WSClient` on NewBlock, a
@@ -168,7 +175,18 @@ Phases, in order; any mismatch or exception exits non-zero:
    and app hash per height, each signed envelope committed once and
    found and read back on every node, no forged one in any block, each
    node process holding a CUDA context, no node running nvcc, every node
-   exiting 0 after SIGINT; in cell D every K1, K2 and K5 call equal to
+   exiting 0 after SIGINT, every node's `/metrics` counting at least
+   its height in blocks committed, signatures verified and batch-plane
+   flushes with no crypto rung but cuda, node 0's device trace holding
+   K1 and K5 launches by kernel name, every height of `cli timeline`
+   partitioned into its four stages to its wall (1e-9 s) and `cli
+   doctor` answering a report; on the fast-sync run kept under the
+   flight recorder, the attribution doctor's partition of every window
+   summing to its wall (1e-9 s), its device-busy share logged beside
+   the profiler's CUDA busy share, `sigs_verified` equal to the lanes
+   the windows' masks passed, and the recorder's cost per span over
+   100,000 spans against the run's spans per second; in cell D every
+   K1, K2 and K5 call equal to
    the plain version on every lane, the evidence served over RPC, the
    app hash kept across the restart; in cell E every K1 and K5 call of
    the cuda rung equal to the plain version, every K4 row equal to
@@ -1947,24 +1965,63 @@ def device_busy(fn) -> tuple:
     return out, wall, sum(names.values()) / 1e3, names
 
 
+class _TrueLanes:
+    """A backend whose asynchronous templated verifies count the lanes
+    their masks hold and the lanes that passed; everything else is the
+    backend's own."""
+
+    def __init__(self, be):
+        self._be = be
+        self.lanes = self.true = self.calls = 0
+
+    def __getattr__(self, name):
+        return getattr(self._be, name)
+
+    def verify_grouped_templated_async(self, *args, **kw):
+        collect = self._be.verify_grouped_templated_async(*args, **kw)
+
+        def counted():
+            ok = collect()
+            self.lanes += len(ok)
+            self.true += int(ok.sum())
+            self.calls += 1
+            return ok
+        return counted
+
+
 def _fs_run(label: str, chain, be, pipelined: bool, n: int,
-            store=None) -> dict:
+            store=None, observe: bool = False) -> dict:
     """One replay of the chain's first `n` blocks on a fresh state, under
     the profiler: the pipeline (with `store`, or none) or the serial
-    loop."""
+    loop.  With `observe`, the flight recorder is cleared before the run
+    and its spans kept, with the metrics before and after and the lanes
+    the windows' masks passed."""
     from tendermint_tpu_torch.blockchain import replay as rp
     from tendermint_tpu_torch.proxy import ClientCreator
     from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils import tracing
     from tendermint_tpu_torch.utils.db import MemDB
+    from tendermint_tpu_torch.utils.metrics import REGISTRY
     state = get_state(MemDB(), chain.genesis)
     conns = ClientCreator("kvstore").new_app_conns()
-    args = (state, conns.consensus, chain.blocks[:n], chain.commits[:n], be)
+    counted = _TrueLanes(be) if observe else be
+    args = (state, conns.consensus, chain.blocks[:n], chain.commits[:n],
+            counted)
     if pipelined:
         run = lambda: rp.replay_pipelined(  # noqa: E731
             *args, window=WINDOW, store=store)
     else:
         run = lambda: rp.replay(*args, window=WINDOW)  # noqa: E731
+    if observe:
+        tracing.RECORDER.clear()
+        before = REGISTRY.snapshot()
     (res, k1), wall, busy, names = device_busy(lambda: _launched(run))
+    obs = None
+    if observe:
+        obs = {"spans": tracing.RECORDER.snapshot(),
+               "dropped": tracing.RECORDER.dropped, "before": before,
+               "after": REGISTRY.snapshot(), "lanes": counted.lanes,
+               "true": counted.true, "calls": counted.calls}
     steady = res.windows[1:]
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     blocks = sum(w.blocks for w in res.windows)
@@ -1984,7 +2041,8 @@ def _fs_run(label: str, chain, be, pipelined: bool, n: int,
                 f"{res.wall_s:.3f}); windows redone {res.redone}")
     log(msg)
     return {"label": label, "res": res, "state": state, "wall": wall,
-            "busy": busy, "names": names, "k1": k1.get("K1", 0), "n": n}
+            "busy": busy, "names": names, "k1": k1.get("K1", 0), "n": n,
+            "obs": obs}
 
 
 def phase_fastsync() -> dict:
@@ -2018,10 +2076,13 @@ def phase_fastsync() -> dict:
                     chain, be, True, FS_BLOCKS, store)]
     # two pairs in turn, so the host's drift between runs shows; the
     # second on a prefix, to keep the smoke in its time
+    # the first pipelined run without a store is the one the flight
+    # recorder's attribution doctor reads (`check_fastsync_doctor`)
     for piped, n in ((True, FS_BLOCKS), (False, FS_BLOCKS),
                      (False, FS_PAIR2_BLOCKS), (True, FS_PAIR2_BLOCKS)):
         runs.append(_fs_run(f"pipelined ({d} windows ahead), no store"
-                            if piped else "serial", chain, be, piped, n))
+                            if piped else "serial", chain, be, piped, n,
+                            observe=len(runs) == 1))
     sizes = [len(b.encode()) for b in chain.blocks]
     full = sum(n // PART_SIZE for n in sizes)
     log(f"[fastsync] blocks of {min(sizes)}-{max(sizes)} B: {full} full "
@@ -2030,6 +2091,80 @@ def phase_fastsync() -> dict:
     return {"backend": be, "chain": chain, "store": store, "runs": runs,
             "vals": chain.genesis.validator_set(),
             "full_parts": full}
+
+
+RECORDER_COST_SPANS = 100_000         # (c): spans timed for their cost
+PARTITION_TOL_S = 1e-9                 # float rounding of a window's sum
+
+
+def recorder_cost(n: int = RECORDER_COST_SPANS) -> float:
+    """Seconds per span of the flight recorder: `n` empty spans with one
+    argument, on a recorder of the process one's capacity."""
+    from tendermint_tpu_torch.utils.tracing import CAT_NONE, FlightRecorder
+    rec = FlightRecorder(16384)
+    t0 = time.perf_counter()
+    for i in range(n):
+        with rec.span("cost.probe", cat=CAT_NONE, i=i):
+            pass
+    return (time.perf_counter() - t0) / n
+
+
+def check_fastsync_doctor(run: dict) -> dict:
+    """The observability plane on the pipelined run without a store: the
+    attribution doctor over its flight-recorder spans partitions each
+    window's wall to float rounding; its device-busy share is printed
+    beside `torch.profiler`'s CUDA busy share (the spans' share holds the
+    host's wait for the card, so it should be the larger); the metrics
+    count exactly the lanes the windows' masks passed; and the
+    recorder's cost per span against the run's spans per second."""
+    from tendermint_tpu_torch.utils import attribution
+    obs, res = run["obs"], run["res"]
+    spans = obs["spans"]
+    require(obs["dropped"] == 0, f"the recorder dropped {obs['dropped']} "
+            f"spans of the run")
+    rows = attribution.window_attribution(spans)
+    require(len(rows) == len(res.windows) and
+            [r["window"] for r in rows] ==
+            [w.first_height for w in res.windows],
+            f"doctor windows {[r['window'] for r in rows][:5]}... against "
+            f"the run's {len(res.windows)}")
+    resid = max(abs(sum(r[k] for k in ("compile", "transfer", "device_busy",
+                                       "scalar_tail", "device_idle"))
+                    - r["wall"]) for r in rows)
+    require(resid <= PARTITION_TOL_S, f"a window's partition misses its "
+            f"wall by {resid:.3e} s")
+    rep = attribution.doctor_report(spans)
+    gap = rep["headline_gap"]
+    b, a = obs["before"], obs["after"]
+    d = {k: a[k] - b[k] for k in ("sigs_requested", "sigs_verified",
+                                  "verify_batches")}
+    require(d["sigs_verified"] == obs["true"] and
+            d["sigs_requested"] == obs["lanes"] == res.sigs and
+            d["verify_batches"] == obs["calls"] == len(res.windows),
+            f"metrics {d} against the masks' {obs['true']} passed of "
+            f"{obs['lanes']} lanes in {obs['calls']} calls (the run's "
+            f"{res.sigs} sigs in {len(res.windows)} windows)")
+    span_share = gap["device_busy"] / gap["wall"]
+    prof_share = run["busy"] / run["wall"]
+    cost = recorder_cost()
+    rate = len(spans) / run["wall"]
+    log(f"[observe] doctor over {len(spans)} spans of `{run['label']}` "
+        f"({run['n']} blocks): {len(rows)} windows, each partitioned to "
+        f"its wall within {resid:.2e} s; headline {gap} (s, summed over "
+        f"windows that overlap in the pipeline), overlap fraction "
+        f"{rep['overlap_fraction']}, largest thief {rep['largest_thief']}; "
+        f"device_busy share {span_share:.4f} of the windows' wall (spans: "
+        f"the host's wait for the card) against torch.profiler's CUDA "
+        f"busy share {prof_share:.4f} of the run's wall; metrics: "
+        f"sigs_verified +{d['sigs_verified']} == {obs['true']} lanes the "
+        f"masks passed, sigs_requested +{d['sigs_requested']}, "
+        f"verify_batches +{d['verify_batches']}")
+    log(f"[observe] recorder cost {cost * 1e6:.3f} us a span "
+        f"({RECORDER_COST_SPANS} spans); the run recorded {rate:.1f} "
+        f"spans/s, {rate * cost * 100:.4f} % of a core")
+    return {"windows": len(rows), "resid": resid, "span_share": span_share,
+            "prof_share": prof_share, "cost_us": cost * 1e6,
+            "spans_per_s": rate, "thief": rep["largest_thief"]}
 
 
 def _tampered(commits: list, height: int, lane: int) -> list:
@@ -4068,6 +4203,136 @@ class _CliNet:
                 p.wait()
 
 
+K1_KERNEL, K5_KERNEL = "verify_grouped_kernel", "verify_raw_kernel"
+
+
+def _unsafe_rpc(homes: list) -> None:
+    """`rpc.unsafe = true` in each home's config.toml, as an operator sets
+    it to reach the tracing and telemetry routes."""
+    from tendermint_tpu_torch.config import (config_file, load_config_file,
+                                             save_config_file)
+    for h in homes:
+        cf = config_file(h)
+        cfg = load_config_file(cf)
+        cfg.rpc.unsafe = True
+        save_config_file(cfg, cf)
+
+
+def _scrape(port: int) -> dict:
+    """A node's `GET /metrics`: {series name (labels kept): value}."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        require(r.headers["Content-Type"].startswith("text/plain"),
+                f"/metrics served {r.headers['Content-Type']}")
+        text = r.read().decode()
+    return dict(ln.rsplit(" ", 1) for ln in text.splitlines()
+                if ln and not ln.startswith("#"))
+
+
+def check_scrapes(net, backend: str = "cuda") -> list:
+    """Cell C's metrics, each node scraped while all four run: blocks
+    committed at least the height it reported just before, signatures
+    verified, batch-plane flushes, no crypto rung but cuda and the
+    build info naming `backend`."""
+    out = []
+    for i, p in enumerate(net.ports):
+        h = net.height(i)
+        m = _scrape(p)
+        committed = int(m["tendermint_blocks_committed"])
+        sigs = int(m["tendermint_sigs_verified"])
+        flushes = int(m["tendermint_batchplane_flushes"])
+        rungs = sorted({k.split('rung="', 1)[1].split('"', 1)[0]
+                        for k in m if 'rung="' in k})
+        info = next(k for k in m if k.startswith("tendermint_build_info"))
+        require(committed >= h and sigs > 0 and flushes > 0 and
+                set(rungs) <= {"cuda"} and
+                f'crypto_backend="{backend}"' in info,
+                f"node{i} /metrics: blocks_committed {committed} at height "
+                f"{h}, sigs_verified {sigs}, flushes {flushes}, rungs "
+                f"{rungs}, {info}")
+        out.append({"height": h, "committed": committed, "sigs": sigs,
+                    "flushes": flushes, "series": len(m),
+                    "h2d": int(m["tendermint_h2d_bytes"])})
+    log("[cli C] GET /metrics of the 4 nodes: "
+        + "; ".join(f"node{i} height {o['height']}, blocks_committed "
+                    f"{o['committed']}, sigs_verified {o['sigs']}, "
+                    f"batchplane_flushes {o['flushes']}, h2d_bytes "
+                    f"{o['h2d']} ({o['series']} series)"
+                    for i, o in enumerate(out))
+        + f"; no crypto rung but cuda, build info crypto_backend="
+        f"{backend}")
+    return out
+
+
+def read_device_trace(path: str) -> dict:
+    """Kernel events by name in an exported `torch.profiler` trace."""
+    import os
+    from tendermint_tpu_torch.utils import trace
+    with open(os.path.join(path, trace.DEVICE_TRACE_FILE)) as f:
+        evs = json.load(f)["traceEvents"]
+    kern = [e for e in evs if str(e.get("cat", "")).lower() == "kernel"]
+    names = {}
+    for e in kern:
+        k = e["name"].split("(")[0]
+        names[k] = names.get(k, 0) + 1
+    return {"events": len(evs), "kernels": len(kern), "names": names,
+            "k1": sum(n for k, n in names.items() if K1_KERNEL in k),
+            "k5": sum(n for k, n in names.items() if K5_KERNEL in k)}
+
+
+def _cli_json(*args) -> tuple:
+    """(exit code, stdout, stderr) of `python -m tendermint_tpu_torch.cli
+    <args>` run to its end."""
+    import os
+    r = subprocess.run(
+        [sys.executable, "-m", "tendermint_tpu_torch.cli", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=_repo_env(),
+        capture_output=True, text=True, timeout=120)
+    return r.returncode, r.stdout, r.stderr
+
+
+def cli_timeline_doctor(net, out_dir: str) -> dict:
+    """`cli timeline` over the four RPC addresses and `cli doctor`
+    against node 0, as an operator runs them: every height's four stages
+    sum to its wall, per node and for the merged row, and the doctor
+    answers a report."""
+    import os
+    addrs = ",".join(f"http://127.0.0.1:{p}" for p in net.ports)
+    t0 = time.perf_counter()
+    rc, out, err = _cli_json("timeline", "--rpc", addrs, "--json", "--out",
+                             os.path.join(out_dir, "timeline_trace.json"))
+    require(rc == 0, f"cli timeline exited {rc}: {out[-2000:]}{err[-2000:]}")
+    doc = json.loads(out)
+    rows = doc["timeline"]["heights"]
+    resid = max(abs(sum(c["stages"].values()) - c["wall_s"])
+                for r in rows for c in [r, *r["nodes"].values()])
+    require(rows and resid <= PARTITION_TOL_S and
+            doc["doctor"]["sums_to_wall"] and not doc["dropped"],
+            f"cli timeline: {len(rows)} heights, residual {resid:.3e} s, "
+            f"dropped {doc['dropped']}")
+    rc, out, err = _cli_json("doctor", "--rpc",
+                             f"http://127.0.0.1:{net.ports[0]}", "--json",
+                             "--ledger", "")
+    require(rc == 0, f"cli doctor exited {rc}: {err[-2000:]}")
+    report = json.loads(out)
+    require(report["schema"] == "tpu-bft-doctor/1", f"cli doctor: {report}")
+    rep = doc["doctor"]
+    p50 = {k: round(v["p50"], 4) for k, v in rep["stage_stats"].items()}
+    log(f"[cli C] `cli timeline` over the 4 RPC ports: {len(rows)} heights "
+        f"of {len(doc['timeline']['nodes'])} nodes, each height's 4 stages "
+        f"summing to its wall within {resid:.2e} s (per node too); stage "
+        f"p50 {p50} s, wall p99 {rep['wall_p99']:.4f} s, largest thief "
+        f"{rep['largest_thief']} ({rep['largest_thief_s']:.3f} s of "
+        f"{rep['wall_s']:.3f} s); `cli doctor` on node 0: "
+        f"{report['span_count']} spans, largest thief "
+        f"{report['largest_thief']}, headline {report['headline_gap']}; "
+        f"both commands {time.perf_counter() - t0:.1f} s")
+    return {"heights": len(rows), "resid": resid,
+            "thief": rep["largest_thief"],
+            "doctor_spans": report["span_count"]}
+
+
 def phase_cli_testnet(be, node_flags=()) -> dict:
     """Cell C, BASELINE config 1 as its users start it: `cli testnet --n
     4` writes the homes, four `cli node` processes run on the card
@@ -4078,8 +4343,11 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
     refused; node 3 killed with SIGKILL after CLI_KILL_AT heights, left
     down for CLI_DOWN, restarted with `--fast-sync` and followed; every
     node read over
-    RPC, then stopped with SIGINT.  `node_flags` (e.g. a CPU backend)
-    are for rehearsals off the card."""
+    RPC, then stopped with SIGINT.  The nodes run with `rpc.unsafe`: node
+    0 takes a `torch.profiler` device trace over RPC around the envelopes
+    and two heights, every node is scraped at `GET /metrics` before the
+    kill, and `cli timeline` and `cli doctor` read them at the end.
+    `node_flags` (e.g. a CPU backend) are for rehearsals off the card."""
     import random
     import signal
     import tempfile
@@ -4092,6 +4360,7 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
               "--chain-id", "cli-testnet", "--base-port", str(base)).wait()
     require(rc == 0, f"cli testnet exited with {rc}")
     net = _CliNet(tmp.name, base, node_flags)
+    _unsafe_rpc(net.homes)
     corpus = loadgen.build_corpus(random.Random(SEED + 12), loadgen.Mix(
         unsigned=0, signed=CLI_SIGNED, bad_sig=CLI_FORGED, dup_frac=0.0),
         backend=be)
@@ -4110,6 +4379,9 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
             f"{t_up - t0:.3f} s after the first started "
             f"({', '.join(f'{u:.3f}' for u in up)} s each in turn)")
         h_first = [net.height(i) for i in range(CLI_NODES)]
+        started = _rpc(net.ports[0], "debug_trace_start", name="cell-c")
+        require(started["started"], f"debug_trace_start: {started}")
+        h_trace = net.height(0)
         t_traffic = time.perf_counter()
 
         def sync(k):
@@ -4136,6 +4408,22 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
             require(r["check_tx"]["code"] == 0 and
                     r["deliver_tx"]["code"] == 0 and r["height"] > 0,
                     f"broadcast_tx_commit: {r}")
+        net.wait(lambda: net.height(0) >= h_trace + 2,
+                 "two heights under the device trace", range(CLI_NODES))
+        t_stop = time.perf_counter()
+        stopped = _rpc(net.ports[0], "debug_trace_stop")
+        dtrace = read_device_trace(stopped["dir"])
+        require(stopped["dir"] == started["dir"] and dtrace["k1"] >= 1 and
+                dtrace["k5"] >= 1, f"node 0's device trace {stopped}: "
+                f"{dtrace}")
+        log(f"[cli C] node 0's torch.profiler trace over RPC "
+            f"(debug_trace_start/stop, heights {h_trace}-"
+            f"{net.height(0)}, the envelopes' burst, "
+            f"{t_stop - t_traffic:.3f} s; stop and export "
+            f"{time.perf_counter() - t_stop:.3f} s): {dtrace['events']} "
+            f"events, {dtrace['kernels']} kernels, K1 "
+            f"({K1_KERNEL}) {dtrace['k1']}, K5 ({K5_KERNEL}) "
+            f"{dtrace['k5']}; by name {dtrace['names']}")
         lat = sorted(t for t, _ in commits)
         log(f"[cli C] {len(txs_sync)} envelopes over broadcast_tx_sync "
             f"and {CLI_COMMIT} over broadcast_tx_commit, spread over the "
@@ -4165,6 +4453,10 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
                      for p in net.ports),
                  f"{CLI_KILL_AT} heights and empty mempools",
                  range(CLI_NODES))
+        flags = list(node_flags)
+        scrapes = check_scrapes(net, flags[flags.index("--crypto-backend")
+                                           + 1]
+                                if "--crypto-backend" in flags else "cuda")
         t_kill = time.perf_counter()
         h_kill = net.height(0)
         run_s = t_kill - t_up
@@ -4207,6 +4499,7 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
             f"each with libcuda mapped and the card open: "
             f"{contexts}")
         reading = read_cli_testnet(net, signed, forged)
+        timeline = cli_timeline_doctor(net, tmp.name)
         for i in range(CLI_NODES):
             net.alive(i)
             net.procs[i].send_signal(signal.SIGINT)
@@ -4221,7 +4514,8 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
         require(_kernel_builds() == builds,
                 "build/kernels changed while the node processes ran")
         return {**reading, "pids": pids, "apps": apps, "rcs": rcs,
-                "contexts": contexts,
+                "contexts": contexts, "dtrace": dtrace, "scrapes": scrapes,
+                "timeline": timeline,
                 "lat": lat, "mesh_s": mesh["s"], "rate": rate,
                 "h_kill": h_kill, "h_restart": h_restart,
                 "catch_s": catch_s, "switch_s": switch_s,
@@ -5927,6 +6221,7 @@ def main() -> int:
     lt_ctx = phase_light()
     light = read_launches("light", ("K1", "K2", "K3"))
     check_fastsync(fs_ctx)
+    check_fastsync_doctor(fs_ctx["runs"][1])
     check_light(lt_ctx)
     t_cs = time.perf_counter()
     kernels.reset_launches()                # the consensus path starts here

@@ -8,7 +8,6 @@ reference's multiAppConn provides (`proxy/multi_app_conn.go:71-110`).  Copy of `
 
 from __future__ import annotations
 
-import logging
 import socket
 import threading
 
@@ -17,7 +16,9 @@ from tendermint_tpu_torch.abci.types import (RequestBeginBlock,
                                              ResponseEndBlock, ResponseInfo,
                                              ResponseQuery, Result)
 from tendermint_tpu_torch.types.codec import Reader, lp_bytes, u64
-log = logging.getLogger(__name__)
+from tendermint_tpu_torch.utils.log import get_logger
+
+log = get_logger("abci")
 
 
 class ABCIClientError(Exception):
@@ -45,7 +46,7 @@ class SocketAppConn:
         except OSError as e:
             # close failures can't be retried, but a socket that won't
             # even close is worth a breadcrumb when the app misbehaves
-            log.debug("abci conn %s close failed: %s", self.name, e)
+            log.debug("abci conn close failed", conn=self.name, err=str(e))
 
     def _call(self, msg_type: int, payload: bytes = b"") -> bytes:
         try:

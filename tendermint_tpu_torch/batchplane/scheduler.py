@@ -28,9 +28,12 @@ producers (the mempool CheckTx lane, kernel K5 on `CudaBackend`), and
 secp256k1 lanes coalesce into one host-side pass.
 
 The port drops the reference's process-wide singleton, its
-`TM_BATCHPLANE*` environment overrides and inline mode, and its metrics:
-the plane is built with an explicit backend and knobs, and an optional
+`TM_BATCHPLANE*` environment overrides and inline mode: the plane is
+built with an explicit backend and knobs, and an optional
 `on_flush(kind, reason, lanes, producers)` callback observes each flush.
+Its metrics are the JAX plane's: queue depth, flushes and their reason,
+mixed-producer batches, the wait per class, lanes per producer and the
+occupancy of the padded chunk each flush rode.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ import threading
 import time
 
 import numpy as np
+
+from tendermint_tpu_torch.crypto.backend import _bucket
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 # -- priority classes --------------------------------------------------------
 
@@ -250,6 +256,8 @@ class BatchPlane:
                     continue
                 subs = self._take_locked(batch)
                 self._inflight += len(subs)
+                depth = sum(len(b.subs) for b in self._pending.values())
+            REGISTRY.batchplane_queue_depth_hist.observe(depth)
             try:
                 self._execute(subs, reason)
             finally:
@@ -311,10 +319,22 @@ class BatchPlane:
     # -- execution ------------------------------------------------------
 
     def _execute(self, subs: list[Submission], reason: str) -> None:
+        now = time.perf_counter()
         kind = subs[0].kind
+        lanes = sum(s.n for s in subs)
+        REGISTRY.batchplane_flushes.inc()
+        REGISTRY.batchplane_flush_reason.labels(reason).inc()
+        if len({s.producer for s in subs}) > 1:
+            REGISTRY.batchplane_mixed_batches.inc()
+        for s in subs:
+            REGISTRY.batchplane_wait_seconds.labels(s.klass).observe(
+                max(now - s.enq_t, 0.0))
+            REGISTRY.batchplane_lanes.labels(s.producer).inc(s.n)
+        if lanes:
+            REGISTRY.batchplane_occupancy_hist.observe(lanes / _bucket(lanes))
         try:
             if self.on_flush is not None:
-                self.on_flush(kind, reason, sum(s.n for s in subs),
+                self.on_flush(kind, reason, lanes,
                               {s.producer for s in subs})
             if kind == "grouped":
                 out = self._run_grouped(subs)

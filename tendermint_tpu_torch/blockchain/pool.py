@@ -8,9 +8,9 @@ unresponsive peers evicted (`removeTimedoutPeers` `:100-118`),
 (`bpRequester`); here a single scheduler assigns request slots and the
 reactor's pool routine drives (`schedule()` returns what to request),
 which batches naturally with the device-verify window.  Copy of
-`tendermint_tpu/blockchain/pool.py` without tracing and the lock witness,
-and with two differences: when a request is redone, and how a young
-peer's rate is read.
+`tendermint_tpu/blockchain/pool.py` (its `pool.evict` / `pool.redo`
+instants kept) without the lock witness, and with two differences: when
+a request is redone, and how a young peer's rate is read.
 
 The JAX pool redoes a request REQUEST_TIMEOUT after it was sent, and
 evicts a peer after MAX_PEER_TIMEOUTS redos in a row.  A peer serves its
@@ -35,13 +35,14 @@ mean of what the peer delivered; a peer that drips is evicted as before.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 
+from tendermint_tpu_torch.utils import tracing
 from tendermint_tpu_torch.utils.flowrate import Meter
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("blockpool")
 
 MAX_PENDING = 300                # reference maxPendingRequests
 MAX_PENDING_PER_PEER = 75        # reference maxPendingRequestsPerPeer
@@ -210,7 +211,8 @@ class BlockPool:
         with self._lock:
             if peer_id not in self._peers:
                 return
-        log.info("evicting peer %s: %s", peer_id[:12], reason)
+        log.info("evicting slow peer", peer=peer_id[:12], reason=reason)
+        tracing.instant("pool.evict", peer=peer_id[:12], reason=reason)
         self.remove_peer(peer_id)
         if self.on_evict is not None:
             self.on_evict(peer_id, reason)
@@ -258,6 +260,8 @@ class BlockPool:
         with self._lock:
             slot = self._slots.pop(height, None)
         if slot is not None:
+            tracing.instant("pool.redo", height=height,
+                            peer=slot.peer_id[:12])
             self._evict(slot.peer_id, f"bad block at height {height}")
             # drop any later blocks that peer delivered: they're suspect
             with self._lock:

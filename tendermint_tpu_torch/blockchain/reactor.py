@@ -28,13 +28,15 @@ in order.  Two differences, both rules of the port:
   blamed.  A bad commit still takes the JAX blame path (`pool.redo`,
   eviction, ban).
 
-Tracing spans and metrics are not ported; each window's host seconds are
-kept in `windows` instead.
+The JAX reactor's spans are kept (`fastsync.lookahead`, `.prepare`,
+`.verify`, `.apply` and the `fastsync.window` envelope the attribution
+doctor groups by), with `blocks_synced` and each window's attribution fed
+to the `window_*` histograms; each window's host seconds are also kept
+in `windows`.
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 
@@ -52,8 +54,15 @@ from tendermint_tpu_torch.types.validator import (CommitFormatError,
                                                   verify_commits_batched,
                                                   window_commit_lanes,
                                                   window_tally_check)
+from tendermint_tpu_torch.utils import attribution, tracing
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("blockchain")
+
+# spans a window's attribution reads back from the recorder: its own
+# handful and whatever other threads recorded meanwhile
+WINDOW_SPANS = 256
 
 BLOCKCHAIN_CHANNEL = 0x40
 SYNC_TICK = 0.01                 # reference trySyncTicker (100ms)
@@ -80,22 +89,27 @@ class _Lookahead:
         self.error: BaseException | None = None
         self.prepare_s = 0.0
         t0 = time.perf_counter()
-        try:
-            window, parts_list, items = BlockchainReactor._prepare_window(
-                blocks, self.vals_hash, backend)
+        with tracing.span("fastsync.lookahead",
+                          first_height=self.first_height,
+                          blocks=len(blocks)):
+            try:
+                window, parts_list, items = \
+                    BlockchainReactor._prepare_window(blocks, self.vals_hash,
+                                                      backend)
+                if window:
+                    self.lanes = window_commit_lanes(vals, chain_id, items)
+            except ValueError as e:
+                self.error = e
+                return
+            finally:
+                self.prepare_s = time.perf_counter() - t0
+            self.window, self.parts_list, self.items = (window, parts_list,
+                                                        items)
             if window:
-                self.lanes = window_commit_lanes(vals, chain_id, items)
-        except ValueError as e:
-            self.error = e
-            return
-        finally:
-            self.prepare_s = time.perf_counter() - t0
-        self.window, self.parts_list, self.items = window, parts_list, items
-        if window:
-            templates, tmpl_idx, sigs, idxs = self.lanes[:4]
-            self.collect = backend.verify_grouped_templated_async(
-                vals.set_key(), vals.pubs_matrix(), idxs, tmpl_idx,
-                templates, sigs)
+                templates, tmpl_idx, sigs, idxs = self.lanes[:4]
+                self.collect = backend.verify_grouped_templated_async(
+                    vals.set_key(), vals.pubs_matrix(), idxs, tmpl_idx,
+                    templates, sigs)
 
     def check(self) -> None:
         """Wait for the mask and tally it: raises the window's canonical
@@ -224,8 +238,8 @@ class BlockchainReactor(Reactor):
         except BaseException as e:
             # not a peer's doing (a bad commit is handled in _sync_step):
             # the sync ends here and stop() raises it
-            log.error("fast-sync stopped by a fault at height %d: %r",
-                      self.pool.next_height, e)
+            log.error("fast-sync stopped by a fault",
+                      height=self.pool.next_height, error=repr(e))
             self.fault = e
 
     def _pool_loop(self) -> None:
@@ -243,8 +257,8 @@ class BlockchainReactor(Reactor):
             progressed = self._sync_step()
             if self.pool.is_caught_up() and not self._switched:
                 self._switched = True
-                log.info("fast-sync caught up at height %d",
-                         self.state.last_block_height)
+                log.info("fast-sync caught up",
+                         height=self.state.last_block_height)
                 if self.on_caught_up is not None:
                     self.on_caught_up(self.state)
                 return
@@ -306,7 +320,10 @@ class BlockchainReactor(Reactor):
                 la.vals_hash == vals_hash and
                 la.first_height == blocks[0].height):
             try:
-                la.check()
+                with tracing.span("fastsync.verify",
+                                  first_height=la.first_height,
+                                  blocks=len(la.window)):
+                    la.check()
             except ValueError:
                 # the synchronous path below verifies again and blames
                 pass
@@ -314,49 +331,54 @@ class BlockchainReactor(Reactor):
                 verified = (la.window, la.parts_list, la.items)
                 self.lookahead_hits += 1
         if verified is None:
-            window, parts_list, items = self._prepare_window(
-                blocks, vals_hash, self.backend)
+            with tracing.span("fastsync.prepare",
+                              first_height=blocks[0].height,
+                              blocks=len(blocks) - 1):
+                window, parts_list, items = self._prepare_window(
+                    blocks, vals_hash, self.backend)
             prepare_s = time.perf_counter() - t0
             if not window:
                 # the very next block disagrees with our state's validator
                 # set: the block is bad (or stale) — re-fetch it elsewhere
-                log.warning("next block's validators_hash mismatches the "
-                            "state at height %d", blocks[0].height)
+                log.warn("next block's validators_hash mismatches state",
+                         height=blocks[0].height)
                 self.pool.redo(blocks[0].height)
                 return False
             try:
-                verify_commits_batched(self.state.validators, chain_id,
-                                       items, self.backend)
+                with tracing.span("fastsync.verify",
+                                  first_height=window[0].height,
+                                  blocks=len(window)):
+                    verify_commits_batched(self.state.validators, chain_id,
+                                           items, self.backend)
             except CommitFormatError as e:
                 # a structurally-wrong commit (stale finality proof, bad
                 # size) rides in the successor block's LastCommit — same
                 # blame as a pruned commit: height+1's deliverer lied
-                log.warning("stale/malformed commit at height %d; "
-                            "punishing the successor's deliverer: %s",
-                            e.height, str(e)[:200])
+                log.warn("stale/malformed commit; punishing successor's "
+                         "deliverer", height=e.height, error=str(e)[:200])
                 self.pool.redo(e.height + 1)
                 return False
             except CommitSignatureError as e:
                 # the commit for height h rides in block h+1's LastCommit:
                 # a forged signature implicates the successor's deliverer
-                log.warning("bad commit signature at height %d; "
-                            "punishing the deliverer", e.height)
+                log.warn("bad commit signature; punishing deliverer",
+                         height=e.height)
                 self.pool.redo(e.height + 1)
                 return False
             except CommitPowerError as e:
                 if e.foreign_votes:
                     # votes endorse a DIFFERENT block: block h itself was
                     # tampered — its deliverer lied
-                    log.warning("commit votes for another block at height "
-                                "%d; punishing the deliverer", e.height)
+                    log.warn("commit votes for another block; punishing "
+                             "deliverer", height=e.height)
                     self.pool.redo(e.height)
                 else:
                     # every vote endorses our block but too few are
                     # present: the commit rides in h+1's LastCommit, so
                     # the SUCCESSOR's deliverer pruned it — an honest
                     # deliverer of h must not be evicted for that
-                    log.warning("commit pruned at height %d; punishing "
-                                "the successor's deliverer", e.height)
+                    log.warn("commit pruned; punishing successor's "
+                             "deliverer", height=e.height)
                     self.pool.redo(e.height + 1)
                 return False
             verified = (window, parts_list, items)
@@ -384,21 +406,35 @@ class BlockchainReactor(Reactor):
             # against a stale set — drop and re-verify
             moved = self.state.validators.hash() != vals_hash
             if moved:
-                log.info("valset changed mid-window at height %d; "
-                         "flushing", self.state.last_block_height)
+                log.info("valset changed mid-window; flushing",
+                         height=self.state.last_block_height)
             return moved
 
         # the window-batched apply: per-block validate/exec/save
         # discipline identical to apply_block (save_every=1 — a durable
         # node must keep store <= state+1 for the handshake), but the app
         # conn's lock is held once for the whole window
-        applied = execution.apply_window(
-            self.state, self.proxy,
-            [(b, p.header) for b, p in zip(window, parts_list)],
-            execution.MockMempool(), save_every=1,
-            before_block=_save_to_store, stop_when=_valset_moved)
+        with tracing.span("fastsync.apply", first_height=window[0].height,
+                          blocks=len(window)):
+            applied = execution.apply_window(
+                self.state, self.proxy,
+                [(b, p.header) for b, p in zip(window, parts_list)],
+                execution.MockMempool(), save_every=1,
+                before_block=_save_to_store, stop_when=_valset_moved)
         self.pool.pop(applied)
+        REGISTRY.blocks_synced.inc(applied)
         t3 = time.perf_counter()
+        # the window-boundary span: verify (or the lookahead's collect)
+        # through apply under one window=<first_height> key, which is
+        # what the attribution profiler groups by
+        tracing.RECORDER.record(
+            "fastsync.window", tracing.perf_to_epoch(t0), t3 - t0,
+            {"window": window[0].height, "blocks": applied})
+        spans = tracing.RECORDER.recent(WINDOW_SPANS)
+        iv = attribution.find_windows(spans).get(window[0].height)
+        if iv is not None:
+            attribution.observe_window_metrics(attribution.attribute_interval(
+                attribution.spans_by_category(spans), *iv))
         # host seconds of this step: preparing (a window verified here
         # and the next one's dispatch), verifying (or collecting the
         # window verified ahead), applying

@@ -18,6 +18,13 @@ applies, so the card's verify runs under the host's prepare and apply,
 all on one thread; it can save each block to a `BlockStore` before
 applying it.
 
+Both record the fast-sync reactor's spans in the flight recorder
+(`fastsync.prepare`, `.verify` on the serial loop, `.apply`, and a
+`fastsync.window` envelope with the window's first height as its
+`window` key, from its prepare to the end of its apply), so the
+attribution doctor partitions each window's wall clock; the backend adds
+its own (`transfer.h2d`, `verify.dispatch`, `verify.collect`).
+
 `build_chain` makes a deterministic chain in the shape of the reference's
 benchmark fixture (`bench.py` `_fixture_build_base`): hash-linked blocks
 with one ~12 KB kvstore tx each, and seen commits signed in bulk by the
@@ -45,6 +52,7 @@ from tendermint_tpu_torch.types.part_set import from_data_batched
 from tendermint_tpu_torch.types.validator import (verify_commits_batched,
                                                   window_commit_lanes,
                                                   window_tally_check)
+from tendermint_tpu_torch.utils import tracing
 
 DEFAULT_WINDOW = 625          # BASELINE config 3: 62,500 lanes at V = 100
 PIPELINE_DEPTH = 3            # K1 calls in flight (`bench.py` _replay_chain)
@@ -235,20 +243,31 @@ def replay(state, proxy_consensus, blocks: list[Block], commits: list,
     i = 0
     while i < len(blocks):
         t0 = time.perf_counter()
-        win, parts, items = prepare_window(
-            blocks[i:i + window], commits[i:i + window],
-            state.validators.hash(), backend)
+        first = blocks[i].height
+        with tracing.span("fastsync.prepare", first_height=first,
+                          blocks=len(blocks[i:i + window])):
+            win, parts, items = prepare_window(
+                blocks[i:i + window], commits[i:i + window],
+                state.validators.hash(), backend)
         if not win:
             raise ValueError(f"block {blocks[i].height}: validators_hash "
                              f"does not match the state's validator set")
         t1 = time.perf_counter()
-        lanes, tallied = verify_commits_batched(
-            state.validators, state.chain_id, items, backend)
+        with tracing.span("fastsync.verify", first_height=first,
+                          blocks=len(win)):
+            lanes, tallied = verify_commits_batched(
+                state.validators, state.chain_id, items, backend)
         t2 = time.perf_counter()
-        execution.apply_window(state, proxy_consensus,
-                               [(b, ps.header) for b, ps in zip(win, parts)],
-                               execution.MockMempool(), save_every=0)
+        with tracing.span("fastsync.apply", first_height=first,
+                          blocks=len(win)):
+            execution.apply_window(
+                state, proxy_consensus,
+                [(b, ps.header) for b, ps in zip(win, parts)],
+                execution.MockMempool(), save_every=0)
         t3 = time.perf_counter()
+        tracing.RECORDER.record("fastsync.window", tracing.perf_to_epoch(t0),
+                                t3 - t0, {"window": first,
+                                          "blocks": len(win)})
         result.windows.append(WindowStats(
             win[0].height, len(win), lanes, [int(x) for x in tallied],
             t1 - t0, t2 - t1, t3 - t2))
@@ -277,6 +296,7 @@ class _Window:
     error: BaseException | None = None
     prepare_s: float = 0.0
     verify_s: float = 0.0
+    t0: float = 0.0                     # perf_counter at its prepare
 
 
 def _bounds(blocks: list[Block], start: int, vals_hash: bytes,
@@ -300,14 +320,16 @@ def _dispatch(blocks, commits, lo: int, hi: int, vals, vals_hash: bytes,
     its K1 call without waiting for it.  A verdict error is kept on the
     window; a failed launch or copy raises."""
     t0 = time.perf_counter()
-    w = _Window(blocks[lo].height, vals_hash)
+    w = _Window(blocks[lo].height, vals_hash, t0=t0)
     if lo < hi:
-        try:
-            w.blocks, w.parts, w.items = prepare_window(
-                blocks[lo:hi], commits[lo:hi], vals_hash, backend)
-            w.lanes = window_commit_lanes(vals, chain_id, w.items)
-        except ValueError as e:         # raised if this window is live
-            w.error = e
+        with tracing.span("fastsync.prepare", first_height=w.first_height,
+                          blocks=hi - lo):
+            try:
+                w.blocks, w.parts, w.items = prepare_window(
+                    blocks[lo:hi], commits[lo:hi], vals_hash, backend)
+                w.lanes = window_commit_lanes(vals, chain_id, w.items)
+            except ValueError as e:     # raised if this window is live
+                w.error = e
     t1 = time.perf_counter()
     w.prepare_s = t1 - t0
     if w.blocks and w.error is None:
@@ -428,12 +450,18 @@ def _apply(state, proxy_consensus, w: _Window, store, stop_when,
         return result.stopped
 
     t0 = time.perf_counter()
-    applied = execution.apply_window(
-        state, proxy_consensus,
-        [(b, ps.header) for b, ps in zip(w.blocks, w.parts)],
-        execution.MockMempool(), save_every=1 if store else 0,
-        before_block=save if store else None, stop_when=stop)
-    apply_s = time.perf_counter() - t0
+    with tracing.span("fastsync.apply", first_height=w.first_height,
+                      blocks=len(w.blocks)):
+        applied = execution.apply_window(
+            state, proxy_consensus,
+            [(b, ps.header) for b, ps in zip(w.blocks, w.parts)],
+            execution.MockMempool(), save_every=1 if store else 0,
+            before_block=save if store else None, stop_when=stop)
+    t1 = time.perf_counter()
+    apply_s = t1 - t0
+    tracing.RECORDER.record("fastsync.window", tracing.perf_to_epoch(w.t0),
+                            t1 - w.t0, {"window": w.first_height,
+                                        "blocks": applied})
     result.busy_s["apply"] += apply_s
     result.windows.append(WindowStats(
         w.first_height, applied, int(sum(w.lanes[4][:applied])),

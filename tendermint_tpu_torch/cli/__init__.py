@@ -11,9 +11,11 @@ Copy of `tendermint_tpu/cli/__init__.py` with the commands `init`,
 `node` (the supervised-ladder flags among its flags), `testnet`,
 `gen_validator`, `show_validator`, `unsafe_reset_all`, `replay`,
 `replay_console`, `wal-fsck`, `snapshot list | create | verify |
-restore` and `version`.  `init --warm-crypto` and the `trace`,
-`doctor`, `timeline`, `bench-history`, `lint`, `chaos` and `probe_upnp`
-commands wait for the modules they drive.  The snapshot commands hash
+restore`, `trace`, `doctor`, `timeline`, `bench-history` and `version`.
+`init --warm-crypto` and the `lint`, `chaos` and `probe_upnp` commands
+wait for the modules they drive.  `trace`, `doctor` and `timeline` read
+a node's unsafe RPC routes or a dump, and print what the JAX commands
+print.  The snapshot commands hash
 chunks through `make_backend(base.crypto_backend)` (kernel K4 on the
 card), and a persistent kvstore keeps its file in
 `<data dir>/kvstore_app.json`.  `--home` defaults
@@ -27,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 import shutil
 import sys
@@ -102,10 +103,7 @@ def cmd_node(args) -> int:
     """Run the node (reference run_node.go)."""
     from tendermint_tpu_torch.node.node import Node
     cfg = _load_config(args)
-    logging.basicConfig(
-        level=cfg.base.log_level.upper(), stream=sys.stderr,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    node = Node(cfg)
+    node = Node(cfg)                    # applies base.log_level
     node.start()
 
     from tendermint_tpu_torch.types import events as ev
@@ -551,6 +549,172 @@ def cmd_snapshot_restore(args) -> int:
     return 0
 
 
+def _rpc_call(addr: str, method: str, params: dict, timeout: int = 30):
+    """One JSON-RPC call; returns the result dict or raises SystemExit
+    with a friendly message on an RPC-level error."""
+    import urllib.request
+    url = addr.rstrip("/")
+    if not url.startswith("http"):
+        url = "http://" + url
+    body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": method,
+                       "params": params}).encode()
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        reply = json.loads(resp.read())
+    if "error" in reply:
+        raise SystemExit(f"rpc error: {reply['error'].get('message')} "
+                         "(is rpc.unsafe enabled on the node?)")
+    return reply["result"]
+
+
+def _filter_trace(trace: dict, last: int, name: str) -> dict:
+    """Apply --last/--name to a Chrome trace document: name filters by
+    substring, last keeps the N most recent span/instant events (ts
+    order); "M" metadata events always survive so thread names keep
+    resolving in the viewer."""
+    evs = trace.get("traceEvents", [])
+    meta = [e for e in evs if e.get("ph") == "M"]
+    spans = [e for e in evs if e.get("ph") != "M"]
+    if name:
+        spans = [e for e in spans if name in e.get("name", "")]
+    if last and last > 0:
+        spans = sorted(spans, key=lambda e: e.get("ts", 0))[-last:]
+    return {**trace, "traceEvents": spans + meta}
+
+
+def cmd_trace(args) -> int:
+    """Fetch a running node's flight recorder over RPC (or filter a
+    local dump with --in) and write it as Chrome trace-event JSON (open
+    in Perfetto / chrome://tracing).  --last/--name narrow a 100k-block
+    replay dump to the interesting tail without loading the full JSON.
+    RPC mode requires the node to run with rpc.unsafe = true."""
+    if args.infile:
+        with open(args.infile) as f:
+            trace = json.load(f)
+        total = dropped = None
+    else:
+        params = {"format": "chrome"}
+        if args.last:
+            params["last"] = args.last
+        if args.name:
+            params["name"] = args.name
+        result = _rpc_call(args.rpc, "debug_flight_recorder", params)
+        trace = result["trace"]
+        total, dropped = result["total"], result["dropped"]
+    # local filtering applies in both modes (an old node may ignore the
+    # RPC params; filtering again is idempotent)
+    trace = _filter_trace(trace, args.last, args.name)
+    spans = [e for e in trace["traceEvents"] if e.get("ph") != "M"]
+    if args.format == "lines":
+        for e in sorted(spans, key=lambda e: e.get("ts", 0)):
+            dur = e.get("dur", 0.0) / 1e3
+            cat = e.get("cat", "-")
+            print(f"{e.get('ts', 0) / 1e6:.6f} {dur:10.3f}ms "
+                  f"{cat:9s} {e.get('name', '')} "
+                  f"{json.dumps(e.get('args', {}))}")
+        return 0
+    tmp = args.out + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(trace, f)
+    os.replace(tmp, args.out)
+    msg = f"wrote {len(spans)} trace events to {args.out}"
+    if total is not None:
+        msg += f" (recorder total={total} dropped={dropped})"
+    print(msg)
+    return 0
+
+
+def cmd_doctor(args) -> int:
+    """Pipeline attribution report: where the wall clock of a replay
+    went (compile / transfer / device-busy / scalar / idle) and which
+    component is the largest thief of the throughput target.  Reads a
+    dumped trace file (--trace, e.g. bench_trace.json) or a live node's
+    flight recorder over unsafe RPC (--rpc)."""
+    from tendermint_tpu_torch.utils import attribution, ledger as ledger_mod
+    if args.trace:
+        with open(args.trace) as f:
+            spans = attribution.spans_from_chrome(json.load(f))
+    else:
+        result = _rpc_call(args.rpc, "debug_flight_recorder",
+                           {"format": "chrome"})
+        spans = attribution.spans_from_chrome(result["trace"])
+    regressions = None
+    if args.ledger and os.path.exists(args.ledger):
+        entries = ledger_mod.load(args.ledger)
+        if entries:
+            regressions = ledger_mod.compute_deltas(
+                entries[:-1], entries[-1].get("configs") or {})
+    report = attribution.doctor_report(spans, regressions=regressions)
+    if args.json:
+        print(json.dumps(report, indent=1))
+    else:
+        print(attribution.render_report(report))
+    return 0
+
+
+def cmd_timeline(args) -> int:
+    """Merged consensus timeline across a rig: collect every node's
+    height-lifecycle records (--rpc addr,addr,... via the unsafe
+    debug_timeline route, skew-normalized on each node's wall-clock
+    sample) or re-derive them from a dumped Chrome trace (--trace),
+    write a per-node-track Chrome trace to --out, and print the
+    consensus doctor report naming the largest thief per height
+    range."""
+    import time as _time
+    from tendermint_tpu_torch import telemetry
+    if args.trace:
+        from tendermint_tpu_torch.utils import attribution
+        with open(args.trace) as f:
+            records = telemetry.records_from_spans(
+                attribution.spans_from_chrome(json.load(f)))
+        merged = {"records": records, "dropped": {}, "offsets": {}}
+    else:
+        dumps = []
+        for addr in [a for a in args.rpc.split(",") if a.strip()]:
+            try:
+                d = _rpc_call(addr.strip(), "debug_timeline",
+                              {"last": args.last} if args.last else {})
+            except SystemExit:
+                raise
+            except Exception as e:   # a dead node degrades, not aborts
+                d = {"node": addr.strip(), "records": None,
+                     "error": str(e)}
+            dumps.append(d)
+        merged = telemetry.merge_dumps(dumps, ref_wall=_time.time())
+    timeline = telemetry.build_timeline(merged["records"])
+    report = telemetry.consensus_doctor(timeline, range_len=args.range)
+    if args.out:
+        trace = telemetry.to_chrome_trace(timeline)
+        tmp = args.out + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(trace, f)
+        os.replace(tmp, args.out)
+    if args.json:
+        print(json.dumps({"timeline": timeline, "doctor": report,
+                          "dropped": merged["dropped"]}, indent=1))
+    else:
+        if args.out:
+            n = len(timeline["nodes"])
+            print(f"wrote timeline trace ({n} node tracks, heights "
+                  f"{timeline['height_range'][0]}.."
+                  f"{timeline['height_range'][1]}) to {args.out}")
+        for node, why in merged["dropped"].items():
+            print(f"dropped {node}: {why}")
+        print(telemetry.render_consensus_report(report))
+    return 0 if not merged["dropped"] else 1
+
+
+def cmd_bench_history(args) -> int:
+    """Render the bench regression ledger: every recorded run's
+    per-config rates with deltas vs the best PRIOR run, so a slow creep
+    across runs reads as clearly as a cliff in one."""
+    from tendermint_tpu_torch.utils import ledger as ledger_mod
+    entries = ledger_mod.load(args.ledger)
+    print(ledger_mod.render_history(entries))
+    return 1 if not entries else 0
+
+
 def cmd_version(args) -> int:
     print(__version__)
     return 0
@@ -663,6 +827,69 @@ def main(argv=None) -> int:
     ssp.add_argument("--height", type=int, default=0,
                      help="restore this height (default: best available)")
     ssp.set_defaults(fn=cmd_snapshot_restore)
+
+    sp = sub.add_parser("trace",
+                        help="dump a node's flight recorder as Chrome "
+                             "trace JSON")
+    sp.add_argument("--rpc", default="http://127.0.0.1:26657",
+                    help="node RPC address")
+    sp.add_argument("--out", default="flight_trace.json",
+                    help="output Chrome trace-event JSON path")
+    sp.add_argument("--in", dest="infile", default="",
+                    help="filter a local trace dump instead of RPC")
+    sp.add_argument("--last", type=int, default=0,
+                    help="keep only the N most recent spans")
+    sp.add_argument("--name", default="",
+                    help="keep only spans whose name contains SUBSTR")
+    sp.add_argument("--format", choices=("chrome", "lines"),
+                    default="chrome",
+                    help="chrome: write JSON to --out; lines: print "
+                         "one span per line to stdout")
+    sp.set_defaults(fn=cmd_trace)
+
+    sp = sub.add_parser("doctor",
+                        help="pipeline attribution report: where the "
+                             "wall clock went, largest thief of the "
+                             "throughput target")
+    sp.add_argument("--trace", default="",
+                    help="read spans from a Chrome trace dump "
+                         "(a flight-recorder dump) instead of RPC")
+    sp.add_argument("--rpc", default="http://127.0.0.1:26657",
+                    help="node RPC address (used when --trace unset)")
+    sp.add_argument("--ledger", default="BENCH_LEDGER.jsonl",
+                    help="bench ledger to fold regression flags from "
+                         "('' to skip)")
+    sp.add_argument("--json", action="store_true",
+                    help="print the machine-readable report instead of "
+                         "the human summary")
+    sp.set_defaults(fn=cmd_doctor)
+
+    sp = sub.add_parser("timeline",
+                        help="merged consensus timeline: one Chrome "
+                             "track per node + consensus doctor report")
+    sp.add_argument("--rpc", default="http://127.0.0.1:26657",
+                    help="comma-separated node RPC addresses "
+                         "(unsafe debug_timeline route)")
+    sp.add_argument("--trace", default="",
+                    help="re-derive the timeline from a Chrome trace "
+                         "dump instead of RPC")
+    sp.add_argument("--out", default="timeline_trace.json",
+                    help="output Chrome trace path ('' to skip)")
+    sp.add_argument("--last", type=int, default=0,
+                    help="fetch only the N most recent heights per node")
+    sp.add_argument("--range", type=int, default=10,
+                    help="doctor height-range chunk length")
+    sp.add_argument("--json", action="store_true",
+                    help="print machine-readable timeline + doctor "
+                         "report")
+    sp.set_defaults(fn=cmd_timeline)
+
+    sp = sub.add_parser("bench-history",
+                        help="render the bench regression ledger with "
+                             "per-config deltas vs best prior run")
+    sp.add_argument("--ledger", default="BENCH_LEDGER.jsonl",
+                    help="ledger JSONL path (tpu-bft-bench-ledger/1)")
+    sp.set_defaults(fn=cmd_bench_history)
 
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)

@@ -9,11 +9,11 @@ bit-arrays, `queryMaj23Routine` (`:647`) advertises two-thirds
 majorities; `Receive` demuxes inbound (`:159-302`); `PeerState` mirrors
 each peer's round progress (`:757-1168`).
 
-Copy of `tendermint_tpu/consensus/reactor.py` without metrics and
-tracing.  Votes and proposals still travel in the JAX reactor's
-`StampedMessage` envelope, with `sent_ts=0.0` (unstamped, which the
-receiver skips) and `origin=""`: the port's `ConsensusState` has no node
-id until its telemetry is ported.  No fallback: the JAX gossip routines
+Copy of `tendermint_tpu/consensus/reactor.py`.  Votes and proposals
+travel in the JAX reactor's `StampedMessage` envelope, stamped with the
+sender's `tracing.now_epoch()` and its consensus state's `node_id`; the
+receiver observes the gossip fan-out lag (`gossip_fanout_seconds`).  No
+fallback: the JAX gossip routines
 log any error and carry on; here an error ends the routine, stays on the
 reactor as `fault`, and `stop()` raises it, as it raises the core's
 plane fault (`ConsensusState.stop`).  A peer's claims are bounded before
@@ -26,7 +26,6 @@ creates take the validator count, as the reference's
 
 from __future__ import annotations
 
-import logging
 import random
 import threading
 import time
@@ -40,9 +39,12 @@ from tendermint_tpu_torch.p2p.peer import Peer, Reactor
 from tendermint_tpu_torch.p2p.types import ChannelDescriptor
 from tendermint_tpu_torch.types import TYPE_PRECOMMIT, TYPE_PREVOTE
 from tendermint_tpu_torch.types.part_set import PART_SIZE
+from tendermint_tpu_torch.utils import tracing
 from tendermint_tpu_torch.utils.fmt import bits_str
+from tendermint_tpu_torch.utils.log import DEBUG, get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("cons-rx")
 
 STATE_CHANNEL = 0x20
 DATA_CHANNEL = 0x21
@@ -340,7 +342,8 @@ class ConsensusReactor(Reactor):
         try:
             fn(peer, ps, stop)
         except BaseException as e:
-            log.error("gossip to %s stopped by a fault: %r", peer.id[:8], e)
+            log.error("gossip stopped by a fault", peer=peer.id[:8],
+                      error=repr(e))
             with self._lock:
                 if self.fault is None:
                     self.fault = e
@@ -393,11 +396,11 @@ class ConsensusReactor(Reactor):
         self._notify_work()   # unblock its waiting gossip routines
 
     def _stamp(self, msg) -> bytes:
-        """Encode a vote/proposal for the wire inside the JAX reactor's
-        envelope, unstamped (`sent_ts=0.0`, `origin=""`): the port keeps
-        no gossip-lag telemetry yet.  State/bulk-data messages stay
-        bare."""
-        return M.encode_msg(M.StampedMessage(msg, sent_ts=0.0, origin=""))
+        """Encode a vote/proposal for the wire inside a send-time-stamped
+        envelope (timeline plane): the receiver's unwrap measures this
+        link's gossip fan-out lag.  State/bulk-data messages stay bare."""
+        return M.encode_msg(M.StampedMessage(
+            msg, sent_ts=tracing.now_epoch(), origin=self.cs.node_id))
 
     # -- inbound demux (reference :159-302) ------------------------------
     def receive(self, ch_id: int, peer: Peer, raw: bytes) -> None:
@@ -407,7 +410,12 @@ class ConsensusReactor(Reactor):
             self.switch.stop_peer_for_error(peer, f"bad consensus msg: {e}")
             return
         if isinstance(msg, M.StampedMessage):
-            msg = msg.msg          # its send time feeds no metric here
+            if msg.sent_ts > 0.0:
+                # cross-host clocks skew: a negative lag is a clock
+                # artifact, clamp rather than poison the histogram
+                REGISTRY.gossip_fanout_seconds.observe(
+                    max(0.0, tracing.now_epoch() - msg.sent_ts))
+            msg = msg.msg
         ps: PeerState = peer.get("consensus")
         if ps is None:
             return
@@ -443,15 +451,15 @@ class ConsensusReactor(Reactor):
                 # level: the verify (pure-Python fallback ~10ms) must not
                 # become a receive-thread stall amplifier feeding a log
                 # line that default levels discard.
-                if log.isEnabledFor(logging.DEBUG):
+                if log.enabled(DEBUG):
                     rs = self.cs.get_round_state()
                     val = (rs.validators.get_by_address(hb.validator_address)
                            if rs.validators is not None else None)
                     authentic = (val is not None and val.pub_key.verify(
                         hb.sign_bytes(self.cs.state.chain_id), hb.signature))
-                    log.debug("proposal heartbeat from %s: height %d round "
-                              "%d seq %d authentic %s", peer.id[:8],
-                              hb.height, hb.round, hb.sequence, authentic)
+                    log.debug("proposal heartbeat", peer=peer.id[:8],
+                              height=hb.height, round=hb.round,
+                              seq=hb.sequence, authentic=authentic)
         elif ch_id == DATA_CHANNEL:
             if self.fast_sync:
                 return

@@ -23,7 +23,6 @@ given, as a live `ConsensusState` does.
 
 from __future__ import annotations
 
-import logging
 import struct
 
 from tendermint_tpu_torch import config as config_mod
@@ -41,8 +40,9 @@ from tendermint_tpu_torch.proxy import ClientCreator
 from tendermint_tpu_torch.state import execution
 from tendermint_tpu_torch.state.state import State, get_state
 from tendermint_tpu_torch.utils.db import MemDB
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("replay")
 
 
 class _MockReplayApp(Application):

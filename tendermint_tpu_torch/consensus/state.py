@@ -14,24 +14,29 @@ handled; own messages loop back through the same queue as peer messages.
 Signatures are checked on the batch plane the state is given: a burst of
 votes in one grouped call at the consensus class (kernel K1 with per-lane
 keys on `CudaBackend`), each block's LastCommit at the fast-sync class
-(templated K1).  The height-lifecycle telemetry, metrics and fail points
-of the JAX package are not ported.
+(templated K1).  The height lifecycle of the JAX package's timeline plane
+is kept (`_mark_stage`, `_finish_height`, the `lifecycle` ring,
+`commit_cb`, `node_id` on every record, the gossip lag of stamped
+envelopes), with its flight-recorder spans and metrics; its fail points
+are not ported.
 
 No fallback hides the plane: an error out of a plane verify is a
 `PlaneFault`, which no handler of bad input catches.  It ends the receive
 routine, stays on the state as `fault`, and `stop()` raises it again;
 the JAX package instead goes scalar on any pre-verify error
-(`_handle_vote_run`) or on a `DeviceFault` (`_batch_preverify`).
+(`_handle_vote_run`) or on a `DeviceFault` (`_batch_preverify`).  An
+error out of `commit_cb` is a `CommitHookFault` kept and raised the same
+way; the JAX package logs it and goes on.
 """
 
 from __future__ import annotations
 
-import logging
 import queue
 import struct
 import threading
 import time
 from dataclasses import dataclass
+from collections import deque
 from types import SimpleNamespace
 
 from tendermint_tpu_torch import config as config_mod
@@ -51,9 +56,12 @@ from tendermint_tpu_torch.types.priv_validator import DoubleSignError
 from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import (ErrVoteConflict, Vote, VoteSet,
                                              batch_verify_vote_sigs)
+from tendermint_tpu_torch.utils import tracing
 from tendermint_tpu_torch.utils.fmt import bits_str
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("consensus")
 
 # round steps (reference consensus/state.go:47-57)
 STEP_NEW_HEIGHT = 1
@@ -64,6 +72,16 @@ STEP_PREVOTE_WAIT = 5
 STEP_PRECOMMIT = 6
 STEP_PRECOMMIT_WAIT = 7
 STEP_COMMIT = 8
+
+# height-lifecycle stages (telemetry plane): the four stages partition
+# each committed height's wall clock [first EnterNewRound, finalize] —
+# propose = waiting for the proposal, prevote = proposal -> prevote
+# quorum, precommit = prevote quorum -> precommit quorum, commit =
+# precommit quorum -> block applied.  Marks are clamped monotone at
+# finalize so the durations sum to the height wall EXACTLY (the same
+# sums-to-wall invariant utils/attribution.py holds for replay windows).
+STAGE_NAMES = ("propose", "prevote", "precommit", "commit")
+LIFECYCLE_CAP = 512     # per-node ring of completed height records
 
 STEP_NAMES = {
     STEP_NEW_HEIGHT: "NewHeight", STEP_NEW_ROUND: "NewRound",
@@ -95,6 +113,16 @@ class PlaneFault(RuntimeError):
     """A signature check on the batch plane failed (a kernel that did not
     build or launch, a bad argument): a fault of this node, not of the
     votes, so no handler of bad input catches it."""
+
+
+class CommitHookFault(RuntimeError):
+    """The `commit_cb` hook raised at the commit site: a fault of this
+    node's own wiring, kept as the state's `fault` like a `PlaneFault`."""
+
+
+# the errors that end the receive routine instead of being logged as bad
+# input
+_FAULTS = (PlaneFault, CommitHookFault)
 
 
 def _on_plane(fn, *args):
@@ -141,11 +169,18 @@ class ConsensusState:
         self.priv_validator = priv_validator
         self.evsw = evsw or EventSwitch()
         self.tx_indexer = tx_indexer
-        self.node_id = node_id            # the node's moniker
         self.broadcast_cb = None          # reactor hook: fn(msg)
-        # the plane error that ended the receive routine (`stop` raises it)
+        # the fault that ended the receive routine (`stop` raises it)
         self.fault: BaseException | None = None
         self._commit_verifier = _CommitVerifier(plane)
+        # --- timeline plane (telemetry/) ---
+        self.node_id = node_id            # identity stamped on lifecycle
+        self.commit_cb = None             # hook: fn(record) at commit site
+        self.lifecycle = deque(maxlen=LIFECYCLE_CAP)  # completed heights
+        self._stage_marks: dict[str, float] = {}      # perf ts per mark
+        self._height_t0: float | None = None  # first EnterNewRound (perf)
+        self._verify_wait_s = 0.0         # batchplane vote-verify wait
+        self._round_t0 = 0.0              # monotonic start of current round
 
         self._queue: queue.Queue = queue.Queue(maxsize=10_000)
         self._ticker = TimeoutTicker(self._on_timeout_fire)
@@ -232,8 +267,8 @@ class ConsensusState:
         self._schedule_round_0()
 
     def stop(self) -> None:
-        """Stop the routine and close the WAL; raise the plane fault that
-        ended the routine, if one did."""
+        """Stop the routine and close the WAL; raise the fault (of the
+        plane or of `commit_cb`) that ended the routine, if one did."""
         self._stopped.set()
         self._ticker.stop()
         if self._thread is not None and self._thread.is_alive():
@@ -247,15 +282,30 @@ class ConsensusState:
     # ------------------------------------------------------------------
     # public inbound API (thread-safe; reference :425-470)
     # ------------------------------------------------------------------
-    def add_vote(self, vote: Vote, peer_id: str = "") -> None:
+    def add_vote(self, vote: Vote, peer_id: str = "",
+                 sent_ts: float = 0.0) -> None:
+        self._note_gossip_lag(sent_ts)
         self._queue.put((M.VoteMessage(vote), peer_id))
 
-    def set_proposal(self, proposal: Proposal, peer_id: str = "") -> None:
+    def set_proposal(self, proposal: Proposal, peer_id: str = "",
+                     sent_ts: float = 0.0) -> None:
+        self._note_gossip_lag(sent_ts)
         self._queue.put((M.ProposalMessage(proposal), peer_id))
 
     def add_proposal_block_part(self, height: int, round_: int, part,
-                                peer_id: str = "") -> None:
+                                peer_id: str = "",
+                                sent_ts: float = 0.0) -> None:
+        self._note_gossip_lag(sent_ts)
         self._queue.put((M.BlockPartMessage(height, round_, part), peer_id))
+
+    @staticmethod
+    def _note_gossip_lag(sent_ts: float) -> None:
+        """Fan-out lag from the origin's send stamp to ingest here.
+        Cross-process stamps ride different wall clocks, so a skewed
+        negative lag clamps to 0 rather than poisoning the histogram."""
+        if sent_ts > 0.0:
+            REGISTRY.gossip_fanout_seconds.observe(
+                max(0.0, tracing.now_epoch() - sent_ts))
 
     def set_peer_maj23(self, height, round_, type_, peer_id, block_id):
         with self._mtx:   # receive thread swaps self.votes on every height
@@ -369,9 +419,10 @@ class ConsensusState:
     def _receive_routine(self) -> None:
         try:
             self._receive_loop()
-        except PlaneFault as e:
-            # a plane verify failed: stop handling input; stop() raises it
-            log.error("consensus stopped by a batch plane fault: %s", e)
+        except _FAULTS as e:
+            # a plane verify or the commit hook failed: stop handling
+            # input; stop() raises it
+            log.error("consensus stopped by a fault", error=repr(e))
             self.fault = e
 
     def _receive_loop(self) -> None:
@@ -404,15 +455,15 @@ class ConsensusState:
                     else:
                         with self._mtx:
                             self._dispatch_one(batch[i])
-                except PlaneFault:
+                except _FAULTS:
                     raise
                 except Exception:
                     # bad input must never kill the loop; the reference
                     # recovers the same way and relies on WAL replay for
                     # true corruption
-                    log.exception("error handling consensus input at "
-                                  "%d/%d %s", self.height, self.round,
-                                  STEP_NAMES.get(self.step, self.step))
+                    log.exception("error handling consensus input",
+                                  height=self.height, round=self.round,
+                                  step=STEP_NAMES.get(self.step, self.step))
                 i = max(j, i + 1)
 
     def _dispatch_one(self, item) -> None:
@@ -462,11 +513,11 @@ class ConsensusState:
                                            preverified=id(msg.vote) in pre)
                     except ErrVoteConflict as e:
                         self.evsw.fire("EvidenceDoubleSign", e.evidence)
-                    except PlaneFault:
+                    except _FAULTS:
                         raise
                     except Exception:
-                        log.exception("error handling vote at %d/%d",
-                                      self.height, self.round)
+                        log.exception("error handling vote",
+                                      height=self.height, round=self.round)
 
     def _batch_preverify(self, votes: list) -> set[int]:
         """One grouped signature check on the plane (consensus class) for
@@ -494,8 +545,20 @@ class ConsensusState:
                 sel.append(v)
         if len(sel) < self.VOTE_MICROBATCH_MIN:
             return set()
-        ok = _on_plane(batch_verify_vote_sigs, self.state.chain_id, vals,
-                       sel, self.plane)
+        t0v = time.perf_counter()
+        try:
+            with tracing.span("consensus.vote_microbatch",
+                              cat=tracing.CAT_DEVICE,
+                              height=self.height, lanes=len(sel)):
+                ok = _on_plane(batch_verify_vote_sigs, self.state.chain_id,
+                               vals, sel, self.plane)
+        finally:
+            # batchplane verify wait attributable to this height's vote
+            # ingest — a timeline-plane competitor that steals from
+            # inside the quorum stages (reported, not partitioned)
+            self._verify_wait_s += time.perf_counter() - t0v
+        REGISTRY.vote_microbatches.inc()
+        REGISTRY.vote_microbatch_lanes.inc(len(sel))
         return {id(v) for v, good in zip(sel, ok) if good}
 
     def _on_timeout_fire(self, ti: TimeoutInfo) -> None:
@@ -577,6 +640,12 @@ class ConsensusState:
         self.commit_round = -1
         self.last_commit = last_precommits
         self.state = state
+        # fresh lifecycle for the new height; t0 is set by the first
+        # EnterNewRound so the commit-timeout idle before round 0 never
+        # counts against the propose stage
+        self._stage_marks = {}
+        self._height_t0 = None
+        self._verify_wait_s = 0.0
 
     def _schedule_round_0(self) -> None:
         sleep = max(0.0, self.start_time - time.time())
@@ -585,6 +654,9 @@ class ConsensusState:
 
     def _new_step(self, step: int) -> None:
         self.step = step
+        tracing.instant("consensus.step", height=self.height,
+                        round=self.round,
+                        step=STEP_NAMES.get(step, step))
         rs = self._round_step_event()
         self.evsw.fire(ev.NEW_ROUND_STEP, rs)
         self._broadcast(M.NewRoundStepMessage(
@@ -636,8 +708,18 @@ class ConsensusState:
             validators = self.validators.copy()
             validators.increment_accum(round_ - self.round)
             self.validators = validators
+        now = time.monotonic()
+        if self._round_t0 > 0:
+            # previous round's wall clock (failed round -> longer tail;
+            # the histogram's p99 is where round churn becomes visible)
+            REGISTRY.round_seconds_hist.observe(now - self._round_t0)
+        self._round_t0 = now
+        if self._height_t0 is None:
+            self._height_t0 = time.perf_counter()
+        tracing.instant("consensus.round", height=height, round=round_)
         self.round = round_
         self.step = STEP_NEW_ROUND
+        REGISTRY.rounds_started.inc()
         if round_ != 0:
             # new round: drop the previous round's proposal
             self.proposal = None
@@ -836,6 +918,7 @@ class ConsensusState:
             # no polka: precommit nil, keep any lock
             self._sign_add_vote(TYPE_PRECOMMIT, ZERO_BLOCK_ID)
             return
+        self._mark_stage("prevote_quorum")
         self.evsw.fire(ev.POLKA, self._round_step_event())
         if maj.is_zero():
             # +2/3 prevoted nil: unlock (reference :1112-1121)
@@ -895,6 +978,7 @@ class ConsensusState:
             return
         self.commit_round = commit_round
         self.commit_time = time.time()
+        self._mark_stage("precommit_quorum")
         self._new_step(STEP_COMMIT)
         maj = self.votes.precommits(commit_round).two_thirds_majority()
         assert maj is not None and not maj.is_zero()
@@ -943,17 +1027,87 @@ class ConsensusState:
 
         state_copy = self.state.copy()
         event_cache = EventCache(self.evsw)
-        execution.apply_block(state_copy, self.proxy, block, parts.header,
-                              self.mempool, self._commit_verifier,
-                              event_cache=event_cache,
-                              tx_indexer=self.tx_indexer)
+        with tracing.span("consensus.apply", cat=tracing.CAT_APPLY,
+                          height=block.height, txs=len(block.txs)):
+            execution.apply_block(state_copy, self.proxy, block,
+                                  parts.header, self.mempool,
+                                  self._commit_verifier,
+                                  event_cache=event_cache,
+                                  tx_indexer=self.tx_indexer)
         event_cache.fire(ev.NEW_BLOCK, block)
         event_cache.fire(ev.NEW_BLOCK_HEADER, block.header)
-        log.info("committed block %d (%d txs)", block.height,
-                 len(block.txs))
+        REGISTRY.blocks_committed.inc()
+        REGISTRY.txs_committed.inc(len(block.txs))
+        self._finish_height(block)
+        log.info("committed block", height=block.height,
+                 hash=block.hash(), txs=len(block.txs),
+                 app_hash=state_copy.app_hash)
         self._update_to_state(state_copy)
         event_cache.flush()
         self._schedule_round_0()
+
+    # ------------------------------------------------------------------
+    # height lifecycle (timeline plane; see STAGE_NAMES)
+    # ------------------------------------------------------------------
+    def _mark_stage(self, mark: str) -> None:
+        """First-occurrence stage mark for the current height.  Under
+        round churn the earliest mark wins; the monotone clamp at
+        finalize keeps the partition valid regardless."""
+        self._stage_marks.setdefault(mark, time.perf_counter())
+
+    def _finish_height(self, block) -> None:
+        """Close the height's lifecycle at the commit site: clamp the
+        stage marks into a monotone cut sequence partitioning
+        [height_t0, now], emit one categorized flight-recorder span per
+        stage plus a `consensus.height` envelope span, feed the stage
+        histograms, ring-buffer the record, and call commit_cb, whose
+        error is raised as a `CommitHookFault`."""
+        if self._replay_mode:
+            return          # WAL replay timings are compressed nonsense
+        t_commit = time.perf_counter()
+        t0 = self._height_t0 if self._height_t0 is not None else t_commit
+        cuts = [min(t0, t_commit)]
+        for mark in ("proposal", "prevote_quorum", "precommit_quorum"):
+            t = self._stage_marks.get(mark, cuts[-1])
+            cuts.append(min(max(t, cuts[-1]), t_commit))
+        cuts.append(t_commit)
+        proposer = getattr(self.validators, "proposer", None)
+        addr = getattr(proposer, "address", b"")
+        rec = {
+            "node": self.node_id,
+            "height": block.height,
+            "round": self.commit_round,
+            "proposer": addr.hex() if isinstance(addr, bytes) else str(addr),
+            "t_start": tracing.perf_to_epoch(cuts[0]),
+            "t_proposal": tracing.perf_to_epoch(cuts[1]),
+            "t_prevote": tracing.perf_to_epoch(cuts[2]),
+            "t_precommit": tracing.perf_to_epoch(cuts[3]),
+            "t_commit": tracing.perf_to_epoch(cuts[4]),
+            "verify_wait_s": self._verify_wait_s,
+        }
+        lane = self.node_id or None
+        for name, lo, hi in zip(STAGE_NAMES, cuts, cuts[1:]):
+            tracing.RECORDER.record(
+                "consensus.stage." + name, tracing.perf_to_epoch(lo),
+                hi - lo, cat=tracing.CAT_CONSENSUS, lane=lane,
+                args={"height": block.height, "round": self.commit_round,
+                      "node": self.node_id, "stage": name})
+            REGISTRY.consensus_stage_seconds.labels(name).observe(hi - lo)
+        tracing.RECORDER.record(
+            "consensus.height", rec["t_start"], t_commit - cuts[0],
+            cat=tracing.CAT_CONSENSUS, lane=lane,
+            args={"height": block.height, "round": self.commit_round,
+                  "node": self.node_id, "proposer": rec["proposer"],
+                  "verify_wait_s": round(self._verify_wait_s, 6)})
+        REGISTRY.consensus_height_seconds.observe(t_commit - cuts[0])
+        self.lifecycle.append(rec)
+        if self.commit_cb is not None:
+            try:
+                self.commit_cb(rec)
+            except Exception as e:
+                raise CommitHookFault(
+                    f"commit_cb failed at height {block.height}: {e!r}") \
+                    from e
 
     # ------------------------------------------------------------------
     # proposal / parts / votes ingestion (reference :1363-1565)
@@ -970,6 +1124,7 @@ class ConsensusState:
         if not ok:
             raise ValueError("invalid proposal signature")
         self.proposal = proposal
+        self._mark_stage("proposal")
         if (self.proposal_block_parts is None or
                 self.proposal_block_parts.header.hash !=
                 proposal.block_parts_header.hash):
@@ -989,9 +1144,10 @@ class ConsensusState:
                 # proof-valid parts that assemble to an undecodable block
                 # mean the PRODUCER built garbage (Byzantine): loud, since
                 # a complete partset stops every re-send
-                log.error("complete proposal parts failed to decode at "
-                          "height %d (parts %s)", height,
-                          self.proposal_block_parts.header.hash.hex()[:12])
+                log.error("complete proposal parts failed to decode",
+                          height=height,
+                          parts_hash=self.proposal_block_parts
+                          .header.hash.hex()[:12])
                 self.proposal_block = None
                 return
             self.evsw.fire(ev.COMPLETE_PROPOSAL, self._round_step_event())
@@ -1102,8 +1258,8 @@ class ConsensusState:
             # validator restarted behind its own sign watermark keeps
             # following the net without voting until it passes it
             if not self._replay_mode:
-                log.warning("vote signing refused at %d/%d step %d: %s",
-                            self.height, self.round, self.step, e)
+                log.warn("vote signing refused", height=self.height,
+                         round=self.round, step=self.step, err=str(e))
             return
         vote = Vote(**{**vote.__dict__, "signature": sig})
         # loop back through the queue; also hand to the gossip layer
@@ -1138,7 +1294,7 @@ class ConsensusState:
                     elif kind == REC_TIMEOUT:
                         h, r, s = struct.unpack(">QIB", payload)
                         self._handle_timeout(TimeoutInfo(h, r, s))
-                except PlaneFault:
+                except _FAULTS:
                     raise
                 except Exception:
                     log.exception("error replaying WAL record")

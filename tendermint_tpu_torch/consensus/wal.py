@@ -9,18 +9,20 @@ Records here are length-prefixed binary: u32(len) || u8(kind) || payload,
 with a CRC32 per record so a torn tail write is detected and truncated on
 replay rather than crashing recovery.
 
-Copy of `tendermint_tpu/consensus/wal.py` without its spans: the same
-frames byte for byte, so either package reads the other's files.
+Copy of `tendermint_tpu/consensus/wal.py` with its `wal.write` spans: the
+same frames byte for byte, so either package reads the other's files.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import struct
 import zlib
 
-log = logging.getLogger(__name__)
+from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.log import get_logger
+
+log = get_logger("wal")
 
 # record kinds
 REC_ENDHEIGHT = 0x01
@@ -46,17 +48,24 @@ class WAL:
         self._f.write(struct.pack(">II", len(body), crc) + body)
 
     def save_message(self, payload: bytes) -> None:
-        self._write(REC_MESSAGE, payload)
-        self._sync()
+        with tracing.span("wal.write", cat=tracing.CAT_NONE,
+                          kind="message", bytes=len(payload)):
+            self._write(REC_MESSAGE, payload)
+            self._sync()
 
     def save_timeout(self, height: int, round_: int, step: int) -> None:
-        self._write(REC_TIMEOUT, struct.pack(">QIB", height, round_, step))
-        self._sync()
+        with tracing.span("wal.write", cat=tracing.CAT_NONE,
+                          kind="timeout", height=height):
+            self._write(REC_TIMEOUT,
+                        struct.pack(">QIB", height, round_, step))
+            self._sync()
 
     def write_end_height(self, height: int) -> None:
         """Reference `:97-103`: marks height as irreversibly committed."""
-        self._write(REC_ENDHEIGHT, struct.pack(">Q", height))
-        self._sync()
+        with tracing.span("wal.write", cat=tracing.CAT_NONE,
+                          kind="end_height", height=height):
+            self._write(REC_ENDHEIGHT, struct.pack(">Q", height))
+            self._sync()
 
     def _sync(self) -> None:
         self._f.flush()
@@ -98,9 +107,8 @@ class WAL:
                 resync = WAL._scan_forward(data, pos + 1)
                 if resync is None:
                     break            # torn/corrupt tail: nothing left
-                log.warning("wal: skipped corrupt region; resynced "
-                            "(%s, offset %d, %d bytes)", path, pos,
-                            resync - pos)
+                log.warn("wal: skipped corrupt region; resynced",
+                         path=path, offset=pos, skipped=resync - pos)
                 pos = resync
                 continue
             ln, body = frame

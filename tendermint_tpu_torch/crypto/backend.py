@@ -20,6 +20,20 @@ gather of keys and messages on every shard.  Unlike the JAX package's
 `TpuBackend`, it builds no mesh of its own on a multi-card host: on four
 H100s one replay window verified more slowly split over the cards than
 on one.
+
+Its calls are instrumented at the JAX package's sites and under its
+names: the `verify.batch`, `verify.grouped`, `verify.dispatch` /
+`verify.collect`, `sign.batch` and `transfer.h2d` spans of the flight
+recorder (`utils/tracing.py`), and the `sigs_*`, `verify_batches`,
+occupancy, `device_step_*`, `h2d_bytes` / `d2h_bytes` and
+`table_build_seconds` metrics (`utils/metrics.py`).  A launch on the card
+returns before the kernel ends, so every span that times device work
+ends after the host holds the result: `verify.collect` wraps the wait on
+the asynchronous route's copy, and the synchronous routes' spans close
+after the copy back.  `device_step_seconds` is the host's wait for a
+result, as in the JAX package.  Each kernel's first launch is a
+`kernel.firstcall` span (category `compile`); `xla_cache_*` count the
+launches on new and seen shapes.  Nothing here reads a metric.
 """
 
 from __future__ import annotations
@@ -27,6 +41,8 @@ from __future__ import annotations
 import functools
 import hashlib
 import threading
+import time
+from contextlib import contextmanager
 from typing import Protocol
 
 import numpy as np
@@ -37,8 +53,78 @@ from tendermint_tpu_torch.ops import curve
 from tendermint_tpu_torch.ops import ed25519 as ed
 from tendermint_tpu_torch.ops import merkle
 from tendermint_tpu_torch.parallel import sharding
+from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 MIN_BUCKET = 16
+
+# Per entry point, the input signatures (shape, dtype) it has launched
+# on: a new signature is a cache miss, a new one on an entry that ran
+# before a "recompile" (the bucketing leaked a shape), as the JAX
+# package counts its jit dispatches (`tendermint_tpu/crypto/backend.py`
+# `_note_dispatch`).
+_launch_shapes: dict[str, set] = {}
+_shape_lock = threading.Lock()
+
+
+def _note_dispatch(entry: str, *arrays) -> bool:
+    """Track `entry`'s input signatures; True on the entry's first launch
+    in this process (its `kernel.firstcall`)."""
+    sig = tuple((tuple(getattr(a, "shape", ())),
+                 str(getattr(a, "dtype", ""))) for a in arrays)
+    with _shape_lock:
+        seen = _launch_shapes.setdefault(entry, set())
+        first, hit = not seen, sig in seen
+        seen.add(sig)
+    if hit:
+        REGISTRY.xla_cache_hits.inc()
+        return False
+    REGISTRY.xla_cache_misses.inc()
+    if not first:
+        REGISTRY.xla_recompiles.inc()
+    return first
+
+
+@contextmanager
+def _firstcall(entry: str, first: bool):
+    """Time an entry's first launch under a `kernel.firstcall` span
+    (category `compile`: the library's build on a cold process, the
+    module's load); later launches pass through untimed."""
+    if not first:
+        yield
+        return
+    t0 = time.perf_counter()
+    with tracing.span("kernel.firstcall", entry=entry):
+        yield
+    REGISTRY.xla_first_call_seconds.observe(time.perf_counter() - t0)
+
+
+def _h2d(*arrays) -> None:
+    """Count host->device upload bytes of a launch's numpy inputs."""
+    n = sum(int(getattr(a, "nbytes", 0)) for a in arrays)
+    if n:
+        REGISTRY.h2d_bytes.inc(n)
+
+
+def _d2h(out) -> None:
+    nb = getattr(out, "nbytes", 0)
+    if nb:
+        REGISTRY.d2h_bytes.inc(int(nb))
+
+
+def _note_verify(n: int, b: int, ok: np.ndarray, step_s: float,
+                 dispatch_s: float) -> None:
+    """One verify call's metrics: the host's wait for the result
+    (`device_step_*`), dispatch to result, lanes asked and passed,
+    occupancy of the padded bucket."""
+    REGISTRY.device_step_seconds.observe(step_s)
+    REGISTRY.device_dispatch_seconds.observe(dispatch_s)
+    REGISTRY.device_step_hist.observe(step_s)
+    REGISTRY.sigs_requested.inc(n)
+    REGISTRY.sigs_verified.inc(int(ok[:n].sum()))
+    REGISTRY.verify_batches.inc()
+    REGISTRY.batch_occupancy.observe(n / b)
+    REGISTRY.batch_occupancy_hist.observe(n / b)
 
 
 class Backend(Protocol):
@@ -103,9 +189,13 @@ class PythonBackend:
 
     def verify_batch(self, pubkeys, msgs, sigs):
         out = np.zeros(len(pubkeys), dtype=bool)
-        for i in range(len(pubkeys)):
-            out[i] = _golden_memo(pubkeys[i].tobytes(), msgs[i].tobytes(),
-                                  sigs[i].tobytes())
+        # scalar work the attribution doctor reports apart from the card's
+        with tracing.span("scalar.verify", lanes=len(pubkeys)):
+            for i in range(len(pubkeys)):
+                out[i] = _golden_memo(pubkeys[i].tobytes(),
+                                      msgs[i].tobytes(), sigs[i].tobytes())
+        REGISTRY.sigs_requested.inc(len(pubkeys))
+        REGISTRY.sigs_verified.inc(int(out.sum()))
         return out
 
     def verify_grouped(self, set_key, val_pubs, val_idx, msgs, sigs):
@@ -242,12 +332,20 @@ class CudaBackend:
         install them."""
         v = len(val_pubs)
         vb = _bucket(v)
-        tbl, ok = ed.build_neg_comb(self._t(val_pubs))
+        t0 = time.perf_counter()
+        pubs = self._t(val_pubs)
+        with _firstcall("build_neg_comb",
+                        _note_dispatch("build_neg_comb", pubs)):
+            tbl, ok = ed.build_neg_comb(pubs)
         if vb > v:
             tbl = torch.cat([tbl, tbl[:, :, :1].expand(
                 -1, -1, vb - v, -1, -1)], dim=2).contiguous()
             ok = torch.cat([ok, ok[:1].expand(vb - v)])
-        return self._install(set_key, tbl, ok, v, _pad_rows(val_pubs, vb))
+        ent = self._install(set_key, tbl, ok, v, _pad_rows(val_pubs, vb))
+        if self.device.type == "cuda":     # the build's time, not its enqueue
+            torch.cuda.current_stream(self.device).synchronize()
+        REGISTRY.table_build_seconds.observe(time.perf_counter() - t0)
+        return ent
 
     def tables_from_numpy(self, set_key: bytes, val_pubs: np.ndarray,
                           tbl: np.ndarray, ok: np.ndarray,
@@ -349,13 +447,17 @@ class CudaBackend:
                 np.concatenate([templates, np.zeros(
                     (tb - len(templates), templates.shape[1]), np.uint8)]),
                 _pad_rows(np.asarray(sigs, np.uint8), b))
-        if self._stream is None:
-            return (*(torch.from_numpy(np.ascontiguousarray(a))
-                      for a in host), n)
-        staged = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
-                  for a in host]
-        with torch.cuda.stream(self._stream):
-            dev = tuple(p.to(self.device, non_blocking=True) for p in staged)
+        _h2d(*host)
+        with tracing.span("transfer.h2d", lanes=n,
+                          bytes=int(sum(a.nbytes for a in host))):
+            if self._stream is None:
+                return (*(torch.from_numpy(np.ascontiguousarray(a))
+                          for a in host), n)
+            staged = [torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                      for a in host]
+            with torch.cuda.stream(self._stream):
+                dev = tuple(p.to(self.device, non_blocking=True)
+                            for p in staged)
         return (*dev, n)
 
     def verify_grouped_templated_async(self, set_key, val_pubs, val_idx,
@@ -377,6 +479,7 @@ class CudaBackend:
         ent = self.tables(set_key, val_pubs)
         tbl, ok, _, vp = ent
         b = _bucket(n)
+        t0 = time.perf_counter()
         if self._mesh_eligible(b):
             val_idx, tmpl_idx, templates, sigs = (
                 _host(a) for a in (val_idx, tmpl_idx, templates, sigs))
@@ -384,35 +487,69 @@ class CudaBackend:
             tmpl_idx = self._check_idx("tmpl_idx", tmpl_idx[:n],
                                        len(templates))
             mtbl, mok, mvp = self._mesh_tables(set_key, ent)
-            out = self._sharded_templated(
-                mtbl, mok, mvp, _pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
-                sharding.replicate(self._mesh, self._templates(templates)),
-                _pad_rows(sigs[:n], b), self._base_mesh)
-            res = out.cpu().numpy()[:n]
-            return lambda: res
+            lanes = (_pad_rows(val_idx, b), _pad_rows(tmpl_idx, b),
+                     _pad_rows(sigs[:n], b))
+            _h2d(*lanes, templates)
+            first = _note_dispatch("verify_grouped_templated_sharded",
+                                   *lanes)
+            with _firstcall("verify_grouped_templated", first), \
+                    tracing.span("verify.dispatch", lanes=n, bucket=b):
+                out = self._sharded_templated(
+                    mtbl, mok, mvp, lanes[0], lanes[1],
+                    sharding.replicate(self._mesh,
+                                       self._templates(templates)),
+                    lanes[2], self._base_mesh)
+                res = out.cpu().numpy()
+            sharding.note_sharded_call(self._mesh,
+                                       time.perf_counter() - t0, n)
+            return self._collector(lambda: res, n, b, t0)
         if real_n is None:
             self._check_idx("val_idx", val_idx, len(val_pubs))
             val_idx, tmpl_idx, templates, sigs, _ = \
                 self.prefetch_grouped_lanes(val_idx, tmpl_idx, templates,
                                             sigs)
         args = (tbl, ok, vp, val_idx, tmpl_idx, templates, sigs, self._base)
+        first = _note_dispatch("verify_grouped_templated", tbl, val_idx,
+                               tmpl_idx, templates, sigs)
         if self._stream is None:
-            res = ed.verify_grouped_templated(*args).numpy()[:n]
-            return lambda: res
+            with _firstcall("verify_grouped_templated", first), \
+                    tracing.span("verify.dispatch", lanes=n, bucket=b):
+                res = ed.verify_grouped_templated(*args).numpy()
+            return self._collector(lambda: res, n, b, t0)
         s = self._stream
-        s.wait_stream(torch.cuda.current_stream(self.device))
-        for t in (tbl, ok, vp, self._base):
-            t.record_stream(s)
-        with torch.cuda.stream(s):
-            mask = ed.verify_grouped_templated(*args)
-            out = torch.empty(mask.shape, dtype=torch.bool, pin_memory=True)
-            out.copy_(mask, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(s)
+        with _firstcall("verify_grouped_templated", first), \
+                tracing.span("verify.dispatch", lanes=n, bucket=b):
+            s.wait_stream(torch.cuda.current_stream(self.device))
+            for t in (tbl, ok, vp, self._base):
+                t.record_stream(s)
+            with torch.cuda.stream(s):
+                mask = ed.verify_grouped_templated(*args)
+                out = torch.empty(mask.shape, dtype=torch.bool,
+                                  pin_memory=True)
+                out.copy_(mask, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(s)
 
-        def collect() -> np.ndarray:
+        def wait() -> np.ndarray:
             done.synchronize()
-            return out.numpy()[:n]
+            return out.numpy()
+
+        return self._collector(wait, n, b, t0)
+
+    @staticmethod
+    def _collector(wait, n: int, b: int, t0: float):
+        """The `collect()` of an asynchronous call: `wait()` for the
+        padded mask under a `verify.collect` span (the host's wait for
+        the card, category `device`), then the call's metrics; returns
+        the mask trimmed to its `n` real lanes."""
+        def collect() -> np.ndarray:
+            t1 = time.perf_counter()
+            with tracing.span("verify.collect", lanes=n, bucket=b):
+                out = wait()
+            _d2h(out)
+            now = time.perf_counter()
+            _note_verify(n, b, out, now - t1, now - t0)
+            return out[:n]
 
         return collect
 
@@ -432,14 +569,28 @@ class CudaBackend:
         b = _bucket(n)
         lanes = tuple(_pad_rows(a, b) for a in (val_idx, val_pubs[val_idx],
                                                 msgs, sigs))
-        if not self._mesh_eligible(b):
-            out = ed.verify_grouped(*ent[:2], *map(self._t, lanes),
-                                    self._base)
-        else:
-            tbl, ok, _ = self._mesh_tables(set_key, ent)
-            out = self._sharded_verify(tbl, ok, *lanes, self._base_mesh)
+        on_mesh = self._mesh_eligible(b)
+        _h2d(*lanes)
+        first = _note_dispatch(
+            "verify_grouped_sharded" if on_mesh else "verify_grouped",
+            ent[0], *lanes)
+        t0 = time.perf_counter()
+        with _firstcall("verify_grouped", first), \
+                tracing.span("verify.grouped", lanes=n, bucket=b):
+            if not on_mesh:
+                out = ed.verify_grouped(*ent[:2], *map(self._t, lanes),
+                                        self._base)
+            else:
+                tbl, ok, _ = self._mesh_tables(set_key, ent)
+                out = self._sharded_verify(tbl, ok, *lanes, self._base_mesh)
+            out = out.cpu().numpy()
+        _d2h(out)
+        dt = time.perf_counter() - t0
+        if on_mesh:
+            sharding.note_sharded_call(self._mesh, dt, n)
+        _note_verify(n, b, out, dt, dt)     # sync: step == dispatch
         self.step_count += 1
-        return out.cpu().numpy()[:n]
+        return out[:n]
 
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:
         """Raw lanes, each with its own key (kernel K5); lanes padded to a
@@ -448,10 +599,18 @@ class CudaBackend:
         if n == 0:
             return np.zeros(0, dtype=bool)
         b = _bucket(n)
-        out = ed.verify_batch(self._t(_pad_rows(pubkeys, b)),
-                              self._t(_pad_rows(msgs, b)),
-                              self._t(_pad_rows(sigs, b)), self._base)
-        return out.cpu().numpy()[:n]
+        lanes = tuple(_pad_rows(a, b) for a in (pubkeys, msgs, sigs))
+        _h2d(*lanes)
+        first = _note_dispatch("verify_batch", *lanes)
+        t0 = time.perf_counter()
+        with _firstcall("verify_batch", first), \
+                tracing.span("verify.batch", lanes=n, bucket=b):
+            out = ed.verify_batch(*map(self._t, lanes), self._base)
+            out = out.cpu().numpy()
+        _d2h(out)
+        dt = time.perf_counter() - t0
+        _note_verify(n, b, out, dt, dt)     # sync: step == dispatch
+        return out[:n]
 
     # -- signing ---------------------------------------------------------
     def signing_keys(self, seeds) -> tuple:
@@ -489,9 +648,15 @@ class CudaBackend:
         n = len(val_idx)
         if n == 0:
             return np.zeros((0, 64), dtype=np.uint8)
-        out = ed.sign_grouped_templated(*self.sign_args(
-            seeds, val_idx, tmpl_idx, templates))
-        return out.cpu().numpy()[:n]
+        args = self.sign_args(seeds, val_idx, tmpl_idx, templates)
+        b = _bucket(n)
+        _h2d(*args[3:6])
+        first = _note_dispatch("sign_grouped_templated", *args[3:6])
+        with _firstcall("sign_grouped_templated", first), \
+                tracing.span("sign.batch", lanes=n, bucket=b):
+            out = ed.sign_grouped_templated(*args).cpu().numpy()
+        _d2h(out)
+        return out[:n]
 
     # -- hashing ---------------------------------------------------------
     def leaf_hashes(self, chunks: np.ndarray) -> np.ndarray:

@@ -21,6 +21,7 @@ import numpy as np
 
 from tendermint_tpu_torch.crypto.backend import PythonBackend
 from tendermint_tpu_torch.utils import nativelib
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 
 def verify_one(pub: bytes, msg: bytes, sig: bytes) -> bool:
@@ -65,8 +66,11 @@ class NativeBackend(PythonBackend):
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:
         if len(pubkeys) == 0:
             return np.zeros(0, dtype=bool)
-        return nativelib.ed25519_verify_batch(pubkeys, msgs, sigs,
-                                              self._workers)
+        out = nativelib.ed25519_verify_batch(pubkeys, msgs, sigs,
+                                             self._workers)
+        REGISTRY.sigs_requested.inc(len(pubkeys))
+        REGISTRY.sigs_verified.inc(int(out.sum()))
+        return out
 
     def leaf_hashes(self, chunks: np.ndarray) -> np.ndarray:
         """Merkle leaf hashes SHA-256(0x00 || chunk) of equal-size chunks

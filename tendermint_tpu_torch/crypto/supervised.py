@@ -25,9 +25,11 @@ it with a warning): `build("cuda")` without a card raises rather than
 serving from the native rung.  There is no fault injection
 (`CryptoChaos`) and no `TM_CHAOS_CRYPTO` / `TM_CRYPTO_*` environment
 knob: the knobs are constructor arguments with the JAX defaults, and
-`supervisor_status` keeps `"chaos": None` so its keys match.  No metrics
-registry or tracing span: the rung counters that `supervisor_status`
-reports are the record of every demotion.
+`supervisor_status` keeps `"chaos": None` so its keys match.  Every
+demotion is counted twice: in the rung counters that `supervisor_status`
+reports, and in the JAX package's `crypto_*` metrics (the rung label
+`cuda` where the JAX package writes `tpu`), with a `crypto.call` span
+(no category: the backend's own spans inside it carry them).
 
 THE INVARIANT: an infrastructure error is never reported as "bad
 signature".  Every verify returns the reference answer (computed on a
@@ -42,7 +44,6 @@ never as peer misbehavior.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -51,8 +52,11 @@ from concurrent.futures import TimeoutError as FutureTimeout
 import numpy as np
 
 from tendermint_tpu_torch.crypto import pure_ed25519 as _ref
+from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("crypto")
 
 # breaker states
 CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
@@ -179,8 +183,8 @@ class SupervisedBackend:
                 return True
             if time.monotonic() - rung.opened_at >= self.breaker_cooldown_s:
                 rung.state = HALF_OPEN
-                log.info("crypto breaker half-open; probing rung %s",
-                         rung.name)
+                log.info("crypto breaker half-open; probing rung",
+                         rung=rung.name)
                 return True
             return False
 
@@ -188,6 +192,8 @@ class SupervisedBackend:
         with self._lock:
             rung.faults += 1
             rung.consecutive_faults += 1
+            REGISTRY.crypto_device_faults.inc()
+            REGISTRY.crypto_rung_faults.labels(rung.name).inc()
             tripped = False
             if rung.state == HALF_OPEN:
                 # failed probe: straight back to OPEN, fresh cooldown
@@ -201,21 +207,24 @@ class SupervisedBackend:
                 rung.opened_at = time.monotonic()
                 rung.trips += 1
                 tripped = True
+            if tripped:
+                REGISTRY.crypto_breaker_trips.inc()
         if tripped:
-            log.warning("crypto breaker tripped: rung %s, fault %s, "
-                        "consecutive %d", rung.name, str(err)[:200],
-                        rung.consecutive_faults)
+            log.warn("crypto breaker tripped", rung=rung.name,
+                     fault=str(err)[:200],
+                     consecutive=rung.consecutive_faults)
         else:
-            log.warning("crypto device fault: rung %s, %s", rung.name,
-                        str(err)[:200])
+            log.warn("crypto device fault", rung=rung.name,
+                     fault=str(err)[:200])
 
     def _on_success(self, rung: _Rung) -> None:
         with self._lock:
             if rung.state == HALF_OPEN:
                 rung.state = CLOSED
                 rung.recoveries += 1
-                log.info("crypto breaker recovered; rung %s restored",
-                         rung.name)
+                REGISTRY.crypto_breaker_recoveries.inc()
+                log.info("crypto breaker recovered; rung restored",
+                         rung=rung.name)
             rung.consecutive_faults = 0
 
     # -- invocation -----------------------------------------------------
@@ -227,26 +236,31 @@ class SupervisedBackend:
         fn = _rung_fn(rung.backend, method)
         t0 = time.perf_counter()
         rung.calls += 1
-        if not rung.is_device:
-            out = fn(*args)
-        else:
-            try:
-                if self.call_timeout_s > 0:
-                    fut = self._pool.submit(fn, *args)
-                    try:
-                        out = fut.result(timeout=self.call_timeout_s)
-                    except FutureTimeout:
-                        fut.cancel()
-                        raise DeviceFault(
-                            f"{rung.name}.{method} exceeded the "
-                            f"{self.call_timeout_s}s call timeout")
-                else:
-                    out = fn(*args)
-            except DeviceFault:
-                raise
-            except Exception as e:
-                raise DeviceFault(
-                    f"{rung.name}.{method} failed: {e!r}") from e
+        REGISTRY.crypto_rung_calls.labels(rung.name).inc()
+        # CAT_NONE: the supervised wrapper's wall clock double-counts the
+        # categorized spans the backend emits inside it
+        with tracing.span("crypto.call", cat=tracing.CAT_NONE,
+                          rung=rung.name, method=method):
+            if not rung.is_device:
+                out = fn(*args)
+            else:
+                try:
+                    if self.call_timeout_s > 0:
+                        fut = self._pool.submit(fn, *args)
+                        try:
+                            out = fut.result(timeout=self.call_timeout_s)
+                        except FutureTimeout:
+                            fut.cancel()
+                            raise DeviceFault(
+                                f"{rung.name}.{method} exceeded the "
+                                f"{self.call_timeout_s}s call timeout")
+                    else:
+                        out = fn(*args)
+                except DeviceFault:
+                    raise
+                except Exception as e:
+                    raise DeviceFault(
+                        f"{rung.name}.{method} failed: {e!r}") from e
         rung.observe(time.perf_counter() - t0)
         return out
 
@@ -255,9 +269,11 @@ class SupervisedBackend:
         msg, sig) bytes for spot-check re-verification of one sampled lane
         on the golden reference."""
         last_fault: BaseException | None = None
-        for rung in self._rungs:
+        for ri, rung in enumerate(self._rungs):
             if not self._admit(rung):
                 continue
+            if ri > 0:
+                REGISTRY.crypto_fallback_calls.inc()
             attempts = 1 + (self.retries if rung.is_device else 0)
             for _ in range(attempts):
                 try:
@@ -293,9 +309,13 @@ class SupervisedBackend:
             if self._spot_count % self.spot_check_every != 0:
                 return True
             lane = self._spot_count % n
+        REGISTRY.crypto_spot_checks.inc()
         pub, msg, sig = spot(lane)
-        return bool(out[lane]) == _ref.verify(bytes(pub), bytes(msg),
-                                              bytes(sig))
+        if bool(out[lane]) == _ref.verify(bytes(pub), bytes(msg),
+                                          bytes(sig)):
+            return True
+        REGISTRY.crypto_spot_check_mismatches.inc()
+        return False
 
     # -- Backend protocol ----------------------------------------------
     def verify_batch(self, pubkeys, msgs, sigs) -> np.ndarray:
@@ -376,6 +396,7 @@ class SupervisedBackend:
             return fn(*args, real_n=real_n)
 
         rung.calls += 1
+        REGISTRY.crypto_rung_calls.labels(rung.name).inc()
         try:
             if self.call_timeout_s > 0 and rung.is_device:
                 fut = self._pool.submit(run)

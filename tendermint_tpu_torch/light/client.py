@@ -29,7 +29,6 @@ backend that raises it; it is kept for the JAX package's contract.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,8 +40,9 @@ from tendermint_tpu_torch.types.validator import (CommitPowerError,
                                                   CommitSignatureError,
                                                   ValidatorSet,
                                                   verify_commits_batched)
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("light")
 
 PRODUCER = "light"
 
@@ -191,8 +191,8 @@ class LightClient:
                 # is — the trusted state is untouched either way
                 if attempt:
                     raise
-                log.warning("device fault verifying header %d; retrying "
-                            "once: %s", h.height, str(e)[:200])
+                log.warn("device fault verifying header; retrying once",
+                         height=h.height, error=str(e)[:200])
         self.trusted = TrustedState(h.height, h.hash(), validators)
         return self.trusted
 

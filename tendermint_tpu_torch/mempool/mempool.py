@@ -14,14 +14,16 @@ the pool was given (ed25519 lanes ride the plane's raw kind, kernel K5 on
 `CudaBackend`) -> app CheckTx -> evict + insert.  Every submission lands
 in exactly one outcome.
 
-The port drops the reference's metrics and lock witness.  Its
-scalar-verify fallback catches only `DeviceFault`: the tx is then checked
-on the native scalar path rather than rejected.  None of the port's own
-backends lets one out (a supervised ladder's floor answers or raises its
-own error), so the fallback runs only for a caller's backend that raises
-it; it is kept for the JAX package's contract.  Any other failed verify
-flush (a bare `CudaBackend`'s build or launch error) raises out of
-`check_tx`.
+That outcome is counted (the JAX package's metrics): the pool, or
+`mempool_rejected{reason}`; every eviction in `mempool_evicted{reason}`;
+`mempool_admit_seconds` histograms the admission latency.  The port
+drops the reference's lock witness.  Its scalar-verify fallback catches only
+`DeviceFault`: the tx is then checked on the native scalar path rather
+than rejected.  None of the port's own backends lets one out (a
+supervised ladder's floor answers or raises its own error), so the
+fallback runs only for a caller's backend that raises it; it is kept for
+the JAX package's contract.  Any other failed verify flush (a bare
+`CudaBackend`'s build or launch error) raises out of `check_tx`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import hashlib
 import os
 import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -41,6 +44,7 @@ from tendermint_tpu_torch.crypto.supervised import DeviceFault
 from tendermint_tpu_torch.types import merkle
 from tendermint_tpu_torch.types.keys import PrivKey, _verify_memo
 from tendermint_tpu_torch.types.tx import Tx
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 # -- signed-tx envelope ----------------------------------------------------
 # Optional authenticated tx framing: a tagged prefix carries a fee/priority
@@ -150,6 +154,12 @@ class Mempool:
         # observation hook for eviction audits (eviction-storm records
         # (hash, tx, priority) of every victim); fired under the lock
         self.on_evict = None
+        # pre-bound metric cells: CounterVec.labels() takes a lock per
+        # call, and the flood-shed path pays it on every rejection
+        self._rejected = {r: REGISTRY.mempool_rejected.labels(r)
+                          for r in ("encoding", "dup", "full",
+                                    "backpressure", "bad_sig", "app")}
+        self._evicted_prio = REGISTRY.mempool_evicted.labels("priority")
 
     def add_notify_cb(self, cb) -> None:
         """Register a zero-arg callback fired whenever the pool gains a
@@ -181,10 +191,17 @@ class Mempool:
     def check_tx(self, tx: bytes, tx_hash: bytes | None = None):
         """Admit via the admission controller + app CheckTx; returns the
         Result or None when the tx is a cache duplicate (reference
-        `:166-205`).  `tx_hash`, when the caller already computed it,
-        skips the second leaf hash."""
-        return self._admit(tx, tx_hash if tx_hash is not None
-                           else merkle.leaf_hash(tx))
+        `:166-205`).  Every submission is timed into
+        `mempool_admit_seconds` and lands in exactly one outcome.
+        `tx_hash`, when the caller already computed it, skips the second
+        leaf hash."""
+        t0 = time.perf_counter()
+        try:
+            return self._admit(tx, tx_hash if tx_hash is not None
+                               else merkle.leaf_hash(tx))
+        finally:
+            REGISTRY.mempool_admit_seconds.observe(
+                time.perf_counter() - t0)
 
     def _admit(self, tx: bytes, h: bytes):
         """The admission pipeline, cheapest gate first:
@@ -208,6 +225,7 @@ class Mempool:
         except ValueError as e:
             # malformed envelopes never enter the dedup cache: nothing
             # to uncache, and a resubmission re-parses to the same error
+            self._rejected["encoding"].inc()
             return Result(code=ERR_ENCODING,
                           log=f"bad signed-tx envelope: {e}")
         prio = parsed[4] if parsed is not None else 0
@@ -218,15 +236,17 @@ class Mempool:
             if self._backpressured():
                 # reject BEFORE scheduling the verify: a signature flood
                 # must not grow the plane's mempool queue unboundedly
-                return self._reject(h, _RES_BACKPRESSURE)
+                return self._reject(h, "backpressure", _RES_BACKPRESSURE)
             with self._lock:
                 if self._find_victims_locked(len(tx), prio) is None:
                     # full and nothing strictly lower-priority to evict:
                     # reject before paying for the signature verify
-                    return self._reject(h, _RES_FULL)
+                    return self._reject(h, "full", _RES_FULL)
             rej = self._verify_signed(parsed)
             if rej is not None:
-                return self._reject(h, rej)
+                reason = ("bad_sig" if rej.code == ERR_BAD_SIG
+                          else "encoding")
+                return self._reject(h, reason, rej)
         with self._lock:
             if parsed is None and not self._cache_admit_locked(h):
                 return None
@@ -234,9 +254,10 @@ class Mempool:
             # re-pick victims under the lock that admits
             victims = self._find_victims_locked(len(tx), prio)
             if victims is None:
-                # inline uncache (no _reject re-lock): the bulk
+                # inline uncache+count (no _reject re-lock): the bulk
                 # flood-shed exit, one lock section end to end
                 self._cache.pop(h, None)
+                self._rejected["full"].inc()
                 return _RES_FULL
             res = self.proxy.check_tx(tx)
             if res.is_ok:
@@ -258,28 +279,33 @@ class Mempool:
                 self._bytes += len(tx)
                 if not self._floor_dirty and prio < self._prio_floor:
                     self._prio_floor = prio
+                self._set_gauges_locked()
                 self._notify_available()
                 self._fire_notify()
             else:
                 # invalid tx: allow future resubmission (reference :259-264)
                 self._cache.pop(h, None)
+                self._rejected["app"].inc()
         return res
 
     def _cache_admit_locked(self, h: bytes) -> bool:
-        """Claim `h` in the dedup cache; False when it is already
-        there."""
+        """Claim `h` in the dedup cache; False (+ counted rejection)
+        when it is already there."""
         if h in self._cache:
+            self._rejected["dup"].inc()
             return False
         self._cache[h] = None
         while len(self._cache) > self._cache_size:
             self._cache.popitem(last=False)
         return True
 
-    def _reject(self, h: bytes, res: Result) -> Result:
-        """Uncache: a rejected tx is never permanently deduped — a client
-        may resubmit once load drops (or with the signature fixed)."""
+    def _reject(self, h: bytes, reason: str, res: Result) -> Result:
+        """Uncache + count: a rejected tx is never silently dropped and
+        never permanently deduped — a client may resubmit once load
+        drops (or with the signature fixed)."""
         with self._lock:
             self._cache.pop(h, None)
+        self._rejected[reason].inc()
         return res
 
     # -- admission control ----------------------------------------------
@@ -339,11 +365,16 @@ class Mempool:
         # evicted != committed: the dedup cache entry goes too, so a
         # legitimate sender can resubmit once there is room
         self._cache.pop(h, None)
+        self._evicted_prio.inc()
         if self.on_evict is not None:
             try:
                 self.on_evict(h, tx, p)
             except Exception:
                 pass
+
+    def _set_gauges_locked(self) -> None:
+        REGISTRY.mempool_size.set(len(self._txs))
+        REGISTRY.mempool_bytes.set(self._bytes)
 
     def _verify_signed(self, parsed):
         """Envelope signature gate: None when tx may proceed to the app,
@@ -498,6 +529,7 @@ class Mempool:
                         self._bytes -= len(tx)
                 self._txs = survivors
             self._floor_dirty = True
+            self._set_gauges_locked()
             # compact the journal to the surviving pool: committed txs
             # must not be re-admitted (re-EXECUTED) by recover_wal
             self._rewrite_wal()
@@ -530,6 +562,7 @@ class Mempool:
             self._cache.clear()
             self._bytes = 0
             self._floor_dirty = True
+            self._set_gauges_locked()
             self._rewrite_wal()   # journal == pool, or recovery resurrects
 
     def close(self) -> None:

@@ -16,14 +16,14 @@ routine ends it and is kept the same way; `stop()` raises it.
 
 from __future__ import annotations
 
-import logging
 import threading
 
 from tendermint_tpu_torch.p2p.connection import is_node_fault
 from tendermint_tpu_torch.p2p.peer import Peer, Reactor
 from tendermint_tpu_torch.p2p.types import ChannelDescriptor
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("mempool")
 
 MEMPOOL_CHANNEL = 0x30
 BROADCAST_SLEEP = 0.1    # idle-only safety net; gossip is event-driven
@@ -112,8 +112,7 @@ class MempoolReactor(Reactor):
             self.mempool.check_tx(msg)
         except BaseException as e:
             if not is_node_fault(e):
-                log.exception("gossiped tx failed CheckTx: peer %s",
-                              peer.id[:8])
+                log.exception("gossiped tx failed CheckTx", peer=peer.id[:8])
                 return
             self._on_fault(e)
             raise
@@ -123,8 +122,8 @@ class MempoolReactor(Reactor):
         try:
             self._broadcast_txs(peer, stop)
         except BaseException as e:
-            log.error("tx broadcast to %s stopped by a fault: %r",
-                      peer.id[:8], e)
+            log.error("tx broadcast stopped by a fault", peer=peer.id[:8],
+                      error=repr(e))
             self._on_fault(e)
 
     def _broadcast_txs(self, peer: Peer, stop: threading.Event) -> None:

@@ -21,14 +21,17 @@ Copy of `tendermint_tpu/node/node.py` with the port's rules:
   stops the node, and so raises, as soon as one of them holds a fault.
   A demotion down the supervised ladder is counted in its
   `supervisor_status`, which `status` reports as `crypto_supervisor`.
-* `status` has no `metrics` key until the metrics are ported.
+* The node applies `base.log_level` (`utils/log.set_level_spec`) and
+  names its backend in the metrics' build info; `status` carries
+  `metrics` (the process-wide `utils/metrics` snapshot), and the RPC
+  server serves `GET /metrics` and, behind `rpc.unsafe`, the tracing and
+  telemetry routes.
 * The persistent kvstore takes its file as an argument
   (`<data dir>/kvstore_app.json`, `home_app`); no `TM_KVSTORE_PATH`.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 
@@ -52,9 +55,12 @@ from tendermint_tpu_torch.state.txindex import KVTxIndexer
 from tendermint_tpu_torch.types import GenesisDoc, PrivValidator
 from tendermint_tpu_torch.types.events import EventSwitch
 from tendermint_tpu_torch.types.tx import Tx
+from tendermint_tpu_torch.utils import metrics
 from tendermint_tpu_torch.utils.db import new_db
+from tendermint_tpu_torch.utils.log import set_level_spec
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("node")
 
 
 def make_backend(name: str, crypto: CryptoConfig | None = None):
@@ -104,6 +110,7 @@ class Node:
         """
         self.config = config
         base = config.base
+        set_level_spec(base.log_level)
         if config.rpc.grpc_laddr:
             raise ValueError(
                 f"rpc.grpc_laddr {config.rpc.grpc_laddr!r}: the gRPC "
@@ -113,6 +120,9 @@ class Node:
                         else make_backend(base.crypto_backend,
                                           config.crypto))
         self.plane = BatchPlane(self.backend)
+        metrics.set_build_info(crypto_backend=(
+            f"supervised:{base.crypto_backend}"
+            if self.backend.name == "supervised" else self.backend.name))
 
         # --- storage (reference :70-77) ---
         if base.db_backend == "memdb":
@@ -156,7 +166,7 @@ class Node:
                 committed=lambda tx: self.tx_indexer.get(Tx(tx).hash)
                 is not None)
             if n:
-                log.info("mempool wal recovered %d txs", n)
+                log.info("mempool wal recovered", txs=n)
         wal_path = (os.path.join(base.db_dir(), "cs.wal")
                     if base.db_backend != "memdb" else "")
         self.consensus = ConsensusState(
@@ -243,7 +253,7 @@ class Node:
         try:
             while not self._stopped.wait(0.5):
                 if self.fault() is not None:
-                    log.error("stopping on a fault: %r", self.fault())
+                    log.error("stopping on a fault", error=repr(self.fault()))
                     break
             else:
                 return                   # stopped by another caller
@@ -269,6 +279,7 @@ class Node:
             "latest_app_hash": self.state.app_hash.hex(),
             "validator_count": self.state.validators.size(),
             "consensus": self.consensus.get_round_state_summary(),
+            "metrics": metrics.snapshot(),
         } | self._crypto_status()
 
     def _crypto_status(self) -> dict:

@@ -9,7 +9,9 @@ with ctypes: each entry point takes device pointers, int sizes and the
 current CUDA stream, and returns `cudaGetLastError()`.
 
 Nothing is built or loaded at import: the first launch on a CUDA tensor
-builds.  `LAUNCHES` counts launches per kernel — the one place a launch
+builds, under a `kernel.build` span of the flight recorder (category
+`compile`), counted in the `xla_compiles` / `xla_compile_seconds`
+metrics.  `LAUNCHES` counts launches per kernel — the one place a launch
 happens, under a lock since several threads launch — so a run can show
 which kernels its main path went through.
 """
@@ -24,10 +26,14 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from collections.abc import Sequence
 from pathlib import Path
 
 import torch
+
+from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -130,10 +136,16 @@ def load(so: Path) -> ctypes.CDLL:
 
 
 def library() -> ctypes.CDLL:
+    """This tree's kernel library, built (or found built) and loaded on
+    the first call."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = load(build()[0])
+            t0 = time.perf_counter()
+            with tracing.span("kernel.build"):
+                _lib = load(build()[0])
+            REGISTRY.xla_compiles.inc()
+            REGISTRY.xla_compile_seconds.observe(time.perf_counter() - t0)
     return _lib
 
 

@@ -14,8 +14,8 @@ Wire framing (all big-endian):
     type 3   := PONG (empty body)
 flags bit0 = EOF (last packet of the message).
 
-Copy of `tendermint_tpu/p2p/connection.py` without its metrics.  One
-difference: a fault of this node raised out of `on_receive` (a reactor's
+Copy of `tendermint_tpu/p2p/connection.py` with its message counters.
+One difference: a fault of this node raised out of `on_receive` (a reactor's
 `receive`), i.e. a device or batch-plane fault (`is_node_fault`), is not
 the peer's doing.  The JAX connection dies of it, which drops and may
 blame the peer; here the receive routine stops, keeps the error as
@@ -32,12 +32,12 @@ import threading
 import time
 from collections import deque
 
-import logging
-
 from tendermint_tpu_torch.p2p.types import ChannelDescriptor
 from tendermint_tpu_torch.utils.flowrate import Meter
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("p2p")
 
 PKT_MSG, PKT_PING, PKT_PONG = 1, 2, 3
 MAX_PACKET_PAYLOAD = 1024            # reference maxMsgPacketSize
@@ -167,11 +167,11 @@ class MConnection:
         # is normal teardown (debug); anything else is a real peer error
         # and must be attributable even when no on_error is wired.
         if self._stopped.is_set():
-            log.debug("connection closed: peer %s, cause %s",
-                      self.label or "?", type(exc).__name__)
+            log.debug("connection closed", peer=self.label or "?",
+                      cause=type(exc).__name__)
         else:
-            log.error("connection died: peer %s: %s", self.label or "?",
-                      str(exc) or type(exc).__name__)
+            log.error("connection died", peer=self.label or "?",
+                      err=str(exc) or type(exc).__name__)
         self.stop()
         if self.on_error is not None:
             self.on_error(exc)
@@ -259,6 +259,7 @@ class MConnection:
                     self._send_limiter.consume(len(pkt))
                     self.conn.write(pkt)
                     self.send_monitor.update(len(pkt))
+                    REGISTRY.msgs_sent.inc()
                 self._decay()
                 now = time.monotonic()
                 if now - last_ping >= self._ping_interval:
@@ -277,6 +278,7 @@ class MConnection:
                 return
             if got is None:
                 continue
+            REGISTRY.msgs_received.inc()
             try:
                 self.on_receive(*got)
             except BaseException as e:
@@ -286,8 +288,8 @@ class MConnection:
                     return
                 # our own fault on a well-formed message: not the peer's
                 self.fault = e
-                log.error("receive stopped by a fault: peer %s: %r",
-                          self.label or "?", e)
+                log.error("receive stopped by a fault",
+                          peer=self.label or "?", error=repr(e))
                 if self.on_fault is not None:
                     self.on_fault(e)
                 return

@@ -20,15 +20,15 @@ the book's random generator.
 from __future__ import annotations
 
 import json
-import logging
 import threading
 import time
 
 from tendermint_tpu_torch.p2p.addrbook import AddrBook
 from tendermint_tpu_torch.p2p.peer import Peer, Reactor
 from tendermint_tpu_torch.p2p.types import ChannelDescriptor, NetAddress
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("pex")
 
 PEX_CHANNEL = 0x00
 TARGET_OUTBOUND = 10
@@ -124,7 +124,7 @@ class PEXReactor(Reactor):
                 self._ensure_peers()
                 wait = self.ensure_interval
         except BaseException as e:
-            log.error("ensure-peers stopped by a fault: %r", e)
+            log.error("ensure-peers stopped by a fault", error=repr(e))
             self.fault = e
 
     def _ensure_peers(self) -> None:

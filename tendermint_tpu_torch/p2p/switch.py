@@ -7,10 +7,11 @@ persistent peers reconnect with exponential backoff (`:402-434`);
 `MakeConnectedSwitches` (`:495-543`) is the in-process net harness the
 test suite builds multi-node consensus on.
 
-Copy of `tendermint_tpu/p2p/switch.py` without metrics, the lock witness
-and chaos: the reconnect jitter draws from the `random.Random` passed as
-`rng` (by default one seeded with the node id, where the JAX switch
-derives its seed from the installed chaos config), and fuzzed connections
+Copy of `tendermint_tpu/p2p/switch.py` (its peer, reconnect and eviction
+metrics kept) without the lock witness and chaos: the reconnect jitter
+draws from the `random.Random` passed as `rng` (by default one seeded
+with the node id, where the JAX switch derives its seed from the
+installed chaos config), and fuzzed connections
 (`p2p/fuzz.py`) are not ported, so `config.fuzz` is refused.  A fault of
 this node on a well-formed message (a device or plane fault out of a
 reactor's `receive`, see `connection.py`) is kept as `fault`, blames no
@@ -20,7 +21,6 @@ peer, and
 
 from __future__ import annotations
 
-import logging
 import random
 import struct
 import threading
@@ -32,8 +32,10 @@ from tendermint_tpu_torch.p2p.peer import Peer, Reactor
 from tendermint_tpu_torch.p2p.secret import SecretConnection
 from tendermint_tpu_torch.p2p.types import NetAddress, NodeInfo
 from tendermint_tpu_torch.types.keys import PrivKey
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("p2p")
 
 # Reconnect limits (defaults when the switch has no P2PConfig).  The
 # attempt cap and the sleep ceiling are SEPARATE knobs: the old code's
@@ -254,7 +256,7 @@ class Switch:
                        if self.config is not None else 3.0)
             conn = transport.dial(addr, timeout=timeout)
         except OSError as e:
-            log.info("dial failed: %s: %s", addr, e)
+            log.info("dial failed", addr=str(addr), err=str(e))
             if persistent and reschedule:
                 self._schedule_reconnect(addr)
             return None
@@ -268,7 +270,7 @@ class Switch:
                 self._persistent_addrs[peer.id] = addr
             return peer
         except Exception as e:
-            log.info("handshake failed: %s: %s", addr, e)
+            log.info("handshake failed", addr=str(addr), err=str(e))
             conn.close()
             if persistent and reschedule and "duplicate peer" not in str(e):
                 # a duplicate rejection means the peer is already back
@@ -300,8 +302,7 @@ class Switch:
         if self._stopped.is_set():
             return
         if attempt >= max_attempts:
-            log.info("reconnect gave up: %s after %d attempts", addr,
-                     attempt)
+            log.info("reconnect gave up", addr=str(addr), attempts=attempt)
             return
         delay = self._reconnect_delay(attempt)
 
@@ -313,6 +314,7 @@ class Switch:
                           if a.dial_string() == addr.dial_string()), None)
             if known is not None and self.get_peer(known) is not None:
                 return          # already back: a racing dial/accept won
+            REGISTRY.switch_reconnect_attempts.inc()
             peer = self._dial_peer(addr, persistent=True,
                                    reschedule=False)
             if peer is None:
@@ -341,7 +343,7 @@ class Switch:
         try:
             self.add_peer_from_conn(conn, outbound=False)
         except Exception as e:
-            log.info("inbound handshake failed: %s", e)
+            log.info("inbound handshake failed", err=str(e))
             conn.close()
 
     # -- misbehavior scoring + temporary bans ----------------------------
@@ -395,11 +397,12 @@ class Switch:
         peer = self.get_peer(peer_id)
         if peer is not None:
             peer.misbehavior_score = score
-        log.info("peer misbehavior: %s score %.2f: %s", peer_id[:12], score,
-                 str(reason)[:80])
+        log.info("peer misbehavior", peer=peer_id[:12],
+                 score=round(score, 2), reason=str(reason)[:80])
         if should_ban:
-            log.info("peer banned: %s for %.1f s: %s", peer_id[:12],
-                     window_s, str(reason)[:80])
+            REGISTRY.switch_peers_evicted.inc()
+            log.info("peer banned", peer=peer_id[:12], window_s=window_s,
+                     reason=str(reason)[:80])
             if peer is not None:
                 self._remove_peer(peer, f"banned: {reason}")
         return should_ban
@@ -466,11 +469,12 @@ class Switch:
                     del self._peers[info.id]
             raise SwitchError(f"peer {info.id[:12]} is banned "
                               f"(misbehavior)")
+        REGISTRY.peers.set(self.n_peers())
         mconn.start()
         for r in self._reactors.values():
             r.add_peer(peer)
-        log.info("added peer %s (%s, %s)", info.id[:12], info.moniker,
-                 "out" if outbound else "in")
+        log.info("added peer", peer=info.id[:12], moniker=info.moniker,
+                 outbound=outbound)
         return peer
 
     def _handshake(self, conn) -> NodeInfo:
@@ -522,10 +526,11 @@ class Switch:
                 return False
             del self._peers[peer.id]
         peer.stop()
+        REGISTRY.peers.set(self.n_peers())
         for r in self._reactors.values():
             r.remove_peer(peer, reason)
         if reason is not None:
-            log.info("removed peer %s: %s", peer.id[:12], reason)
+            log.info("removed peer", peer=peer.id[:12], reason=str(reason))
         return True
 
 

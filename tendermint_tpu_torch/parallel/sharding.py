@@ -21,17 +21,22 @@ Kernels: `verify_tally`, `sharded_verify_fn` and `training_step_fn` run K6
 quorum) per shard; `sharded_merkle_fn` runs `ops/merkle.roots` (K7),
 `sharded_grouped_verify_fn` the single-device `verify_grouped` (K1) and
 `sharded_grouped_templated_verify_fn` `verify_grouped_templated` (K1) per
-shard.  The JAX module's utilization bookkeeping (`note_sharded_call`) is
-not copied.
+shard.  `note_sharded_call` keeps the JAX module's per-device gauges
+(`device_util`, `device_lanes`); a card that holds several virtual
+shards counts their lanes and the call's wall once.
 """
 
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
 
 from tendermint_tpu_torch.ops import ed25519 as _ed
 from tendermint_tpu_torch.ops import merkle as _merkle
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 
 def _device(d) -> torch.device:
@@ -68,6 +73,30 @@ class Mesh:
 def device_label(d) -> str:
     d = torch.device(d)
     return f"{d.type}:{d.index or 0}"
+
+
+_usage_lock = threading.Lock()
+_usage_t0: float | None = None
+_usage_busy: dict[str, float] = {}
+
+
+def note_sharded_call(mesh: Mesh, dur_s: float, lanes: int) -> None:
+    """Fold one sharded verify call into the per-device utilization
+    gauges (`tendermint_device_util{device=...}`) and lane counters."""
+    global _usage_t0
+    per_shard = lanes // mesh.size
+    now = time.perf_counter()
+    with _usage_lock:
+        if _usage_t0 is None:
+            _usage_t0 = now - max(dur_s, 1e-9)
+        elapsed = max(now - _usage_t0, 1e-9)
+        for d in mesh.distinct:
+            label = device_label(d)
+            _usage_busy[label] = _usage_busy.get(label, 0.0) + dur_s
+            REGISTRY.device_util.labels(label).set(
+                min(1.0, _usage_busy[label] / elapsed))
+            REGISTRY.device_lanes.labels(label).inc(
+                per_shard * mesh.devices.count(d))
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:

@@ -5,26 +5,47 @@ Reference: `rpc/core/routes.go:8-46` (route table), `rpc/core/mempool.go`
 DeliverTx event with a timeout, `:48-104`), `rpc/core/pipe.go` (node
 wiring).  Handlers return JSON-serializable dicts.
 
-Copy of `tendermint_tpu/rpc/routes.py` without the tracing and telemetry
-routes (`debug_trace_start`, `debug_trace_stop`, `debug_flight_recorder`,
-`debug_timeline`, `debug_doctor`, `debug_bench_history`), which wait for
-the port's observability modules: until then they answer "unknown
-method".
+Copy of `tendermint_tpu/rpc/routes.py`.  The tracing and telemetry
+routes (`debug_trace_start|stop`, `debug_flight_recorder`,
+`debug_timeline`, `debug_doctor`, `debug_bench_history`) are served only
+with `rpc.unsafe`, as in the JAX package.  `debug_trace_start` takes a
+`torch.profiler` capture of the card (`utils/trace.py`) into a flat
+directory under `TRACE_BASE` in the temporary directory, where the JAX
+route writes under `/tmp`.
 """
 
 from __future__ import annotations
 
 import json
-import sys
+import os
+import re
+import tempfile
 import threading
-import traceback
+import time
 
 from tendermint_tpu_torch.p2p.types import NetAddress
 from tendermint_tpu_torch.types import merkle
 from tendermint_tpu_torch.types.events import event_tx
 from tendermint_tpu_torch.types.tx import Tx
+from tendermint_tpu_torch.utils import attribution, ledger, trace, tracing
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 BROADCAST_TX_COMMIT_TIMEOUT = 60.0   # reference: 60s-120s
+TRACE_BASE = "tendermint_tpu_torch_trace"   # under the temporary directory
+_FLAT_NAME = r"[A-Za-z0-9._-]{1,64}"
+
+
+def _flat_path(base: str, name: str, what: str, escapes: str) -> str:
+    """`base/name` for an RPC-given `name` that must be a flat file or
+    directory name (no path escape, no arbitrary-directory writes);
+    `what` and `escapes` word the JAX route's two refusals."""
+    if not re.fullmatch(_FLAT_NAME, name) or set(name) == {"."}:
+        raise ValueError(f"{what} must match {_FLAT_NAME}")
+    base = os.path.realpath(base)
+    path = os.path.realpath(os.path.join(base, name))
+    if os.path.dirname(path) != base:
+        raise ValueError(escapes)
+    return path
 
 
 def _hexb(b: bytes) -> str:
@@ -100,6 +121,12 @@ class Routes:
                 "unsafe_flush_mempool": self.unsafe_flush_mempool,
                 "unsafe_dial_seeds": self.unsafe_dial_seeds,
                 "debug_stacks": self.debug_stacks,
+                "debug_trace_start": self.debug_trace_start,
+                "debug_trace_stop": self.debug_trace_stop,
+                "debug_flight_recorder": self.debug_flight_recorder,
+                "debug_doctor": self.debug_doctor,
+                "debug_timeline": self.debug_timeline,
+                "debug_bench_history": self.debug_bench_history,
             })
 
     # -- info routes ----------------------------------------------------
@@ -232,14 +259,99 @@ class Routes:
 
     # -- debug/profiling routes (reference pprof endpoints analog) --------
     def debug_stacks(self, params: dict) -> dict:
-        """Name -> formatted stack for every live Python thread."""
-        frames = sys._current_frames()
-        out = {}
-        for t in threading.enumerate():
-            f = frames.get(t.ident)
-            name = f"{t.name}{'(daemon)' if t.daemon else ''}"
-            out[name] = traceback.format_stack(f) if f is not None else []
-        return {"threads": out}
+        return {"threads": trace.thread_stacks()}
+
+    def debug_trace_start(self, params: dict) -> dict:
+        """Start a `torch.profiler` capture of the card into
+        `<tmp>/TRACE_BASE/<name>` (`name` a flat directory name)."""
+        d = _flat_path(os.path.join(tempfile.gettempdir(), TRACE_BASE),
+                       str(params.get("name") or "trace"), "trace name",
+                       "trace name escapes the trace directory")
+        return {"started": trace.start_device_trace(d), "dir": d}
+
+    def debug_trace_stop(self, params: dict) -> dict:
+        """Stop the capture; the trace is `trace.DEVICE_TRACE_FILE` in
+        the returned directory."""
+        return {"dir": trace.stop_device_trace()}
+
+    def debug_flight_recorder(self, params: dict) -> dict:
+        """Dump the in-process flight recorder.  format="chrome" returns
+        the Chrome trace-event JSON (load in Perfetto / chrome://tracing);
+        the default "spans" form is the raw oldest-first span list.
+        name=SUBSTR keeps only matching spans, last=N the N most recent
+        (filters apply server-side so a 16k-span ring doesn't cross the
+        wire to answer a question about its tail).  clear=true empties
+        the ring after the dump."""
+        rec = tracing.RECORDER
+        fmt = str(params.get("format", "spans"))
+        name = str(params.get("name", "") or "")
+        last = int(params.get("last", 0) or 0)
+
+        def _filter(evs, ts_key="ts"):
+            if name:
+                evs = [e for e in evs if name in e.get("name", "")]
+            if last > 0:
+                evs = sorted(evs, key=lambda e: e.get(ts_key, 0))[-last:]
+            return evs
+
+        if fmt == "chrome":
+            doc = rec.to_chrome_trace()
+            if name or last:
+                meta = [e for e in doc["traceEvents"]
+                        if e.get("ph") == "M"]
+                spans = [e for e in doc["traceEvents"]
+                         if e.get("ph") != "M"]
+                doc["traceEvents"] = _filter(spans) + meta
+            out = {"trace": doc}
+        elif fmt == "spans":
+            out = {"spans": _filter(rec.snapshot())}
+        else:
+            raise ValueError("format must be 'spans' or 'chrome'")
+        out.update({"total": rec.total, "dropped": rec.dropped,
+                    "capacity": rec.capacity})
+        if str(params.get("clear", "")).lower() in ("1", "true", "yes"):
+            rec.clear()
+        return out
+
+    def debug_timeline(self, params: dict) -> dict:
+        """This node's height-lifecycle dump for the mesh collector
+        (telemetry/collector.merge_dumps): the canonical per-height
+        records from the consensus core's ring, a wall-clock sample for
+        cross-node skew normalization, and the local stage histogram.
+        last=N keeps the N most recent heights."""
+        cs = self.node.consensus
+        records = list(cs.lifecycle)
+        last = int(params.get("last", 0) or 0)
+        if last > 0:
+            records = records[-last:]
+        return {"node": cs.node_id or self.node.config.base.moniker,
+                "wall_now": time.time(),
+                "records": records,
+                "stage_seconds": REGISTRY.consensus_stage_seconds.snapshot()}
+
+    def debug_doctor(self, params: dict) -> dict:
+        """Pipeline attribution over the live flight recorder: per-window
+        wall-clock partition (compile / transfer / device / scalar /
+        idle) and the largest thief of the throughput target."""
+        return {"report": attribution.doctor_report(
+            tracing.RECORDER.snapshot())}
+
+    def debug_bench_history(self, params: dict) -> dict:
+        """Bench regression ledger entries with deltas vs best prior
+        run.  The ledger path is an RPC param: restricted to a flat
+        filename in the node's working directory (the containment rule
+        of debug_trace_start)."""
+        path = _flat_path(os.getcwd(),
+                          str(params.get("ledger") or ledger.DEFAULT_PATH),
+                          "ledger",
+                          "ledger path escapes the working directory")
+        entries = ledger.load(path)
+        deltas = None
+        if entries:
+            deltas = ledger.compute_deltas(
+                entries[:-1], entries[-1].get("configs") or {})
+        return {"entries": entries, "count": len(entries),
+                "latest_deltas": deltas}
 
     def net_info(self, params: dict) -> dict:
         sw = self.node.switch

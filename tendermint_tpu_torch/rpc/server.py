@@ -2,10 +2,8 @@
 
 Reference: `rpc/lib/server/handlers.go` — every route is exposed both as
 a JSON-RPC method on POST / and as a GET URI endpoint (`:26-70`), plus a
-`/websocket` upgrade for subscriptions.  Copy of
-`tendermint_tpu/rpc/server.py` without the Prometheus `/metrics`
-endpoint, which waits for the port's metrics: a GET of it answers
-"unknown method".
+`/websocket` upgrade for subscriptions, and `GET /metrics` in the
+Prometheus text format.  Copy of `tendermint_tpu/rpc/server.py`.
 """
 
 from __future__ import annotations
@@ -17,6 +15,7 @@ from urllib.parse import parse_qsl, urlparse
 
 from tendermint_tpu_torch.rpc.routes import Routes
 from tendermint_tpu_torch.rpc import websocket as ws
+from tendermint_tpu_torch.utils import metrics
 
 
 class RPCServer:
@@ -48,6 +47,18 @@ class RPCServer:
                 method = parsed.path.strip("/")
                 if method == "websocket":
                     self._upgrade_websocket()
+                    return
+                if method == "metrics":
+                    # Prometheus text exposition — plain text, not
+                    # JSON-RPC, so it bypasses the method table
+                    data = metrics.prometheus_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4; "
+                                     "charset=utf-8")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
                     return
                 if method == "":
                     self._respond(200, {

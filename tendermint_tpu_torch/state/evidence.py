@@ -13,13 +13,13 @@ field).
 
 from __future__ import annotations
 
-import logging
 import threading
 
 from tendermint_tpu_torch.types.codec import Reader, lp_bytes
 from tendermint_tpu_torch.types.vote import DuplicateVoteEvidence, Vote
+from tendermint_tpu_torch.utils.log import get_logger
 
-log = logging.getLogger(__name__)
+log = get_logger("evidence")
 
 
 def evidence_key(ev: DuplicateVoteEvidence) -> bytes:
@@ -61,7 +61,7 @@ class EvidencePool:
             try:
                 self._pending[k] = decode_evidence(v)
             except (ValueError, IndexError):
-                log.warning("corrupt evidence entry dropped: %s", k.hex())
+                log.warn("corrupt evidence entry dropped", key=k.hex())
 
     def verify(self, ev: DuplicateVoteEvidence, val_set) -> None:
         """Raise ValueError unless ev is a valid equivocation proof by a
@@ -90,15 +90,16 @@ class EvidencePool:
         try:
             self.verify(ev, val_set)
         except ValueError as e:
-            log.warning("rejected evidence: %s", e)
+            log.warn("rejected evidence", err=str(e))
             return False
         with self._lock:
             if key in self._pending:
                 return False
             self._pending[key] = ev
             self._db.set(key, encode_evidence(ev))
-        log.info("evidence stored: validator %s height %d",
-                 ev.vote_a.validator_address.hex()[:12], ev.vote_a.height)
+        log.info("evidence stored",
+                 validator=ev.vote_a.validator_address.hex()[:12],
+                 height=ev.vote_a.height)
         return True
 
     def pending(self) -> list[DuplicateVoteEvidence]:

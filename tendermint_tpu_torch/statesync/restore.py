@@ -36,7 +36,6 @@ the metrics are dropped.
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -47,8 +46,10 @@ from tendermint_tpu_torch.statesync.snapshot import (SnapshotManifest,
                                                      decode_payload,
                                                      verify_chunk_hashes)
 from tendermint_tpu_torch.types import merkle as hmerkle
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("statesync")
 
 DEFAULT_FETCHERS = 4
 
@@ -113,7 +114,8 @@ class StateSyncer:
             try:
                 ms = src.manifests()
             except Exception:
-                log.exception("snapshot source %s unreachable", src.peer_id)
+                log.exception("snapshot source unreachable",
+                              peer=src.peer_id)
                 continue
             for m in ms:
                 key = m.key()
@@ -126,8 +128,7 @@ class StateSyncer:
 
     def _blame(self, peer_id: str, reason: str, ban: bool) -> None:
         self.blamed.append((peer_id, reason))
-        log.warning("statesync blame: peer %s, %s, ban %s", peer_id, reason,
-                    ban)
+        log.warn("statesync blame", peer=peer_id, reason=reason, ban=ban)
         if self.report is not None:
             self.report(peer_id, reason, ban=ban)
 
@@ -210,9 +211,9 @@ class StateSyncer:
                 continue
             chunks = self._fetch_verified(manifest, providers)
             if chunks is None:
-                log.warning("snapshot offer exhausted: height %d, "
-                            "providers %s", manifest.height,
-                            [s.peer_id for s in providers])
+                log.warn("snapshot offer exhausted",
+                         height=manifest.height,
+                         providers=[s.peer_id for s in providers])
                 continue
             try:
                 state = self._apply(manifest, chunks, db, genesis_doc,
@@ -226,8 +227,10 @@ class StateSyncer:
                                 f"{manifest.height} failed apply: {e}",
                                 ban=True)
                 continue
-            log.info("snapshot restored: height %d, %d chunks, %.3f s",
-                     manifest.height, manifest.chunks, time.time() - t0)
+            dt = time.time() - t0
+            REGISTRY.snapshot_restore_seconds.observe(dt)
+            log.info("snapshot restored", height=manifest.height,
+                     chunks=manifest.chunks, seconds=round(dt, 3))
             return state, manifest
         raise RestoreError(
             f"no snapshot offer could be restored ({tried} tried); "

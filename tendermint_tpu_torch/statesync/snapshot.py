@@ -36,13 +36,12 @@ through the host tree (`types.merkle`).
 The JAX version's peek at the installed backend, its
 `TM_SNAPSHOT_DEVICE_HASH` switch and its `except Exception` host fallback
 are gone: with no backend the host loop hashes, and a failed launch
-raises.  No fail points and no metrics.
+raises.  No fail points; the JAX chunk and snapshot metrics are kept.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import time
 import zlib
@@ -53,8 +52,10 @@ import numpy as np
 
 from tendermint_tpu_torch.crypto.backend import leaf_hasher
 from tendermint_tpu_torch.types import merkle as hmerkle
+from tendermint_tpu_torch.utils.log import get_logger
+from tendermint_tpu_torch.utils.metrics import REGISTRY
 
-log = logging.getLogger(__name__)
+log = get_logger("statesync")
 
 SNAPSHOT_SCHEMA = "tpu-bft-snapshot/1"
 SNAPSHOT_FORMAT = 1
@@ -131,7 +132,12 @@ def verify_chunk_hashes(chunks: dict[int, bytes],
     commitment.  One batched call over everything fetched."""
     idxs = sorted(chunks)
     hashed = hash_chunks([chunks[i] for i in idxs], backend)
-    return [i for i, h in zip(idxs, hashed) if h != expected[i]]
+    bad = [i for i, h in zip(idxs, hashed) if h != expected[i]]
+    if len(idxs) - len(bad):
+        REGISTRY.chunks_verified.inc(len(idxs) - len(bad))
+    if bad:
+        REGISTRY.chunks_rejected.inc(len(bad))
+    return bad
 
 
 # -- manifest ---------------------------------------------------------------
@@ -261,8 +267,12 @@ class SnapshotStore:
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(sdir, MANIFEST_NAME))
         self.prune_retained()
-        log.info("snapshot created: height %d, %d chunks, %d bytes, %.3f s",
-                 height, len(chunks), len(payload), time.time() - t0)
+        dt = time.time() - t0
+        REGISTRY.snapshots_created.inc()
+        REGISTRY.snapshot_create_seconds.observe(dt)
+        log.info("snapshot created", height=height,
+                 chunks=len(chunks), bytes=len(payload),
+                 seconds=round(dt, 3))
         return manifest
 
     # -- scan / load ----------------------------------------------------

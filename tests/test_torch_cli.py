@@ -441,3 +441,155 @@ def test_node_ladder_flags_load_as_jax(tmp_path, flags):
     want = jcli._load_config(args).crypto
     assert vars(got) == vars(want)
     assert got.supervised is flags["crypto_supervised"]
+
+
+# -- the observability commands ------------------------------------------------
+
+def _dumps(tmp_path) -> dict:
+    """A JAX and a port flight-recorder dump holding replay windows and
+    consensus stages, and a ledger, on disk."""
+    from tendermint_tpu.utils import tracing as jtracing
+    from tendermint_tpu_torch.utils import tracing
+    out = {}
+    for tag, mod in (("jax", jtracing), ("port", tracing)):
+        rec = mod.FlightRecorder(512)
+        t = 1_700_000_000.0
+        for w in range(4):
+            for name, dur in (("fastsync.prepare", 0.02),
+                              ("verify.collect", 0.01),
+                              ("fastsync.apply", 0.03)):
+                rec.record(name, t, dur, {"window": w})
+                t += dur
+            rec.record("consensus.stage.propose", t, 0.1,
+                       {"height": w + 1, "node": "n0"})
+            t += 0.005
+        out[tag] = rec.dump(str(tmp_path / f"{tag}_trace.json"))
+    led = tmp_path / "led.jsonl"
+    with open(led, "w") as f:
+        for i in range(3):
+            f.write(json.dumps({"timestamp": f"t{i}", "configs": {
+                "config3": {"sigs_per_sec": [900.0, 1000.0, 700.0][i]}}})
+                + "\n")
+    out["ledger"] = str(led)
+    return out
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    return rc, capsys.readouterr().out
+
+
+@pytest.mark.parametrize("dump", ["jax", "port"])
+@pytest.mark.parametrize("argv", [
+    ["trace", "--format", "lines"],
+    ["trace", "--format", "lines", "--last", "3", "--name", "fastsync"],
+    ["trace", "--out", "{tmp}/out.json", "--last", "5"],
+    ["doctor", "--json"],
+    ["doctor"],
+    ["timeline", "--json", "--out", ""],
+    ["timeline", "--out", "{tmp}/tl.json"]],
+    ids=lambda a: "-".join(x.strip("-") for x in a if "{" not in x))
+def test_dump_commands_print_as_jax(tmp_path, capsys, dump, argv):
+    """`trace --in`, `doctor --trace` and `timeline --trace` on the same
+    dump print what the JAX commands print and write the same files."""
+    files = _dumps(tmp_path)
+    src = files[dump]
+    cmd = argv[0]
+    flag = {"trace": "--in", "doctor": "--trace", "timeline": "--trace"}[cmd]
+    extra = ["--ledger", files["ledger"]] if cmd == "doctor" else []
+    outs = []
+    for main, tag in ((cli.main, "p"), (jcli.main, "j")):
+        a = [x.replace("{tmp}", str(tmp_path / tag)) for x in argv]
+        os.makedirs(tmp_path / tag, exist_ok=True)
+        rc, out = _run(main, [a[0], flag, src, *a[1:], *extra], capsys)
+        written = [open(x).read() for x in a if x.endswith(".json")
+                   and os.path.exists(x)]
+        outs.append((rc, out.replace(str(tmp_path / tag), "<tmp>"),
+                     written))
+    assert outs[0] == outs[1]
+    assert outs[0][0] == 0
+
+
+@pytest.mark.parametrize("entries", [0, 3])
+def test_bench_history_prints_as_jax(tmp_path, capsys, entries):
+    path = _dumps(tmp_path)["ledger"] if entries else str(tmp_path / "no")
+    got = _run(cli.main, ["bench-history", "--ledger", path], capsys)
+    want = _run(jcli.main, ["bench-history", "--ledger", path], capsys)
+    assert got == want
+    assert got[0] == (0 if entries else 1)
+
+
+@pytest.fixture(scope="module")
+def live():
+    """A port solo validator with `rpc.unsafe` (the golden verifier)."""
+    from tendermint_tpu_torch.types import (GenesisValidator, PrivKey)
+    cfg = config.test_config()
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.laddr = ""
+    cfg.rpc.unsafe = True
+    pv = PrivValidator(PrivKey(b"\x21" * 32))
+    n = Node(cfg, priv_validator=pv, genesis_doc=GenesisDoc(
+        chain_id="obs", validators=[GenesisValidator(pv.pub_key.bytes_,
+                                                     10)],
+        genesis_time_ns=1))
+    n.start()
+    try:
+        t0 = time.monotonic()
+        while len(n.consensus.lifecycle) < 3 and time.monotonic() - t0 < 30:
+            time.sleep(0.05)
+        yield n
+    finally:
+        n.stop()
+
+
+@pytest.mark.parametrize("cmd", ["trace", "doctor", "timeline"])
+def test_commands_against_a_live_node(live, tmp_path, capsys, cmd):
+    """The commands read a running port node over its unsafe routes;
+    the timeline's every height partitions its wall."""
+    addr = live.rpc_server.addr
+    if cmd == "trace":
+        out = str(tmp_path / "t.json")
+        rc, text = _run(cli.main, ["trace", "--rpc", addr, "--out", out,
+                                   "--name", "consensus."], capsys)
+        doc = json.load(open(out))
+        assert rc == 0 and "recorder total=" in text
+        assert any(e["name"] == "consensus.height"
+                   for e in doc["traceEvents"])
+    elif cmd == "doctor":
+        rc, text = _run(cli.main, ["doctor", "--rpc", addr, "--json",
+                                   "--ledger", ""], capsys)
+        assert rc == 0 and json.loads(text)["schema"] == "tpu-bft-doctor/1"
+    else:
+        rc, text = _run(cli.main, ["timeline", "--rpc", f"{addr},{addr}",
+                                   "--json", "--out",
+                                   str(tmp_path / "tl.json")], capsys)
+        doc = json.loads(text)
+        assert rc == 0 and doc["doctor"]["sums_to_wall"]
+        assert len(doc["timeline"]["heights"]) >= 3
+        for row in doc["timeline"]["heights"]:
+            assert sum(row["stages"].values()) == pytest.approx(
+                row["wall_s"], abs=1e-9)
+        assert os.path.exists(tmp_path / "tl.json")
+
+
+def test_commands_refused_without_unsafe(live):
+    """A node without `rpc.unsafe` answers them "unknown method" (HTTP
+    404), and the port's commands fail on it as the JAX ones do."""
+    import urllib.error
+    from tendermint_tpu_torch.rpc.routes import Routes
+    saved = live.rpc_server.routes
+    live.config.rpc.unsafe = False
+    live.rpc_server.routes = Routes(live)
+    try:
+        for cmd in (["trace", "--format", "lines"], ["doctor"],
+                    ["timeline", "--out", ""]):
+            for main in (cli.main, jcli.main):
+                if cmd[0] == "timeline":     # a dead node degrades: rc 1
+                    assert main([*cmd, "--rpc", live.rpc_server.addr]) == 1
+                    continue
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    main([*cmd, "--rpc", live.rpc_server.addr])
+                assert e.value.code == 404
+    finally:
+        live.config.rpc.unsafe = True
+        live.rpc_server.routes = saved

@@ -66,7 +66,16 @@ def test_port_files_found():
             "tendermint_tpu_torch/statesync/__init__.py",
             "tendermint_tpu_torch/statesync/messages.py",
             "tendermint_tpu_torch/statesync/snapshot.py",
-            "tendermint_tpu_torch/statesync/restore.py"} <= rel
+            "tendermint_tpu_torch/statesync/restore.py",
+            "tendermint_tpu_torch/utils/log.py",
+            "tendermint_tpu_torch/utils/metrics.py",
+            "tendermint_tpu_torch/utils/tracing.py",
+            "tendermint_tpu_torch/utils/attribution.py",
+            "tendermint_tpu_torch/utils/ledger.py",
+            "tendermint_tpu_torch/utils/trace.py",
+            "tendermint_tpu_torch/telemetry/__init__.py",
+            "tendermint_tpu_torch/telemetry/collector.py",
+            "tendermint_tpu_torch/telemetry/doctor.py"} <= rel
     native = {p.name for p in (ROOT / "tendermint_tpu_torch" / "native")
               .glob("*.cpp")}
     assert native == {"tmhash.cpp", "ed25519.cpp"}

@@ -3,12 +3,14 @@ JAX package's (`tests/test_node_rpc.py`): both nodes in process on the
 same genesis and validator key (memdb, the golden verifier), every route
 answering with the JAX route's keys, `_block_dict` and `_result_dict`
 equal on the same bytes, the same app hash and query values after the
-same blocks, the supervised ladder's `crypto_supervisor` status, and the
-port's refusals: no card, gRPC and the JAX-only backends."""
+same blocks, the supervised ladder's `crypto_supervisor` status, the
+observability routes (`GET /metrics`, `status.metrics`, the unsafe
+`debug_*` routes) answering as the JAX ones do, and the port's refusals:
+no card, gRPC and the JAX-only backends."""
 
 import json
+import os
 import time
-import urllib.error
 import urllib.request
 
 import pytest
@@ -38,6 +40,7 @@ from tendermint_tpu_torch.types import (GenesisDoc, GenesisValidator,
                                         PrivKey, PrivValidator,
                                         TYPE_PREVOTE, Vote, ZERO_BLOCK_ID)
 from tendermint_tpu_torch.types import events as ev
+from tendermint_tpu_torch.utils import trace
 
 from torch_chains import jax_block
 
@@ -202,26 +205,134 @@ def test_unsafe_routes_gated(node, client):
         node.config.rpc.unsafe = False
 
 
-@pytest.mark.parametrize("method", [
-    "metrics", "debug_trace_start", "debug_trace_stop",
-    "debug_flight_recorder", "debug_timeline", "debug_doctor",
-    "debug_bench_history"])
-def test_observability_routes_answer_unknown_method(node, method):
-    """The JAX package's metrics and tracing routes wait for the port's
-    observability modules: GET and POST both say unknown method, also
-    with rpc.unsafe set."""
+OBSERVABILITY = ["metrics", "debug_trace_start", "debug_trace_stop",
+                 "debug_flight_recorder", "debug_timeline", "debug_doctor",
+                 "debug_bench_history"]
+
+
+def _prom_types(addr: str) -> list:
+    with urllib.request.urlopen(f"{addr}/metrics") as r:
+        assert r.headers["Content-Type"].startswith("text/plain")
+        return [ln for ln in r.read().decode().splitlines()
+                if ln.startswith("# TYPE")]
+
+
+def _unsafe_routes(node, mod):
     node.config.rpc.unsafe = True
     try:
-        srv_routes = node.rpc_server.routes
-        node.rpc_server.routes = Routes(node)
-        with pytest.raises(urllib.error.HTTPError) as e:
-            urllib.request.urlopen(f"{node.rpc_server.addr}/{method}")
-        assert e.value.code == 404
-        with pytest.raises(RPCError, match="unknown method"):
-            HTTPClient(node.rpc_server.addr).call(method)
+        return mod.Routes(node)
     finally:
-        node.rpc_server.routes = srv_routes
         node.config.rpc.unsafe = False
+
+
+@pytest.mark.parametrize("method", OBSERVABILITY)
+def test_observability_routes_match_jax(nodes, method, tmp_path,
+                                        monkeypatch):
+    """`GET /metrics` serves both packages' series; each `debug_*` route
+    is refused without `rpc.unsafe`, as the JAX route is, and with it
+    answers as the JAX route does on the same node state (the same
+    keys; the same values where the answer is not the process's own
+    recorder or clock; the same refusals of a bad name)."""
+    n, jn = nodes
+    if method == "metrics":
+        got, want = (_prom_types(n.rpc_server.addr),
+                     _prom_types(jn.rpc_server.addr))
+        assert got == want and len(got) > 60
+        with urllib.request.urlopen(f"{n.rpc_server.addr}/metrics") as r:
+            text = r.read().decode()
+        assert "tendermint_blocks_committed " in text
+        assert 'crypto_backend="python"' in text
+        return
+    for node, cl in ((n, HTTPClient), (jn, JHTTPClient)):
+        with pytest.raises(Exception, match="unknown method"):
+            cl(node.rpc_server.addr).call(method)
+        assert method not in jroutes.Routes(node).table
+    r, jr = _unsafe_routes(n, routes), _unsafe_routes(jn, jroutes)
+    assert method in r.table and method in jr.table
+    if method == "debug_trace_start":
+        for bad in ("..", "a/b", "x" * 65):
+            with pytest.raises(ValueError) as e:
+                r.debug_trace_start({"name": bad})
+            with pytest.raises(ValueError) as je:
+                jr.debug_trace_start({"name": bad})
+            assert str(e.value) == str(je.value)
+        monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+        got = r.debug_trace_start({"name": "cap"})
+        try:
+            assert got == {"started": True,
+                           "dir": str(tmp_path / routes.TRACE_BASE / "cap")}
+            assert r.debug_trace_start({"name": "cap2"})["started"] is False
+        finally:
+            stopped = r.debug_trace_stop({})
+        assert stopped == {"dir": got["dir"]}
+        assert os.path.exists(os.path.join(got["dir"],
+                                           trace.DEVICE_TRACE_FILE))
+    elif method == "debug_trace_stop":
+        assert r.debug_trace_stop({}) == jr.debug_trace_stop({}) == \
+            {"dir": None}
+    elif method == "debug_flight_recorder":
+        for params in ({}, {"format": "chrome"},
+                       {"name": "consensus.", "last": 3},
+                       {"format": "chrome", "last": 2}):
+            got, want = r.debug_flight_recorder(params), \
+                jr.debug_flight_recorder(params)
+            assert got.keys() == want.keys()
+            assert got["capacity"] == want["capacity"] == 16384
+            body = got.get("spans") or got["trace"]["traceEvents"]
+            assert all("consensus." in s["name"] for s in body
+                       if params.get("name") and s.get("ph") != "M")
+        with pytest.raises(ValueError) as e:
+            r.debug_flight_recorder({"format": "xml"})
+        with pytest.raises(ValueError) as je:
+            jr.debug_flight_recorder({"format": "xml"})
+        assert str(e.value) == str(je.value)
+    elif method == "debug_timeline":
+        assert _wait(lambda: len(n.consensus.lifecycle) >= 2 and
+                     len(jn.consensus.lifecycle) >= 2)
+        got, want = r.debug_timeline({"last": 2}), \
+            jr.debug_timeline({"last": 2})
+        assert _keys(got) == _keys(want)
+        assert got["node"] == want["node"] == n.config.base.moniker
+        assert [rec.keys() for rec in got["records"]] == \
+            [rec.keys() for rec in want["records"]]
+        from tendermint_tpu import telemetry as jtelemetry
+        assert [jtelemetry.normalize_record(rec) for rec in
+                got["records"]] == got["records"]
+    elif method == "debug_doctor":
+        got, want = r.debug_doctor({}), jr.debug_doctor({})
+        assert _keys(got, 3) == _keys(want, 3)
+        assert got["report"]["schema"] == "tpu-bft-doctor/1"
+    else:
+        monkeypatch.chdir(tmp_path)
+        led = [{"timestamp": f"t{i}", "configs": {
+            "config3": {"sigs_per_sec": 100.0 * (i + 1)}}}
+            for i in range(3)]
+        with open(tmp_path / "led.jsonl", "w") as f:
+            for e in led:
+                f.write(json.dumps(e) + "\n")
+        for params in ({"ledger": "led.jsonl"}, {"ledger": "none.jsonl"},
+                       {}):
+            assert r.debug_bench_history(params) == \
+                jr.debug_bench_history(params)
+        for bad in ("../etc/passwd", "a/b.jsonl", "."):
+            with pytest.raises(ValueError) as e:
+                r.debug_bench_history({"ledger": bad})
+            with pytest.raises(ValueError) as je:
+                jr.debug_bench_history({"ledger": bad})
+            assert str(e.value) == str(je.value)
+
+
+def test_node_applies_its_log_level():
+    """The node applies `base.log_level` as the JAX node does."""
+    from tendermint_tpu_torch.utils import log
+    n = _node(base__log_level="consensus:error,*:info")
+    try:
+        assert not log.get_logger("consensus").enabled(log.INFO)
+        assert log.get_logger("p2p").enabled(log.INFO)
+    finally:
+        n.plane.stop()
+        n.mempool.close()
+        log.set_level_spec("info")
 
 
 def test_validators_route_accum_snapshot(node, client):
@@ -256,8 +367,8 @@ def _keys(d, depth: int = 2):
 @pytest.mark.parametrize("method", list(_calls(None, b"")) + ["tx"])
 def test_route_keys_match_jax(nodes, method):
     """Each route answers with the JAX route's keys (two levels deep);
-    `status` without `metrics` (and `crypto_supervisor`, which the JAX
-    node adds only when supervised)."""
+    `status` without `crypto_supervisor`, which the JAX node adds only
+    when supervised."""
     n, jn = nodes
     tx = b"keys-%s=1" % method.encode()
     if method == "tx":
@@ -272,7 +383,7 @@ def test_route_keys_match_jax(nodes, method):
     want = JHTTPClient(jn.rpc_server.addr).call(method, **jparams)
     if method == "status":
         want = {k: v for k, v in want.items()
-                if k not in ("metrics", "crypto_supervisor")}
+                if k != "crypto_supervisor"}
     if method == "net_info":
         assert got == want == {"listening": False, "peers": []}
     assert _keys(got) == _keys(want)
@@ -350,7 +461,9 @@ def test_supervised_status_keys_match_jax(primary):
         n.plane.stop()
         n.mempool.close()
         jcb._current = old
-    want.pop("metrics")
+    # `metrics` to its own keys: the labels under them (rungs, producers)
+    # are what each package's process-wide registry has seen
+    assert _keys(got.pop("metrics"), 1) == _keys(want.pop("metrics"), 1)
     assert _keys(got, 3) == _keys(want, 3)
     sup, jsup = got["crypto_supervisor"], want["crypto_supervisor"]
     assert [r.keys() for r in sup["rungs"]] == \

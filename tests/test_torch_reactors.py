@@ -408,16 +408,20 @@ def test_vote_set_bits_sized_by_the_validator_set():
 
 
 def test_gossip_envelopes_cross_decode():
-    reactor = ConsensusReactor(SimpleNamespace(broadcast_cb=None))
+    from tendermint_tpu_torch.utils import tracing
+    reactor = ConsensusReactor(SimpleNamespace(broadcast_cb=None,
+                                               node_id="node7"))
     vote = _vote(9, 1, 2, 3)
+    t0 = tracing.now_epoch()
     raw = reactor._stamp(M.VoteMessage(vote))
     jmsg = JM.decode_msg(raw)
     assert type(jmsg).__name__ == "StampedMessage"
-    assert jmsg.sent_ts == 0.0 and jmsg.origin == ""
+    assert t0 <= jmsg.sent_ts <= tracing.now_epoch()
+    assert jmsg.origin == "node7"
     assert JM.encode_msg(jmsg.msg) == M.encode_msg(M.VoteMessage(vote))
     assert raw == JM.encode_msg(JM.StampedMessage(
-        JM.decode_msg(M.encode_msg(M.VoteMessage(vote))), sent_ts=0.0,
-        origin=""))
+        JM.decode_msg(M.encode_msg(M.VoteMessage(vote))),
+        sent_ts=jmsg.sent_ts, origin="node7"))
     # a JAX envelope with a send time and an origin decodes in the port
     jraw = JM.encode_msg(JM.StampedMessage(jmsg.msg, sent_ts=1.5e9,
                                            origin="abcd"))
