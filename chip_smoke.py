@@ -132,6 +132,19 @@ Phases, in order; any mismatch or exception exits non-zero:
       path: `cli snapshot create`, `list`, `verify`, `restore` into a
       fresh home (a second refused, a corrupt chunk flagged) and `cli
       node` on the restored home;
+   j. cell F, the fault-scenario engine (`tendermint_tpu_torch/
+      scenarios/`) on its default card backends, every `CudaBackend` it
+      builds a recording one: the catalogue's smoke tier
+      (`device-wrong-answer`, `evidence-flood`, `byz-equivocation`,
+      `device-rung-walk`; the device scenarios' ladders with a CUDA
+      "dev" rung, so the injected wrong answers and raises land on K5
+      and K1), `device-wrong-answer` again on the same seed, `cli chaos
+      run` then `cli chaos replay` as subprocesses,
+      `device-storm-partition` (12 validators, a TCP source at 20,480
+      B/s, raise:every=6 on the CUDA rung, a 4.5 s one-way partition)
+      and `live-rounds-100-chaos` on "cuda-rig" (100 validators on one
+      plane, a 15-node island, two crash-restarts, an equivocator, the
+      ladder walk on the CUDA rung);
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -193,7 +206,18 @@ Phases, in order; any mismatch or exception exits non-zero:
    hashlib, no call of the healthy ladder below cuda, the faulted one
    tripped, served on native and recovered with the same envelopes and
    app state, the tampering and forging sources banned, the restored app
-   hash and the restored node's the source's; log heights per
+   hash and the restored node's the source's; in cell F every scenario
+   passing its invariants within its budgets, the lanes the chaos
+   flipped on the CUDA rung equal to the spot checks' mismatches, the
+   CUDA rungs tripped and recovered, one seed one event-log hash (twice
+   in process, `cli chaos run`'s manifest, `cli chaos replay` MATCH),
+   the storm's source unblamed, the 100-validator mesh at 6 or more
+   heights with evidence and two restarts, its vote bursts pre-verified
+   on K1 while the CUDA rung served and votes taken on the scalar path
+   while the walk held it open (the votes pre-verified while it was
+   open are printed, not checked: the rung's state is read when a vote
+   is accounted, after its burst was pre-verified), every K1, K2 and
+   K5 call equal to the plain version; log heights per
    second, commit latency, rounds, the share
    of received votes pre-verified on K1, scalar verifies, K1 launches
    and lanes, the flush sizes, the thread CPU of scalar verifies,
@@ -1936,7 +1960,7 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 
 FS_BLOCKS = 25_000                      # BASELINE config 3's width cut to
 #                                         25 % of its depth: 40 windows
-FS_PAIR2_BLOCKS = 10_000                # the second pair's depth: 16 windows
+FS_PAIR2_BLOCKS = 5_000                 # the second pair's depth: 8 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
 FS_TIMED_CALLS = 10                     # whole-call timings, each route
@@ -3362,7 +3386,6 @@ def _p2p_switch(chain_id: str, moniker: str, reactors: dict, peers=()):
     """A switch as `node/p2p_setup.build_p2p` makes one: a node key (here
     from the seed), its `NodeInfo` advertising the listen address, the
     reactors in the node's order."""
-    import random
     from tendermint_tpu_torch.p2p import NodeInfo, Switch
     from tendermint_tpu_torch.types import PrivKey
     cfg = _p2p_config(peers)
@@ -3371,7 +3394,7 @@ def _p2p_switch(chain_id: str, moniker: str, reactors: dict, peers=()):
     info = NodeInfo(pub_key=key.pub_key.bytes_, moniker=moniker,
                     network=chain_id, version="0.1.0",
                     listen_addr=cfg.laddr)
-    sw = Switch(key, info, cfg, rng=random.Random(f"{SEED}/{moniker}"))
+    sw = Switch(key, info, cfg, chaos_seed=SEED)
     for name, r in reactors.items():
         sw.add_reactor(name, r)
     return sw
@@ -5582,6 +5605,343 @@ def phase_snapshot_cli(crypto_backend: str = "cuda") -> dict:
         tmp.cleanup()
 
 
+# -- cell F: the fault-scenario engine on the card --------------------------
+
+CHAOS_SEED = 20260806          # the catalogue's DEFAULT_SEED
+CHAOS_CLI_SCENARIO = "device-wrong-answer"    # `cli chaos run` + `replay`
+CHAOS_STORM = "device-storm-partition"
+CHAOS_LIVE = "live-rounds-100-chaos"
+CHAOS_CLI_S = 180.0            # each `cli chaos` process must end by then
+
+
+class _ChaosHooks:
+    """Cell F's instruments, set around the scenario runs and taken off
+    after them: every `CudaBackend` the engine and the bodies build is a
+    recording one (K1 on both routes, K5, and its comb tables: K2), every
+    `SupervisedBackend` built is kept for its rung counters, the lanes a
+    `CryptoChaos` flips are counted, and each consensus state's vote
+    accounting is counted by route (pre-verified on the plane or scalar)
+    and by the state of the newest ladder's first rung at that moment."""
+
+    def __init__(self):
+        import threading
+        import numpy as np
+        from tendermint_tpu_torch.consensus.state import ConsensusState
+        from tendermint_tpu_torch.crypto import backend as bmod
+        from tendermint_tpu_torch.crypto import supervised as smod
+        from tendermint_tpu_torch.utils import chaos as cmod
+        self.backends, self.ladders = [], []
+        self.flipped = 0
+        # (first rung closed, pre-verified) -> votes
+        self.votes = {(c, p): 0 for c in (True, False) for p in (0, 1)}
+        self._lock = threading.Lock()
+        hooks = self
+        self._saved = ((bmod, "CudaBackend", bmod.CudaBackend),
+                       (smod.SupervisedBackend, "__init__",
+                        smod.SupervisedBackend.__init__),
+                       (cmod.CryptoChaos, "corrupt",
+                        cmod.CryptoChaos.corrupt),
+                       (ConsensusState, "_try_add_vote",
+                        ConsensusState._try_add_vote))
+        real_cuda, real_init, real_corrupt, real_add = (
+            s[2] for s in self._saved)
+
+        class RecordingCuda(real_cuda):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.k1 = _K1Recorder(self)
+                self.k5 = _RawRecorder(self)
+                with hooks._lock:
+                    hooks.backends.append(self)
+
+        def init(ladder, *a, **kw):
+            real_init(ladder, *a, **kw)
+            with hooks._lock:
+                hooks.ladders.append(ladder)
+
+        def corrupt(chaos, out):
+            got = real_corrupt(chaos, out)
+            if got is not out:
+                with hooks._lock:
+                    hooks.flipped += int((np.asarray(got) !=
+                                          np.asarray(out)).sum())
+            return got
+
+        def try_add_vote(cs, vote, peer_id, preverified=False, **kw):
+            ladders = hooks.ladders
+            closed = not ladders or ladders[-1]._rungs[0].state == "closed"
+            with hooks._lock:
+                hooks.votes[(closed, int(bool(preverified)))] += 1
+            return real_add(cs, vote, peer_id, preverified=preverified,
+                            **kw)
+
+        bmod.CudaBackend = RecordingCuda
+        smod.SupervisedBackend.__init__ = init
+        cmod.CryptoChaos.corrupt = corrupt
+        ConsensusState._try_add_vote = try_add_vote
+        self.cuda_class = RecordingCuda
+
+    def close(self) -> None:
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+
+def _chaos_run(hooks, name: str, **kw) -> dict:
+    """One scenario through `run_scenario` on its default (card) backend
+    unless `kw` names one: its result, wall, launches per kernel, and the
+    backends and ladders it built.  Fails the smoke on a failed invariant
+    or a budget breach."""
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.scenarios import run_scenario
+    from tendermint_tpu_torch.utils.metrics import REGISTRY
+    nb, nl = len(hooks.backends), len(hooks.ladders)
+    l0 = dict(kernels.LAUNCHES)
+    f0 = hooks.flipped
+    m0 = REGISTRY.crypto_spot_check_mismatches.value
+    t0 = time.perf_counter()
+    r = run_scenario(name, seed=CHAOS_SEED, **kw)
+    wall = time.perf_counter() - t0
+    launches = {KERNEL_KEYS[k]: kernels.LAUNCHES[k] - l0[k]
+                for k in kernels.LAUNCHES}
+    log(f"[cell F] {name} on {r.backend}: {wall:.3f} s, launches "
+        f"{ {k: n for k, n in launches.items() if n} }, event_log_hash "
+        f"{r.event_log_hash}")
+    require(r.ok, f"cell F: {name} failed: {r.failures}")
+    require(not r.budget_breaches,
+            f"cell F: {name} over budget: {r.budget_breaches}")
+    return {"result": r, "wall": wall, "launches": launches,
+            "backends": hooks.backends[nb:], "ladders": hooks.ladders[nl:],
+            "flipped": hooks.flipped - f0,
+            "mismatches": REGISTRY.crypto_spot_check_mismatches.value - m0}
+
+
+def _dev_rung(run: dict, hooks):
+    """The ladder a device scenario's body built, and its first rung's
+    backend, which on the card must be a recording `CudaBackend`."""
+    ladder = run["ladders"][-1]
+    dev = ladder._rungs[0].backend
+    require(isinstance(dev, hooks.cuda_class),
+            f"cell F: {run['result'].name}'s dev rung is {dev!r}")
+    return ladder, dev
+
+
+def _chaos_cli_step(step: str, args: tuple):
+    """Start `python -m tendermint_tpu_torch.cli chaos <args>` as a user
+    starts it; returns a thunk that waits for it (exit 0 required) and
+    returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    p = _cli("chaos", *args, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+             text=True)
+
+    def wait():
+        try:
+            so, se = p.communicate(timeout=CHAOS_CLI_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        require(p.returncode == 0, f"cell F: cli chaos {step} exited "
+                f"{p.returncode}: {so[-2000:]} {se[-2000:]}")
+        return so, time.perf_counter() - t0
+    return wait
+
+
+def _manifest(tmp: str) -> str:
+    import os
+    return os.path.join(tmp, f"{CHAOS_CLI_SCENARIO}-seed{CHAOS_SEED}",
+                        "result.json")
+
+
+def phase_chaos() -> dict:
+    """Cell F: the fault-scenario engine (`tendermint_tpu_torch/
+    scenarios/`) on the card.
+
+    (a) the catalogue's smoke tier in `SMOKE_ORDER` on its default card
+        backend ("cuda"): the hand-built ladders' "dev" rungs are
+        CudaBackends, so the injected wrong answers and raises land on K5
+        and K1 launches; `device-wrong-answer` twice on one seed (same
+        event-log hash), and `cli chaos run` then `cli chaos replay` as
+        subprocesses;
+    (b) `device-storm-partition` at its registered size (12 validators,
+        32 blocks from a TCP source at 20,480 B/s, raise:every=6 on the
+        CUDA rung, a 4.5 s one-way partition);
+    (c) `live-rounds-100-chaos` at its registered size on "cuda-rig":
+        100 validators on one plane, a 15-node island, two crash-restarts,
+        one equivocator, and the ladder walk on the CUDA rung mid-run.
+    Every CudaBackend built is a recording one (`_ChaosHooks`).  The two
+    `cli chaos` processes run beside the in-process scenarios (their
+    start-up, 10-17 s each, is most of their time): `run` beside (a),
+    `replay` beside (b) and (c)."""
+    import tempfile
+    from tendermint_tpu_torch.scenarios import SCENARIOS, SMOKE_ORDER
+    from tendermint_tpu_torch.utils.metrics import REGISTRY
+    hooks = _ChaosHooks()
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chaos-cli-")
+    try:
+        cli_run = _chaos_cli_step("run", (
+            "run", "--scenario", CHAOS_CLI_SCENARIO, "--seed",
+            str(CHAOS_SEED), "--artifacts", tmp.name, "--keep-artifacts"))
+        smoke = {}
+        for name in (n for n in SMOKE_ORDER if n in SCENARIOS):
+            smoke[name] = _chaos_run(hooks, name)
+        again = _chaos_run(hooks, "device-wrong-answer")
+        cli = {"run": cli_run()}
+        with open(_manifest(tmp.name)) as f:
+            cli["manifest"] = json.load(f)
+        cli_replay = _chaos_cli_step("replay", (
+            "replay", "--manifest", _manifest(tmp.name)))
+        storm = _chaos_run(hooks, CHAOS_STORM)
+        votes0 = dict(hooks.votes)
+        r0 = (REGISTRY.vote_microbatches.value,
+              REGISTRY.vote_microbatch_lanes.value)
+        live = _chaos_run(hooks, CHAOS_LIVE)
+        votes = {k: hooks.votes[k] - votes0[k] for k in votes0}
+        micro = (REGISTRY.vote_microbatches.value - r0[0],
+                 REGISTRY.vote_microbatch_lanes.value - r0[1])
+        cli["replay"] = cli_replay()
+    finally:
+        hooks.close()
+        tmp.cleanup()
+    require(f"PASS {CHAOS_CLI_SCENARIO}" in cli["run"][0] and
+            "MATCH" in cli["replay"][0],
+            f"cell F: cli chaos run/replay printed {cli}")
+    return {"smoke": smoke, "again": again, "cli": cli, "storm": storm,
+            "live": live, "votes": votes, "micro": micro, "hooks": hooks,
+            "wall": time.perf_counter() - t0}
+
+
+def check_chaos(ctx: dict, launches: dict) -> None:
+    """Cell F's checks: the wrong answers all caught by the spot checks,
+    the CUDA rungs tripped and recovered, one seed one hash (in process
+    and across `cli chaos run` / `replay`), the storm synced unblamed, the
+    100-validator mesh within its budgets with its vote bursts on K1 while
+    the CUDA rung served; then every K1, K2 and K5 call of every recording
+    backend against the plain version on every lane."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    hooks = ctx["hooks"]
+    wrong = ctx["smoke"]["device-wrong-answer"]
+    ladder, dev = _dev_rung(wrong, hooks)
+    require(wrong["flipped"] > 0 and
+            wrong["mismatches"] == wrong["flipped"],
+            f"cell F (a): chaos flipped {wrong['flipped']} lanes on the "
+            f"CUDA rung, the spot checks caught {wrong['mismatches']}")
+    require(wrong["result"].observations["wrong_answers"] == 0,
+            "cell F (a): a wrong answer was returned")
+    require(len(dev.k5.calls) == ladder.supervisor_status()["rungs"][0][
+        "calls"], "cell F (a): the CUDA rung's calls != its K5 calls")
+    log(f"[cell F] (a) device-wrong-answer: chaos flipped "
+        f"{wrong['flipped']} lanes of {len(dev.k5.calls)} K5 calls on the "
+        f"CUDA rung; spot-check mismatches {wrong['mismatches']}; "
+        f"{_ladder_summary(ladder.supervisor_status())}")
+    require(ctx["again"]["result"].event_log_hash ==
+            wrong["result"].event_log_hash and
+            ctx["again"]["flipped"] == wrong["flipped"],
+            "cell F (a): the same seed gave another event-log hash")
+    cli = ctx["cli"]
+    require(cli["manifest"]["event_log_hash"] ==
+            wrong["result"].event_log_hash and
+            cli["manifest"]["backend"] == "cuda",
+            f"cell F (a): `cli chaos run` hash "
+            f"{cli['manifest']['event_log_hash']} != in-process "
+            f"{wrong['result'].event_log_hash}")
+    log(f"[cell F] (a) one seed, one hash: {wrong['result'].event_log_hash}"
+        f" twice in process and in `cli chaos run` ({cli['run'][1]:.1f} s);"
+        f" `cli chaos replay` MATCH ({cli['replay'][1]:.1f} s)")
+    for name in ("device-rung-walk", CHAOS_STORM):
+        run = ctx["storm"] if name == CHAOS_STORM else ctx["smoke"][name]
+        ladder, dev = _dev_rung(run, hooks)
+        st = ladder.supervisor_status()
+        cuda = st["rungs"][0]
+        require(cuda["trips"] >= 1 and cuda["recoveries"] >= 1 and
+                cuda["state"] == "closed" and st["active_rung"] == "dev" and
+                dev.k1.calls,
+                f"cell F: {name}: the CUDA rung did not trip and recover: "
+                f"{_ladder_summary(st)}")
+        obs = run["result"].observations
+        log(f"[cell F] {name}: synced to {obs['synced_height']}, chain_ok "
+            f"{obs['chain_ok']}; {_ladder_summary(st)}; chaos "
+            f"{st['chaos']}; {len(dev.k1.calls)} K1 and {len(dev.k5.calls)}"
+            f" K5 calls on the CUDA rung")
+    sobs = ctx["storm"]["result"].observations
+    require(not sobs["src_banned"] and sobs["src_score"] == 0.0,
+            "cell F (b): the source was blamed")
+    log(f"[cell F] (b) {CHAOS_STORM}: "
+        f"{sobs['budget_metrics']['sync_blocks_per_sec']} blocks/s after "
+        f"the storm, source unblamed")
+    live = ctx["live"]["result"]
+    obs = live.observations
+    bm = obs["budget_metrics"]
+    require(obs["quorum_height"] >= 6 and obs["evidence_count"] >= 1 and
+            obs["restarts"] == 2, f"cell F (c): {obs}")
+    ladder, dev = _dev_rung(ctx["live"], hooks)
+    require(ladder is ctx["live"]["ladders"][0],
+            "cell F (c): the run's ladder is not cuda-rig's")
+    v = ctx["votes"]
+    on_k1 = v[(True, 1)]
+    total = sum(v.values())
+    require(on_k1 > 0 and v[(False, 0)] > 0,
+            f"cell F (c): votes by (CUDA rung closed, pre-verified) {v}")
+    grouped = [c for c in dev.k1.calls if c[0] == "grouped"]
+    log(f"[cell F] (c) {CHAOS_LIVE} on {live.backend}: quorum height "
+        f"{obs['quorum_height']} in {live.duration_s:.3f} s "
+        f"({obs['quorum_height'] / live.duration_s:.4f} heights/s); "
+        f"commit latency p99 {bm.get('commit_latency_p99')} s, rounds per "
+        f"height {bm['rounds_per_height']}, ladder demotions "
+        f"{bm['ladder_demotions']}, prevote quorum p99 "
+        f"{bm.get('prevote_quorum_p99')} s, gossip fan-out p99 "
+        f"{bm.get('gossip_fanout_p99')} s; {obs['evidence_count']} "
+        f"evidence, {obs['restarts']} restarts; K1 launches "
+        f"{ctx['live']['launches']['K1']} ({len(grouped)} vote bursts, "
+        f"{ctx['micro'][1]} lanes in {ctx['micro'][0]} micro-batches); "
+        f"votes {total}: while the CUDA rung served {v[(True, 1)]} "
+        f"pre-verified on K1, {v[(True, 0)]} scalar; while the walk held "
+        f"it open {v[(False, 1)]} pre-verified, {v[(False, 0)]} scalar; "
+        f"share on K1 {on_k1 / max(1, total):.4f}; "
+        f"{_ladder_summary(ladder.supervisor_status())}")
+    # every kernel call of every recording backend against its plain version
+    t0 = time.perf_counter()
+    k1_lanes = k5_lanes = k2_sets = 0
+    # K2's plain version once over every distinct set's keys (each key's
+    # tables are its own), sliced per set
+    sets = {}
+    for be in hooks.backends:
+        for set_key, (_, _, nv, vp) in be._tables.items():
+            sets.setdefault(set_key, vp[:nv])
+    offs, off = {}, 0
+    for set_key, pubs in sets.items():
+        offs[set_key] = (off, off + len(pubs))
+        off += len(pubs)
+    all_tbl, all_ok = ed.build_neg_comb_plain(torch.cat(list(sets.values())))
+    for be in hooks.backends:
+        checked, bad, _ = _plain_k1(be, be.k1.calls)
+        require(bad == 0, f"cell F: {bad} of {checked} K1 lanes != plain")
+        k1_lanes += checked
+        if be.k5.calls:
+            lanes = [np.concatenate([c[k] for c in be.k5.calls])
+                     for k in range(4)]
+            want = ed.verify_batch_plain(*map(be._t, lanes[:3]),
+                                         ed.base_table(be.device))
+            require(want.cpu().numpy().tolist() == lanes[3].tolist(),
+                    "cell F: a K5 lane != plain")
+            k5_lanes += len(lanes[3])
+        for set_key, (tbl, ok, nv, _) in be._tables.items():
+            lo, hi = offs[set_key]
+            require(torch.equal(tbl[:, :, :nv], all_tbl[:, :, lo:hi]) and
+                    torch.equal(ok[:nv], all_ok[lo:hi]),
+                    f"cell F: K2 != plain at a {nv}-key set")
+            k2_sets += 1
+    require(k1_lanes and k5_lanes and k2_sets,
+            f"cell F: nothing held to plain ({k1_lanes}, {k5_lanes}, "
+            f"{k2_sets})")
+    log(f"[cell F] {len(hooks.backends)} recording CudaBackends: "
+        f"{k1_lanes} K1 lanes, {k5_lanes} K5 lanes and {k2_sets} K2 table "
+        f"sets ({len(sets)} distinct, {off} keys) == plain "
+        f"({time.perf_counter() - t0:.1f} s); launches on the cell's path "
+        f"{launches}; the cell {ctx['wall']:.1f} s")
+
+
 # -- the kernels line ----------------------------------------------------
 
 # Bounds count the operations each function needs, not those of the
@@ -6263,6 +6623,12 @@ def main() -> int:
     check_ladder(healthy, faulty)
     k4_also = statesync_sample(sync)
     log(f"[cell E] cell and checks {time.perf_counter() - t_e:.1f} s")
+    t_f = time.perf_counter()
+    kernels.reset_launches()                # cell F's path starts here
+    chaos_ctx = phase_chaos()
+    cell_f = read_launches("cell F", ("K1", "K2", "K5"))
+    check_chaos(chaos_ctx, cell_f)
+    log(f"[cell F] cell and checks {time.perf_counter() - t_f:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the

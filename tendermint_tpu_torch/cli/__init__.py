@@ -11,11 +11,13 @@ Copy of `tendermint_tpu/cli/__init__.py` with the commands `init`,
 `node` (the supervised-ladder flags among its flags), `testnet`,
 `gen_validator`, `show_validator`, `unsafe_reset_all`, `replay`,
 `replay_console`, `wal-fsck`, `snapshot list | create | verify |
-restore`, `trace`, `doctor`, `timeline`, `bench-history` and `version`.
-`init --warm-crypto` and the `lint`, `chaos` and `probe_upnp` commands
-wait for the modules they drive.  `trace`, `doctor` and `timeline` read
-a node's unsafe RPC routes or a dump, and print what the JAX commands
-print.  The snapshot commands hash
+restore`, `trace`, `doctor`, `timeline`, `bench-history`, `chaos list |
+run | replay` and `version`.  `init --warm-crypto`, `chaos smoke | soak |
+nightly` and the `lint` and `probe_upnp` commands wait for the modules
+they drive.  `chaos run` runs on the card unless `--backend` names a CPU
+backend ("python", "rig", "native"), and reads no environment
+variable.  `trace`, `doctor` and `timeline` read a node's unsafe RPC
+routes or a dump, and print what the JAX commands print.  The snapshot commands hash
 chunks through `make_backend(base.crypto_backend)` (kernel K4 on the
 card), and a persistent kvstore keeps its file in
 `<data dir>/kvstore_app.json`.  `--home` defaults
@@ -715,6 +717,108 @@ def cmd_bench_history(args) -> int:
     return 1 if not entries else 0
 
 
+def _print_scenario_result(result, as_json: bool) -> None:
+    if as_json:
+        print(json.dumps(result.to_dict(), indent=1))
+        return
+    verdict = "PASS" if result.ok else "FAIL"
+    print(f"{verdict} {result.name} seed={result.seed} "
+          f"({result.duration_s:.1f}s) "
+          f"event_log_hash={result.event_log_hash[:16]}")
+    for f in result.failures:
+        print(f"  FAILED {f}")
+    for b in result.budget_breaches:
+        print(f"  OVER-BUDGET {b}")
+    if result.artifact_dir:
+        print(f"  artifacts: {result.artifact_dir}")
+
+
+def cmd_chaos_list(args) -> int:
+    """Catalogue of registered fault scenarios."""
+    from tendermint_tpu_torch.scenarios import SCENARIOS
+    if args.json:
+        print(json.dumps({
+            name: {"description": sc.description,
+                   "tier": "smoke" if sc.smoke else "stress",
+                   "safety": [n for n, _ in sc.safety],
+                   "liveness": [n for n, _ in sc.liveness]}
+            for name, sc in sorted(SCENARIOS.items())}, indent=1))
+        return 0
+    for name, sc in sorted(SCENARIOS.items()):
+        tier = "smoke " if sc.smoke else "stress"
+        print(f"{name:24s} [{tier}] {sc.description}")
+        print(f"{'':24s}  safety: "
+              + ", ".join(n for n, _ in sc.safety))
+        print(f"{'':24s}  liveness: "
+              + ", ".join(n for n, _ in sc.liveness))
+    return 0
+
+
+def cmd_chaos_run(args) -> int:
+    """Run one scenario; exit 0 when every invariant held and the run
+    stayed inside its declared budget.  The same --seed replays the same
+    injected-fault schedule bit-identically (verify with the printed
+    event_log_hash).  With --seed-range A:B the scenario is swept over
+    the half-open seed range instead.  With no --backend the run is on
+    the card (the card twin of the scenario's declared backend)."""
+    from tendermint_tpu_torch.scenarios import (parse_seed_range, run_scenario,
+                                          run_sweep)
+    backend = getattr(args, "backend", "") or None
+    if getattr(args, "seed_range", ""):
+        seeds = parse_seed_range(args.seed_range)
+        out = run_sweep(
+            [args.scenario], seeds,
+            artifacts=args.artifacts or None,
+            keep_artifacts=args.keep_artifacts, ledger_path=None,
+            backend=backend,
+            progress=(None if args.json
+                      else lambda r: _print_scenario_result(r, False)))
+        summary = out["summary"]
+        if args.json:
+            print(json.dumps(summary, indent=1))
+        else:
+            a = summary["configs"][args.scenario]
+            print(f"sweep {args.scenario} seeds {args.seed_range}: "
+                  f"{a['runs'] - a['failures']}/{a['runs']} passed, "
+                  f"{a['breaches']} over budget (mean "
+                  f"{a['mean_duration_s']}s, max {a['max_duration_s']}s, "
+                  f"budget {a['budget_s']}s)")
+        bad = summary["total_failures"] or summary["total_breaches"]
+        return 1 if bad else 0
+    result = run_scenario(args.scenario, seed=args.seed,
+                          artifacts=args.artifacts or None,
+                          keep_artifacts=args.keep_artifacts,
+                          backend=backend)
+    _print_scenario_result(result, args.json)
+    return 0 if result.ok and not result.budget_breaches else 1
+
+
+def cmd_chaos_replay(args) -> int:
+    """Re-run a scenario from a dumped result.json manifest and compare
+    event-log hashes: MATCH means the replayed run injected the exact
+    fault schedule of the original (the seed-replay contract); DIVERGED
+    means the scenario gained nondeterminism and its artifacts can no
+    longer be trusted as reproductions."""
+    from tendermint_tpu_torch.scenarios import run_scenario
+    with open(args.manifest) as f:
+        manifest = json.load(f)
+    name, seed = manifest["scenario"], manifest["seed"]
+    want = manifest["event_log_hash"]
+    # the backend rung is part of the hashed plan: a replay must run on
+    # the SAME rung the original did or the hashes diverge by design
+    result = run_scenario(name, seed=seed,
+                          artifacts=args.artifacts or None,
+                          keep_artifacts=args.keep_artifacts,
+                          backend=manifest.get("backend") or None)
+    _print_scenario_result(result, args.json)
+    if result.event_log_hash == want:
+        print(f"MATCH: replay reproduced event log {want[:16]}")
+        return 0 if result.ok else 1
+    print(f"DIVERGED: original {want[:16]} != replay "
+          f"{result.event_log_hash[:16]} — scenario is nondeterministic")
+    return 1
+
+
 def cmd_version(args) -> int:
     print(__version__)
     return 0
@@ -890,6 +994,55 @@ def main(argv=None) -> int:
     sp.add_argument("--ledger", default="BENCH_LEDGER.jsonl",
                     help="ledger JSONL path (tpu-bft-bench-ledger/1)")
     sp.set_defaults(fn=cmd_bench_history)
+
+    sp = sub.add_parser("chaos",
+                        help="deterministic fault-scenario harness "
+                             "(byzantine votes, partitions, crash "
+                             "storms, device faults)")
+    chaos_sub = sp.add_subparsers(dest="chaos_command", required=True)
+
+    def _chaos_common(csp):
+        from tendermint_tpu_torch.scenarios.engine import (DEFAULT_SEED,
+                                                           KNOWN_BACKENDS)
+        csp.add_argument("--scenario", required=True,
+                         help="scenario name (see `chaos list`)")
+        csp.add_argument("--seed", type=int, default=DEFAULT_SEED,
+                         help="scenario seed; the same seed replays the "
+                              "same fault schedule (default: %(default)s)")
+        csp.add_argument("--backend", choices=list(KNOWN_BACKENDS),
+                         default="",
+                         help="crypto backend for the run (default: the "
+                              "card twin of the scenario's declared one)")
+        csp.add_argument("--artifacts", default="",
+                         help="artifact root (default: ./chaos_artifacts)")
+        csp.add_argument("--keep-artifacts", dest="keep_artifacts",
+                         action="store_true",
+                         help="dump trace/metrics/events/result even on "
+                              "a passing run")
+        csp.add_argument("--json", action="store_true",
+                         help="machine-readable result")
+
+    csp = chaos_sub.add_parser("list", help="catalogue of scenarios")
+    csp.add_argument("--json", action="store_true")
+    csp.set_defaults(fn=cmd_chaos_list)
+
+    csp = chaos_sub.add_parser("run", help="run one scenario")
+    _chaos_common(csp)
+    csp.add_argument("--seed-range", dest="seed_range", default="",
+                     help="sweep a half-open seed range A:B (e.g. 0:25) "
+                          "instead of the single --seed")
+    csp.set_defaults(fn=cmd_chaos_run)
+
+    csp = chaos_sub.add_parser(
+        "replay", help="re-run from a dumped result.json and check the "
+                       "event-log hash matches")
+    csp.add_argument("--manifest", required=True,
+                     help="path to a result.json from a prior run")
+    csp.add_argument("--artifacts", default="")
+    csp.add_argument("--keep-artifacts", dest="keep_artifacts",
+                     action="store_true")
+    csp.add_argument("--json", action="store_true")
+    csp.set_defaults(fn=cmd_chaos_replay)
 
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)

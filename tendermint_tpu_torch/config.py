@@ -66,8 +66,8 @@ class P2PConfig:
     flush_throttle_ms: int = 100
     handshake_timeout_s: float = 20.0
     dial_timeout_s: float = 3.0
-    # the fuzzed connection's profile (`p2p/fuzz.py`, not ported yet: the
-    # port's switch refuses fuzz=True); kept so the sections round-trip
+    # the fuzzed connection's profile (`p2p/fuzz.py`): with fuzz=True the
+    # switch wraps every link in a FuzzedConnection
     fuzz: bool = False
     fuzz_drop_prob: float = 0.05
     fuzz_delay_prob: float = 0.1

@@ -17,8 +17,9 @@ keys on `CudaBackend`), each block's LastCommit at the fast-sync class
 (templated K1).  The height lifecycle of the JAX package's timeline plane
 is kept (`_mark_stage`, `_finish_height`, the `lifecycle` ring,
 `commit_cb`, `node_id` on every record, the gossip lag of stamped
-envelopes), with its flight-recorder spans and metrics; its fail points
-are not ported.
+envelopes), with its flight-recorder spans and metrics, and so are its
+fail points in `_finalize_commit` (`utils/fail.py`, armed by an explicit
+call).
 
 No fallback hides the plane: an error out of a plane verify is a
 `PlaneFault`, which no handler of bad input catches.  It ends the receive
@@ -57,6 +58,7 @@ from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import (ErrVoteConflict, Vote, VoteSet,
                                              batch_verify_vote_sigs)
 from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.fail import fail_point
 from tendermint_tpu_torch.utils.fmt import bits_str
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
@@ -1018,12 +1020,15 @@ class ConsensusState:
         if parts.header != maj.parts:
             raise RuntimeError("finalize: parts header != +2/3 block id")
         execution.validate_block(self.state, block, self._commit_verifier)
+        fail_point("consensus.finalizeCommit.validated")
         if self.block_store.height < block.height:
             seen_commit = self.votes.precommits(
                 self.commit_round).make_commit()
             self.block_store.save_block(block, parts, seen_commit)
+        fail_point("consensus.finalizeCommit.savedBlock")
         if self.wal is not None and not self._replay_mode:
             self.wal.write_end_height(height)
+        fail_point("consensus.finalizeCommit.waledHeight")
 
         state_copy = self.state.copy()
         event_cache = EventCache(self.evsw)
@@ -1034,6 +1039,7 @@ class ConsensusState:
                                   self._commit_verifier,
                                   event_cache=event_cache,
                                   tx_indexer=self.tx_indexer)
+        fail_point("consensus.finalizeCommit.applied")
         event_cache.fire(ev.NEW_BLOCK, block)
         event_cache.fire(ev.NEW_BLOCK_HEADER, block.header)
         REGISTRY.blocks_committed.inc()

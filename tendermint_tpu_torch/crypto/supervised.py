@@ -22,23 +22,27 @@ The port's rules change three things.  The ladder is only ever built by
 its caller (the node builds it when `crypto.supervised` is set), and
 `build()` raises when a rung fails to construct (the JAX `build()` skips
 it with a warning): `build("cuda")` without a card raises rather than
-serving from the native rung.  There is no fault injection
-(`CryptoChaos`) and no `TM_CHAOS_CRYPTO` / `TM_CRYPTO_*` environment
-knob: the knobs are constructor arguments with the JAX defaults, and
-`supervisor_status` keeps `"chaos": None` so its keys match.  Every
-demotion is counted twice: in the rung counters that `supervisor_status`
-reports, and in the JAX package's `crypto_*` metrics (the rung label
-`cuda` where the JAX package writes `tpu`), with a `crypto.call` span
-(no category: the backend's own spans inside it carry them).
+serving from the native rung.  Fault injection is explicit: the ladder
+takes a `CryptoChaos` (`utils/chaos.py`) as `chaos=`, default None for
+none, and injects it into its non-floor rungs (`before_call` before the
+rung's call, `corrupt` after it) as the JAX ladder does; nothing is
+read from `TM_CHAOS_CRYPTO` or an installed chaos config, and there are
+no `TM_CRYPTO_*` environment knobs (the knobs are constructor arguments
+with the JAX defaults).  The node passes no chaos; the scenario engine
+does.  Every demotion is counted twice: in the rung counters that
+`supervisor_status` reports, and in the JAX package's `crypto_*`
+metrics (the rung label `cuda` where the JAX package writes `tpu`),
+with a `crypto.call` span (no category: the backend's own spans inside
+it carry them).
 
 THE INVARIANT: an infrastructure error is never reported as "bad
 signature".  Every verify returns the reference answer (computed on a
-lower rung if need be).  `DeviceFault` leaves the ladder only when its
-floor raises one itself, and none of the port's backends does (the port
-has no fault injector, and a floor's own errors pass unwrapped).  The two
-callers that catch it (the mempool's scalar fallback and the light
-client's one retry) keep the JAX package's contract all the same: they
-run for a caller's backend that raises it, and treat it as retryable —
+lower rung if need be).  `DeviceFault` (defined in `utils/chaos.py`,
+re-exported here) leaves the ladder only when its floor raises one
+itself, and none of the port's backends does (chaos never reaches the
+floor, and a floor's own errors pass unwrapped).  The two callers that
+catch it (the mempool's scalar fallback and the light client's one
+retry) keep the JAX package's contract: they treat it as retryable —
 never as peer misbehavior.
 """
 
@@ -53,6 +57,7 @@ import numpy as np
 
 from tendermint_tpu_torch.crypto import pure_ed25519 as _ref
 from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils.chaos import CryptoChaos, DeviceFault
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
@@ -63,14 +68,6 @@ CLOSED, HALF_OPEN, OPEN = "closed", "half-open", "open"
 
 # ladder order: fastest rung first, golden reference floor last
 LADDER_ORDER = ("cuda", "native", "python")
-
-
-class DeviceFault(RuntimeError):
-    """A crypto device rung failed (error, timeout or spot-check mismatch)
-    — infrastructure, never a bad signature.  Its base makes it a fault of
-    this node for `p2p.connection.is_node_fault`: the peer that sent the
-    message is neither dropped nor blamed.  `CudaBackend` never raises it
-    itself; only the supervisor does."""
 
 
 class _Rung:
@@ -133,12 +130,13 @@ class SupervisedBackend:
                  breaker_cooldown_s: float = 30.0,
                  call_timeout_s: float = 60.0,
                  retries: int = 1,
-                 spot_check_every: int = 0):
+                 spot_check_every: int = 0,
+                 chaos: CryptoChaos | None = None):
         if not rungs:
             raise ValueError("supervised backend needs at least one rung")
         # only non-floor rungs are supervised as "devices": the last rung
-        # is the trusted floor — no timeout thread, and its exceptions
-        # (structural errors like set_key misuse) propagate
+        # is the trusted floor — no timeout thread, no chaos, and its
+        # exceptions (structural errors like set_key misuse) propagate
         self._rungs = [_Rung(n, b, i < len(rungs) - 1)
                        for i, (n, b) in enumerate(rungs)]
         self.breaker_threshold = max(1, breaker_threshold)
@@ -146,6 +144,8 @@ class SupervisedBackend:
         self.call_timeout_s = call_timeout_s
         self.retries = max(0, retries)
         self.spot_check_every = max(0, spot_check_every)
+        # injected device faults (None: none); see utils/chaos.py
+        self.chaos = chaos
         self._lock = threading.Lock()
         self._spot_count = 0
         # timeout enforcement: the rung call runs on a worker and we wait
@@ -229,11 +229,21 @@ class SupervisedBackend:
 
     # -- invocation -----------------------------------------------------
     def _invoke(self, rung: _Rung, method: str, args: tuple):
-        """One attempt on one rung: timeout enforcement, latency
-        accounting.  Any exception or timeout from a device rung is
-        normalized to DeviceFault; floor-rung exceptions propagate (they
-        are caller bugs, not infrastructure)."""
+        """One attempt on one rung: chaos injection, timeout enforcement,
+        latency accounting.  Any exception or timeout from a device rung
+        is normalized to DeviceFault; floor-rung exceptions propagate
+        (they are caller bugs, not infrastructure)."""
         fn = _rung_fn(rung.backend, method)
+        chaos = self.chaos if rung.is_device else None
+
+        def run():
+            if chaos is not None:
+                chaos.before_call()
+            out = fn(*args)
+            if chaos is not None:
+                out = chaos.corrupt(out)
+            return out
+
         t0 = time.perf_counter()
         rung.calls += 1
         REGISTRY.crypto_rung_calls.labels(rung.name).inc()
@@ -242,11 +252,11 @@ class SupervisedBackend:
         with tracing.span("crypto.call", cat=tracing.CAT_NONE,
                           rung=rung.name, method=method):
             if not rung.is_device:
-                out = fn(*args)
+                out = run()
             else:
                 try:
                     if self.call_timeout_s > 0:
-                        fut = self._pool.submit(fn, *args)
+                        fut = self._pool.submit(run)
                         try:
                             out = fut.result(timeout=self.call_timeout_s)
                         except FutureTimeout:
@@ -255,7 +265,7 @@ class SupervisedBackend:
                                 f"{rung.name}.{method} exceeded the "
                                 f"{self.call_timeout_s}s call timeout")
                     else:
-                        out = fn(*args)
+                        out = run()
                 except DeviceFault:
                     raise
                 except Exception as e:
@@ -392,8 +402,16 @@ class SupervisedBackend:
     def _invoke_async_dispatch(self, rung: _Rung, fn, args, real_n):
         """Dispatch half of the async path (can block on table builds, so
         it gets the same timeout + fault normalization as a sync call)."""
+        chaos = self.chaos if rung.is_device else None
+
         def run():
-            return fn(*args, real_n=real_n)
+            if chaos is not None:
+                chaos.before_call()
+            collect = fn(*args, real_n=real_n)
+            if chaos is not None:
+                inner = collect
+                return lambda: chaos.corrupt(inner())
+            return collect
 
         rung.calls += 1
         REGISTRY.crypto_rung_calls.labels(rung.name).inc()
@@ -481,7 +499,9 @@ class SupervisedBackend:
             "call_timeout_s": self.call_timeout_s,
             "retries": self.retries,
             "spot_check_every": self.spot_check_every,
-            "chaos": None,
+            "chaos": (f"{self.chaos.mode}:every={self.chaos.every}"
+                      if self.chaos is not None and self.chaos.active
+                      else None),
             "rungs": rungs,
         }
 

@@ -8,11 +8,15 @@ persistent peers reconnect with exponential backoff (`:402-434`);
 test suite builds multi-node consensus on.
 
 Copy of `tendermint_tpu/p2p/switch.py` (its peer, reconnect and eviction
-metrics kept) without the lock witness and chaos: the reconnect jitter
-draws from the `random.Random` passed as `rng` (by default one seeded
-with the node id, where the JAX switch derives its seed from the
-installed chaos config), and fuzzed connections
-(`p2p/fuzz.py`) are not ported, so `config.fuzz` is refused.  A fault of
+metrics kept) without the lock witness.  Seeds come from the caller, not
+from an installed chaos config: the reconnect jitter draws from a
+`random.Random` seeded with `derive_seed(chaos_seed, "p2p.reconnect",
+node id)`, and with
+`config.fuzz` the i-th link this switch wraps in a `FuzzedConnection`
+(`p2p/fuzz.py`) is seeded with `derive_seed(chaos_seed, "p2p.fuzz",
+str(i))` from the switch's own link counter (the JAX package counts
+links process-wide).  `chaos_seed` defaults to 0, as the JAX package's
+seed is without an installed config.  A fault of
 this node on a well-formed message (a device or plane fault out of a
 reactor's `receive`, see `connection.py`) is kept as `fault`, blames no
 peer, and
@@ -28,10 +32,12 @@ import time
 
 from tendermint_tpu_torch.p2p import transport
 from tendermint_tpu_torch.p2p.connection import MConnection
+from tendermint_tpu_torch.p2p.fuzz import FuzzedConnection, derived_seed
 from tendermint_tpu_torch.p2p.peer import Peer, Reactor
 from tendermint_tpu_torch.p2p.secret import SecretConnection
 from tendermint_tpu_torch.p2p.types import NetAddress, NodeInfo
 from tendermint_tpu_torch.types.keys import PrivKey
+from tendermint_tpu_torch.utils import chaos as chaosmod
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
@@ -74,9 +80,7 @@ class SwitchError(Exception):
 
 class Switch:
     def __init__(self, node_key: PrivKey, node_info: NodeInfo, config=None,
-                 rng: random.Random | None = None):
-        if config is not None and config.fuzz:
-            raise SwitchError("fuzzed connections are not ported")
+                 chaos_seed: int = 0):
         self.node_key = node_key
         self.node_info = node_info
         self.config = config
@@ -97,11 +101,14 @@ class Switch:
         self._misbehavior: dict[str, float] = {}
         self._banned: dict[str, float] = {}      # id -> monotonic expiry
         self._ban_lock = threading.Lock()
-        # reconnect jitter RNG: the caller's, or one seeded with our node
-        # id, so distinct nodes de-correlate and a run can be replayed
-        self._reconnect_rng = (rng if rng is not None
-                               else random.Random(self.node_info.id))
+        # reconnect jitter RNG derived from the chaos seed + our node
+        # id, so scenario runs replay the exact backoff schedule while
+        # distinct nodes still de-correlate
+        self.chaos_seed = chaos_seed
+        self._reconnect_rng = random.Random(chaosmod.derive_seed(
+            chaos_seed, "p2p.reconnect", self.node_info.id))
         self._rng_lock = threading.Lock()
+        self._fuzz_links = 0         # links wrapped so far (fuzz seeds)
         self._sleep = time.sleep     # fake-clock hook for reconnect tests
         # the first fault of this node on a peer's well-formed message
         # (a reactor's `receive` raised); `stop()` raises it
@@ -411,7 +418,18 @@ class Switch:
     def add_peer_from_conn(self, raw_conn, outbound: bool,
                            persistent: bool = False) -> Peer | None:
         cfg = self.config
-        conn = SecretConnection(raw_conn, self.node_key)
+        conn = raw_conn
+        if cfg is not None and cfg.fuzz:
+            with self._rng_lock:
+                index = self._fuzz_links
+                self._fuzz_links += 1
+            conn = FuzzedConnection(
+                conn,
+                drop_prob=cfg.fuzz_drop_prob,
+                delay_prob=cfg.fuzz_delay_prob,
+                max_delay=cfg.fuzz_max_delay,
+                seed=derived_seed(index, self.chaos_seed))
+        conn = SecretConnection(conn, self.node_key)
         info = self._handshake(conn)
         if info.pub_key != conn.remote_pub_key:
             raise SwitchError("node info pubkey != authenticated conn key")
@@ -539,11 +557,12 @@ class Switch:
 # ---------------------------------------------------------------------------
 
 def make_switch(network: str, reactors: dict[str, Reactor] | None = None,
-                config=None, moniker: str = "test") -> Switch:
+                config=None, moniker: str = "test",
+                chaos_seed: int = 0) -> Switch:
     key = PrivKey.generate()
     info = NodeInfo(pub_key=key.pub_key.bytes_, moniker=moniker,
                     network=network, version="0.1.0", listen_addr="")
-    sw = Switch(key, info, config)
+    sw = Switch(key, info, config, chaos_seed=chaos_seed)
     for name, r in (reactors or {}).items():
         sw.add_reactor(name, r)
     return sw

@@ -5,8 +5,9 @@ Copy of `tendermint_tpu/state/execution.py` (reference
 (`:43-115`), `ApplyBlock` (`:210-245`) and its window form,
 `CommitStateUpdateMempool` (`:248-271`) and `ExecCommitBlock`
 (`:291-308`).  `apply_block` fires per-tx events into the consensus
-state's event cache and indexes txs when given an indexer; fail points
-are not ported.
+state's event cache and indexes txs when given an indexer.  Both apply
+paths pass the JAX package's fail points (`utils/fail.py`) in the same
+order.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from tendermint_tpu_torch.state.state import ABCIResponses, State
 from tendermint_tpu_torch.types import BlockID
 from tendermint_tpu_torch.types.events import event_tx
 from tendermint_tpu_torch.types.tx import Tx
+from tendermint_tpu_torch.utils.fail import fail_point
 
 
 class MockMempool:
@@ -103,14 +105,18 @@ def apply_block(state: State, proxy_consensus, block, part_set_header,
     beforehand, as fast-sync does).  Tx events go to `event_cache` and
     results to `tx_indexer` when given."""
     validate_block(state, block, backend)
+    fail_point("ApplyBlock.validated")
     resp = exec_block_on_app(proxy_consensus, block, event_cache)
+    fail_point("ApplyBlock.executed")
     if tx_indexer is not None:
         tx_indexer.index_block(block, resp)
     state.save_abci_responses(resp)
+    fail_point("ApplyBlock.savedResponses")
     block_id = BlockID(hash=block.hash(), parts=part_set_header)
     state.set_block_and_validators(block.header, block_id,
                                    resp.end_block_diffs)
     commit_state_update_mempool(state, proxy_consensus, block, mempool)
+    fail_point("ApplyBlock.committed")
     state.save()
     return state
 
@@ -140,12 +146,16 @@ def apply_window(state: State, proxy_consensus, items, mempool,
             if before_block is not None:
                 before_block(block, psh)
             validate_block(state, block)
+            fail_point("ApplyBlock.validated")
             resp = exec_block_on_app(app, block)
+            fail_point("ApplyBlock.executed")
             state.save_abci_responses(resp)
+            fail_point("ApplyBlock.savedResponses")
             block_id = BlockID(hash=block.hash(), parts=psh)
             state.set_block_and_validators(block.header, block_id,
                                            resp.end_block_diffs)
             commit_state_update_mempool(state, app, block, mempool)
+            fail_point("ApplyBlock.committed")
             applied += 1
             if save_every and applied % save_every == 0:
                 state.save()

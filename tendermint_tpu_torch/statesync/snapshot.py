@@ -36,7 +36,8 @@ through the host tree (`types.merkle`).
 The JAX version's peek at the installed backend, its
 `TM_SNAPSHOT_DEVICE_HASH` switch and its `except Exception` host fallback
 are gone: with no backend the host loop hashes, and a failed launch
-raises.  No fail points; the JAX chunk and snapshot metrics are kept.
+raises.  The JAX chunk and snapshot metrics and its two fail points
+(`utils/fail.py`) are kept.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import numpy as np
 
 from tendermint_tpu_torch.crypto.backend import leaf_hasher
 from tendermint_tpu_torch.types import merkle as hmerkle
+from tendermint_tpu_torch.utils.fail import fail_point
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
@@ -260,6 +262,8 @@ class SnapshotStore:
                 f.write(chunk)
                 f.flush()
                 os.fsync(f.fileno())
+            fail_point("Snapshot.chunkWritten")
+        fail_point("Snapshot.chunksWritten")
         tmp = os.path.join(sdir, MANIFEST_NAME + ".tmp")
         with open(tmp, "wb") as f:
             f.write(manifest.encode_json())

@@ -75,7 +75,17 @@ def test_port_files_found():
             "tendermint_tpu_torch/utils/trace.py",
             "tendermint_tpu_torch/telemetry/__init__.py",
             "tendermint_tpu_torch/telemetry/collector.py",
-            "tendermint_tpu_torch/telemetry/doctor.py"} <= rel
+            "tendermint_tpu_torch/telemetry/doctor.py",
+            "tendermint_tpu_torch/utils/chaos.py",
+            "tendermint_tpu_torch/utils/fail.py",
+            "tendermint_tpu_torch/p2p/fuzz.py",
+            "tendermint_tpu_torch/scenarios/__init__.py",
+            "tendermint_tpu_torch/scenarios/engine.py",
+            "tendermint_tpu_torch/scenarios/invariants.py",
+            "tendermint_tpu_torch/scenarios/injectors.py",
+            "tendermint_tpu_torch/scenarios/harness.py",
+            "tendermint_tpu_torch/scenarios/catalog.py",
+            "tendermint_tpu_torch/scenarios/live.py"} <= rel
     native = {p.name for p in (ROOT / "tendermint_tpu_torch" / "native")
               .glob("*.cpp")}
     assert native == {"tmhash.cpp", "ed25519.cpp"}

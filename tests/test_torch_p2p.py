@@ -487,8 +487,26 @@ def test_switch_refuses_fuzzed_connections_and_takes_the_jax_defaults():
     key = PrivKey(b"\x01" * 32)
     info = NodeInfo(pub_key=key.pub_key.bytes_, moniker="f", network=CHAIN,
                     version="0.1.0", listen_addr="")
-    with pytest.raises(SwitchError, match="fuzzed"):
-        Switch(key, info, cfg)
+    # since the fuzzed connection is ported the switch no longer refuses
+    # `fuzz`: it wraps each link, seeded from its chaos seed (no drops
+    # here, so the handshake goes through)
+    from tendermint_tpu_torch.p2p.fuzz import FuzzedConnection
+    cfg.laddr = ""
+    cfg.fuzz_drop_prob = 0.0
+    sw = Switch(key, info, cfg, chaos_seed=5)
+    peer = make_switch(CHAIN, {})
+    sw.start(); peer.start()
+    try:
+        connect_switches(sw, peer)
+        (link,) = [p.mconn.conn._conn for p in sw.peers()]
+        assert isinstance(link, FuzzedConnection)
+        from tendermint_tpu_torch.utils.chaos import derive_seed
+        assert link.seed == derive_seed(5, "p2p.fuzz", "0")
+        assert (link.write_drop_prob, link.write_delay_prob,
+                link.max_delay) == (cfg.fuzz_drop_prob, cfg.fuzz_delay_prob,
+                                    cfg.fuzz_max_delay)
+    finally:
+        sw.stop(); peer.stop()
 
 
 def test_switch_over_tcp_on_loopback():
@@ -499,8 +517,7 @@ def test_switch_over_tcp_on_loopback():
     key = PrivKey(b"\x02" * 32)
     a = Switch(key, NodeInfo(pub_key=key.pub_key.bytes_, moniker="a",
                              network=CHAIN, version="0.1.0",
-                             listen_addr=cfg.laddr), cfg,
-               rng=random.Random(1))
+                             listen_addr=cfg.laddr), cfg, chaos_seed=1)
     a.add_reactor("r", PortRecorder())
     a.start()
     cfg_b = P2PConfig()
