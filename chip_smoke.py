@@ -50,11 +50,11 @@ Phases, in order; any mismatch or exception exits non-zero:
       shard) and one of its windows through that backend's
       `verify_grouped` with the messages assembled on the host (K1 with
       per-lane keys and messages per shard);
-   d. BASELINE config 3's width, 100 validators, at 25,000 of its
+   d. BASELINE config 3's width, 100 validators, at 10,000 of its
       100,000 blocks (fixture signed by K3): `replay_pipelined` with a
       `BlockStore` on `MemDB`, then two pairs of `replay_pipelined`
       without a store and the serial `replay` (the second pair on the
-      first 10,000 blocks),
+      first 5,000 blocks),
       each on a fresh state and under `torch.profiler`'s CUDA
       activity (blocks/s, sigs/s, stage times, each stage's busy seconds,
       K1 launches, device-idle share); the first pipelined run without a
@@ -134,17 +134,26 @@ Phases, in order; any mismatch or exception exits non-zero:
       node` on the restored home;
    j. cell F, the fault-scenario engine (`tendermint_tpu_torch/
       scenarios/`) on its default card backends, every `CudaBackend` it
-      builds a recording one: the catalogue's smoke tier
-      (`device-wrong-answer`, `evidence-flood`, `byz-equivocation`,
-      `device-rung-walk`; the device scenarios' ladders with a CUDA
-      "dev" rung, so the injected wrong answers and raises land on K5
-      and K1), `device-wrong-answer` again on the same seed, `cli chaos
-      run` then `cli chaos replay` as subprocesses,
+      builds a recording one: the smoke tier (`device-wrong-answer`,
+      `evidence-flood`, `byz-equivocation`, `device-rung-walk`, the
+      device scenarios' ladders with a CUDA "dev" rung, so the injected
+      wrong answers and raises land on K5 and K1; `snapshot-torn-tail`,
+      its chunks hashed on the run's backend; `batchplane-isolation` on
+      K1 through one `BatchPlane`; `eviction-storm`, its signed txs on K5
+      through `check_tx`), `device-wrong-answer` again on the same
+      seed, `cli chaos run` then `cli chaos replay` and `cli chaos
+      smoke` (each smoke scenario's second run) as subprocesses,
       `device-storm-partition` (12 validators, a TCP source at 20,480
       B/s, raise:every=6 on the CUDA rung, a 4.5 s one-way partition)
       and `live-rounds-100-chaos` on "cuda-rig" (100 validators on one
       plane, a 15-node island, two crash-restarts, an equivocator, the
       ladder walk on the CUDA rung);
+   k. gRPC: `grpc: present <version>` or `grpc: absent` printed; with
+      grpcio one validator `Node` with `rpc.grpc_laddr` answers `Ping`
+      and `BroadcastTx` of signed and forged envelopes (`check_tx` on
+      K5), and a chain is applied through a grpc:// kvstore app (each
+      LastCommit on K1); without it the node and a grpc:// app refuse at
+      start;
 4. check that a tampered signature is rejected at the right height and
    lane, sample the roots and part sets against the host's, count the
    host-to-device copies of a `roots` call (one at a new n, none after)
@@ -210,14 +219,20 @@ Phases, in order; any mismatch or exception exits non-zero:
    passing its invariants within its budgets, the lanes the chaos
    flipped on the CUDA rung equal to the spot checks' mismatches, the
    CUDA rungs tripped and recovered, one seed one event-log hash (twice
-   in process, `cli chaos run`'s manifest, `cli chaos replay` MATCH),
+   in process, `cli chaos run`'s manifest, `cli chaos replay` MATCH,
+   `cli chaos smoke`'s seven with no skip), the torn snapshot discarded
+   and the restore from the intact one, the two producers coalesced,
    the storm's source unblamed, the 100-validator mesh at 6 or more
    heights with evidence and two restarts, its vote bursts pre-verified
    on K1 while the CUDA rung served and votes taken on the scalar path
    while the walk held it open (the votes pre-verified while it was
    open are printed, not checked: the rung's state is read when a vote
-   is accounted, after its burst was pre-verified), every K1, K2 and
-   K5 call equal to the plain version; log heights per
+   is accounted, after its burst was pre-verified), every K1, K2, K4
+   and K5 call equal to the plain version; in the gRPC phase every
+   signed envelope committed and every forged one refused with
+   ERR_BAD_SIG, every K1 and K5 call equal to the plain version and the
+   grpc:// chain's app hashes the host kvstore's (or, without grpcio,
+   both refusals naming it); log heights per
    second, commit latency, rounds, the share
    of received votes pre-verified on K1, scalar verifies, K1 launches
    and lanes, the flush sizes, the thread CPU of scalar verifies,
@@ -251,6 +266,10 @@ Phases, in order; any mismatch or exception exits non-zero:
 
 The last line printed is {"ok": true, "device": {...}}.  With no CUDA
 device, or outside the repository, it exits non-zero and prints no result.
+
+`python3 chip_smoke.py --stress-tier` runs, instead of the smoke, the
+stress scenarios of the state-sync, batch-plane and mempool tiers
+through `cli chaos soak` in process, on recording backends (`stress_tier`).
 """
 
 from __future__ import annotations
@@ -1958,8 +1977,8 @@ def check_mesh(rp_ctx: dict, mk_ctx: dict, mesh_in: dict, ctx: dict) -> None:
 
 # -- the main path: pipelined fast-sync at BASELINE config 3's scale -------
 
-FS_BLOCKS = 25_000                      # BASELINE config 3's width cut to
-#                                         25 % of its depth: 40 windows
+FS_BLOCKS = 10_000                      # BASELINE config 3's width cut to
+#                                         10 % of its depth: 16 windows
 FS_PAIR2_BLOCKS = 5_000                 # the second pair's depth: 8 windows
 FS_STOP, FS_SHORT = 1000, 1500          # the restart check: stop, chain
 FS_SAMPLE = 16                          # stored blocks decoded and checked
@@ -3310,7 +3329,7 @@ def consensus_kernel_rows(cs_ctx: dict, consensus: dict) -> list:
 
 P2P_LADDR = "tcp://127.0.0.1:0"          # the port's nets listen on loopback
 P2P_A_VALS, P2P_A_BLOCKS = 4, 1000       # BASELINE config 1's testnet
-P2P_A_MORE, P2P_A_FOLLOW = 10, 3         # heights before the joiner dials,
+P2P_A_MORE, P2P_A_FOLLOW = 6, 3          # heights before the joiner dials,
 #                                          and after it switches
 P2P_A_SIGNED, P2P_A_FORGED = 300, 16     # envelope txs submitted to node 0
 P2P_A_FORGE_AT = 3                       # the forged vote, heights past tip
@@ -4646,6 +4665,25 @@ class _RawRecorder:
         be.verify_batch = recorded
 
 
+class _K4Recorder:
+    """Wraps a backend's batched Merkle leaf hashing (`leaf_hashes`: K4 on
+    `CudaBackend`) to keep each call's rows and hashes."""
+
+    def __init__(self, be):
+        import threading
+        import numpy as np
+        self.calls = []
+        lock, route = threading.Lock(), be.leaf_hashes
+
+        def recorded(chunks):
+            out = route(chunks)
+            if len(out):
+                with lock:
+                    self.calls.append((np.array(chunks), np.array(out)))
+            return out
+        be.leaf_hashes = recorded
+
+
 def _node_home(root: str):
     """A one-validator home as `cli init` writes it, from the seed."""
     import os
@@ -5612,12 +5650,14 @@ CHAOS_CLI_SCENARIO = "device-wrong-answer"    # `cli chaos run` + `replay`
 CHAOS_STORM = "device-storm-partition"
 CHAOS_LIVE = "live-rounds-100-chaos"
 CHAOS_CLI_S = 180.0            # each `cli chaos` process must end by then
+CHAOS_AGAIN = ("device-wrong-answer",)   # run twice in process
+CHAOS_SMOKE_BUDGET = 600.0     # `cli chaos smoke --budget`: no skip under it
 
 
 class _ChaosHooks:
     """Cell F's instruments, set around the scenario runs and taken off
     after them: every `CudaBackend` the engine and the bodies build is a
-    recording one (K1 on both routes, K5, and its comb tables: K2), every
+    recording one (K1 on both routes, K5, K4 and its comb tables: K2), every
     `SupervisedBackend` built is kept for its rung counters, the lanes a
     `CryptoChaos` flips are counted, and each consensus state's vote
     accounting is counted by route (pre-verified on the plane or scalar)
@@ -5651,6 +5691,7 @@ class _ChaosHooks:
                 super().__init__(*a, **kw)
                 self.k1 = _K1Recorder(self)
                 self.k5 = _RawRecorder(self)
+                self.k4 = _K4Recorder(self)
                 with hooks._lock:
                     hooks.backends.append(self)
 
@@ -5703,8 +5744,10 @@ def _chaos_run(hooks, name: str, **kw) -> dict:
     wall = time.perf_counter() - t0
     launches = {KERNEL_KEYS[k]: kernels.LAUNCHES[k] - l0[k]
                 for k in kernels.LAUNCHES}
-    log(f"[cell F] {name} on {r.backend}: {wall:.3f} s, launches "
-        f"{ {k: n for k, n in launches.items() if n} }, event_log_hash "
+    log(f"[cell F] {name} on {r.backend}: "
+        f"{'PASS' if r.ok and not r.budget_breaches else 'FAIL'} in "
+        f"{wall:.3f} s, launches K1 {launches['K1']} K4 {launches['K4']} K5 "
+        f"{launches['K5']} (all {launches}), event_log_hash "
         f"{r.event_log_hash}")
     require(r.ok, f"cell F: {name} failed: {r.failures}")
     require(not r.budget_breaches,
@@ -5755,11 +5798,17 @@ def phase_chaos() -> dict:
     """Cell F: the fault-scenario engine (`tendermint_tpu_torch/
     scenarios/`) on the card.
 
-    (a) the catalogue's smoke tier in `SMOKE_ORDER` on its default card
-        backend ("cuda"): the hand-built ladders' "dev" rungs are
-        CudaBackends, so the injected wrong answers and raises land on K5
-        and K1 launches; `device-wrong-answer` twice on one seed (same
-        event-log hash), and `cli chaos run` then `cli chaos replay` as
+    (a) the smoke tier in `SMOKE_ORDER` on its default card backend
+        ("cuda"): the catalogue's four (the hand-built ladders' "dev"
+        rungs are CudaBackends, so the injected wrong answers and raises
+        land on K5 and K1 launches), then `snapshot-torn-tail` (a crash at
+        a seed-chosen snapshot fail point, chunks hashed on the run's
+        backend), `batchplane-isolation` (two paced producers through one
+        `BatchPlane`: grouped K1) and `eviction-storm` (a capped pool's
+        signed txs through `check_tx`: K5); `device-wrong-answer` twice on
+        one seed in process, and every smoke scenario again in `cli chaos
+        smoke` (same event-log hashes),
+        `cli chaos run` then `cli chaos replay`, and `cli chaos smoke`, as
         subprocesses;
     (b) `device-storm-partition` at its registered size (12 validators,
         32 blocks from a TCP source at 20,480 B/s, raise:every=6 on the
@@ -5767,24 +5816,29 @@ def phase_chaos() -> dict:
     (c) `live-rounds-100-chaos` at its registered size on "cuda-rig":
         100 validators on one plane, a 15-node island, two crash-restarts,
         one equivocator, and the ladder walk on the CUDA rung mid-run.
-    Every CudaBackend built is a recording one (`_ChaosHooks`).  The two
+    Every CudaBackend built is a recording one (`_ChaosHooks`).  The three
     `cli chaos` processes run beside the in-process scenarios (their
-    start-up, 10-17 s each, is most of their time): `run` beside (a),
-    `replay` beside (b) and (c)."""
+    start-up, 10-17 s each, is a large part of their time): `run` and
+    `smoke` beside (a), `replay` beside (b) and (c)."""
     import tempfile
     from tendermint_tpu_torch.scenarios import SCENARIOS, SMOKE_ORDER
     from tendermint_tpu_torch.utils.metrics import REGISTRY
     hooks = _ChaosHooks()
     t0 = time.perf_counter()
     tmp = tempfile.TemporaryDirectory(prefix="chaos-cli-")
+    smoke_dir = tempfile.TemporaryDirectory(prefix="chaos-smoke-")
     try:
         cli_run = _chaos_cli_step("run", (
             "run", "--scenario", CHAOS_CLI_SCENARIO, "--seed",
             str(CHAOS_SEED), "--artifacts", tmp.name, "--keep-artifacts"))
+        cli_smoke = _chaos_cli_step("smoke", (
+            "smoke", "--seed", str(CHAOS_SEED), "--budget",
+            str(CHAOS_SMOKE_BUDGET), "--artifacts", smoke_dir.name,
+            "--keep-artifacts"))
         smoke = {}
         for name in (n for n in SMOKE_ORDER if n in SCENARIOS):
             smoke[name] = _chaos_run(hooks, name)
-        again = _chaos_run(hooks, "device-wrong-answer")
+        again = {name: _chaos_run(hooks, name) for name in CHAOS_AGAIN}
         cli = {"run": cli_run()}
         with open(_manifest(tmp.name)) as f:
             cli["manifest"] = json.load(f)
@@ -5799,9 +5853,12 @@ def phase_chaos() -> dict:
         micro = (REGISTRY.vote_microbatches.value - r0[0],
                  REGISTRY.vote_microbatch_lanes.value - r0[1])
         cli["replay"] = cli_replay()
+        cli["smoke"] = cli_smoke()
+        cli["smoke_hashes"] = _smoke_hashes(smoke_dir.name, smoke)
     finally:
         hooks.close()
         tmp.cleanup()
+        smoke_dir.cleanup()
     require(f"PASS {CHAOS_CLI_SCENARIO}" in cli["run"][0] and
             "MATCH" in cli["replay"][0],
             f"cell F: cli chaos run/replay printed {cli}")
@@ -5810,16 +5867,28 @@ def phase_chaos() -> dict:
             "wall": time.perf_counter() - t0}
 
 
+def _smoke_hashes(root: str, smoke: dict) -> dict:
+    """The event-log hash of each scenario `cli chaos smoke` ran, from
+    the result.json it kept under `root`."""
+    import os
+    out = {}
+    for name in smoke:
+        path = os.path.join(root, f"{name}-seed{CHAOS_SEED}", "result.json")
+        require(os.path.exists(path),
+                f"cell F: `cli chaos smoke` kept no {path}")
+        with open(path) as f:
+            out[name] = json.load(f)["event_log_hash"]
+    return out
+
+
 def check_chaos(ctx: dict, launches: dict) -> None:
     """Cell F's checks: the wrong answers all caught by the spot checks,
     the CUDA rungs tripped and recovered, one seed one hash (in process
     and across `cli chaos run` / `replay`), the storm synced unblamed, the
     100-validator mesh within its budgets with its vote bursts on K1 while
-    the CUDA rung served; then every K1, K2 and K5 call of every recording
-    backend against the plain version on every lane."""
-    import numpy as np
-    import torch
-    from tendermint_tpu_torch.ops import ed25519 as ed
+    the CUDA rung served, the scenario tiers (`check_tiers`); then every
+    K1, K2, K4 and K5 call of every recording backend against the plain
+    version on every lane (`hold_to_plain`)."""
     hooks = ctx["hooks"]
     wrong = ctx["smoke"]["device-wrong-answer"]
     ladder, dev = _dev_rung(wrong, hooks)
@@ -5835,10 +5904,13 @@ def check_chaos(ctx: dict, launches: dict) -> None:
         f"{wrong['flipped']} lanes of {len(dev.k5.calls)} K5 calls on the "
         f"CUDA rung; spot-check mismatches {wrong['mismatches']}; "
         f"{_ladder_summary(ladder.supervisor_status())}")
-    require(ctx["again"]["result"].event_log_hash ==
-            wrong["result"].event_log_hash and
-            ctx["again"]["flipped"] == wrong["flipped"],
-            "cell F (a): the same seed gave another event-log hash")
+    for name in CHAOS_AGAIN:
+        first, second = ctx["smoke"][name], ctx["again"][name]
+        require(second["result"].event_log_hash ==
+                first["result"].event_log_hash and
+                second["flipped"] == first["flipped"],
+                f"cell F (a): {name}: the same seed gave another event-log "
+                f"hash")
     cli = ctx["cli"]
     require(cli["manifest"]["event_log_hash"] ==
             wrong["result"].event_log_hash and
@@ -5849,6 +5921,7 @@ def check_chaos(ctx: dict, launches: dict) -> None:
     log(f"[cell F] (a) one seed, one hash: {wrong['result'].event_log_hash}"
         f" twice in process and in `cli chaos run` ({cli['run'][1]:.1f} s);"
         f" `cli chaos replay` MATCH ({cli['replay'][1]:.1f} s)")
+    check_tiers(ctx)
     for name in ("device-rung-walk", CHAOS_STORM):
         run = ctx["storm"] if name == CHAOS_STORM else ctx["smoke"][name]
         ladder, dev = _dev_rung(run, hooks)
@@ -5900,9 +5973,69 @@ def check_chaos(ctx: dict, launches: dict) -> None:
         f"it open {v[(False, 1)]} pre-verified, {v[(False, 0)]} scalar; "
         f"share on K1 {on_k1 / max(1, total):.4f}; "
         f"{_ladder_summary(ladder.supervisor_status())}")
-    # every kernel call of every recording backend against its plain version
+    held = hold_to_plain(hooks)
+    require(held["k1_lanes"] and held["k5_lanes"] and held["k2_sets"],
+            f"cell F: nothing held to plain {held}")
+    log(f"[cell F] launches on the cell's path {launches}; the cell "
+        f"{ctx['wall']:.1f} s")
+
+
+def check_tiers(ctx: dict) -> None:
+    """The state-sync, batch-plane and mempool smoke scenarios (ROADMAP
+    A.1): each passed with its kernels on the card, and `cli chaos smoke`
+    ran the whole smoke tier with no skip and the in-process hashes: the
+    second run of each on the same seed, `batchplane-isolation`'s
+    among them."""
+    smoke = ctx["smoke"]
+    torn = smoke["snapshot-torn-tail"]["result"].observations
+    require(torn["crashed"] and torn["valid_heights"] == [4] and
+            torn["parity_state"] and torn["parity_app"],
+            f"cell F (a): snapshot-torn-tail observed {torn}")
+    bp = smoke["batchplane-isolation"]
+    obs = bp["result"].observations
+    require(bp["launches"]["K1"] > 0 and obs["bad_lanes"] == 0 and
+            obs["conc_mixed_flushes"] >= 1,
+            f"cell F (a): batchplane-isolation: K1 "
+            f"{bp['launches']['K1']}, {obs}")
+    storm = smoke["eviction-storm"]
+    require(storm["launches"]["K5"] > 0,
+            "cell F (a): eviction-storm verified nothing on K5")
+    sbm = storm["result"].observations["budget_metrics"]
+    log(f"[cell F] (a) snapshot-torn-tail: crash at {torn['crash_site']}, "
+        f"kept {torn['valid_heights']}, restored from "
+        f"{torn['restored_height']} and replayed {torn['replayed']} blocks "
+        f"(K4 {smoke['snapshot-torn-tail']['launches']['K4']}); "
+        f"batchplane-isolation: retention "
+        f"{obs['retention_fastsync']:.3f} / {obs['retention_light']:.3f}, "
+        f"occupancy {obs['iso_occupancy_mean']:.3f} -> "
+        f"{obs['conc_occupancy_mean']:.3f}, mixed flushes "
+        f"{obs['conc_mixed_flushes']} of {obs['conc_flushes']} (K1 "
+        f"{bp['launches']['K1']}); eviction-storm: {sbm} (K5 "
+        f"{storm['launches']['K5']})")
+    out, secs = ctx["cli"]["smoke"]
+    last = out.strip().splitlines()[-1]
+    n = len(smoke)
+    require(last.startswith(f"chaos smoke: {n}/{n} passed, 0 skipped"),
+            f"cell F: `cli chaos smoke` ended {last!r}")
+    got = ctx["cli"]["smoke_hashes"]
+    want = {k: v["result"].event_log_hash for k, v in smoke.items()}
+    require(got == want, f"cell F: `cli chaos smoke` hashes {got} != "
+            f"in-process {want}")
+    log(f"[cell F] (a) `cli chaos smoke --budget {CHAOS_SMOKE_BUDGET:.0f}`:"
+        f" {last!r} ({secs:.1f} s with its start-up), its {n} hashes == "
+        f"in-process (batchplane-isolation "
+        f"{want['batchplane-isolation']} in both runs)")
+
+
+def hold_to_plain(hooks) -> dict:
+    """Every K1, K5, K4 and K2 call of every recording backend of `hooks`
+    against its plain version on the card, on every lane and row."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from tendermint_tpu_torch.ops import sha256
     t0 = time.perf_counter()
-    k1_lanes = k5_lanes = k2_sets = 0
+    k1_lanes = k5_lanes = k4_rows = k2_sets = 0
     # K2's plain version once over every distinct set's keys (each key's
     # tables are its own), sliced per set
     sets = {}
@@ -5913,10 +6046,12 @@ def check_chaos(ctx: dict, launches: dict) -> None:
     for set_key, pubs in sets.items():
         offs[set_key] = (off, off + len(pubs))
         off += len(pubs)
-    all_tbl, all_ok = ed.build_neg_comb_plain(torch.cat(list(sets.values())))
+    if sets:
+        all_tbl, all_ok = ed.build_neg_comb_plain(
+            torch.cat(list(sets.values())))
     for be in hooks.backends:
         checked, bad, _ = _plain_k1(be, be.k1.calls)
-        require(bad == 0, f"cell F: {bad} of {checked} K1 lanes != plain")
+        require(bad == 0, f"{bad} of {checked} K1 lanes != plain")
         k1_lanes += checked
         if be.k5.calls:
             lanes = [np.concatenate([c[k] for c in be.k5.calls])
@@ -5924,22 +6059,260 @@ def check_chaos(ctx: dict, launches: dict) -> None:
             want = ed.verify_batch_plain(*map(be._t, lanes[:3]),
                                          ed.base_table(be.device))
             require(want.cpu().numpy().tolist() == lanes[3].tolist(),
-                    "cell F: a K5 lane != plain")
+                    "a K5 lane != plain")
             k5_lanes += len(lanes[3])
+        by_len = {}
+        for rows, out in be.k4.calls:
+            by_len.setdefault(rows.shape[1], []).append((rows, out))
+        for calls in by_len.values():
+            rows = np.concatenate([c[0] for c in calls])
+            want = sha256.sha256_prefixed_plain(be._t(rows), 0)
+            require(np.array_equal(want.cpu().numpy(),
+                                   np.concatenate([c[1] for c in calls])),
+                    "a K4 row != plain")
+            k4_rows += len(rows)
         for set_key, (tbl, ok, nv, _) in be._tables.items():
             lo, hi = offs[set_key]
             require(torch.equal(tbl[:, :, :nv], all_tbl[:, :, lo:hi]) and
                     torch.equal(ok[:nv], all_ok[lo:hi]),
-                    f"cell F: K2 != plain at a {nv}-key set")
+                    f"K2 != plain at a {nv}-key set")
             k2_sets += 1
-    require(k1_lanes and k5_lanes and k2_sets,
-            f"cell F: nothing held to plain ({k1_lanes}, {k5_lanes}, "
-            f"{k2_sets})")
-    log(f"[cell F] {len(hooks.backends)} recording CudaBackends: "
-        f"{k1_lanes} K1 lanes, {k5_lanes} K5 lanes and {k2_sets} K2 table "
-        f"sets ({len(sets)} distinct, {off} keys) == plain "
-        f"({time.perf_counter() - t0:.1f} s); launches on the cell's path "
-        f"{launches}; the cell {ctx['wall']:.1f} s")
+    held = {"k1_lanes": k1_lanes, "k5_lanes": k5_lanes, "k4_rows": k4_rows,
+            "k2_sets": k2_sets, "seconds": time.perf_counter() - t0}
+    log(f"{len(hooks.backends)} recording CudaBackends: {k1_lanes} K1 "
+        f"lanes, {k5_lanes} K5 lanes, {k4_rows} K4 rows and {k2_sets} K2 "
+        f"table sets ({len(sets)} distinct, {off} keys) == plain "
+        f"({held['seconds']:.1f} s)")
+    return held
+
+
+# -- gRPC: the broadcast API and ABCI over gRPC ----------------------------
+
+GRPC_SIGNED, GRPC_FORGED = 16, 4    # envelopes through `BroadcastTx`
+GRPC_BLOCKS = 8                     # a chain through a grpc:// ABCI app
+
+
+def grpc_presence() -> str:
+    """`grpc: present <version>` or `grpc: absent`: whether grpcio imports
+    on this machine (nothing is installed for the smoke)."""
+    import importlib.util
+    if importlib.util.find_spec("grpc") is None:
+        return "grpc: absent"
+    import grpc
+    return f"grpc: present {grpc.__version__}"
+
+
+def phase_grpc(presence: str) -> dict:
+    """The gRPC surfaces (`rpc/grpc_server.py`, `abci/grpc_app.py`).  With
+    grpcio: one validator `Node` in process with `rpc.grpc_laddr`, on a
+    `CudaBackend` that records its K1 and K5 calls, answers `Ping`, and
+    `BroadcastTx` (`broadcast_tx_commit`: `check_tx` on K5, then the
+    DeliverTx event) of GRPC_SIGNED signed and GRPC_FORGED forged
+    envelopes, four at a time (the server's four workers); then
+    GRPC_BLOCKS blocks are applied through a grpc:// kvstore app served in
+    process, each LastCommit verified on the backend (K1), and give the
+    host kvstore's app hashes.  Without grpcio the node and a grpc:// app
+    connection must both refuse at start, naming grpcio."""
+    import random
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from tendermint_tpu_torch.config import (config_file, load_config_file,
+                                             test_config)
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.scenarios import loadgen
+    tmp = tempfile.TemporaryDirectory(prefix="grpc-cell-")
+    try:
+        _node_home(tmp.name)
+        cfg = load_config_file(config_file(tmp.name))
+        cfg.base.home = tmp.name
+        cfg.consensus = test_config().consensus
+        cfg.rpc.laddr = ""
+        cfg.rpc.grpc_laddr = "tcp://127.0.0.1:0"
+        if presence == "grpc: absent":
+            refused = []
+            for build in (lambda: Node(cfg, backend=CudaBackend()),
+                          lambda: ClientCreator(
+                              "grpc://127.0.0.1:1").new_app_conns()):
+                try:
+                    build()
+                except ImportError as e:
+                    refused.append(str(e))
+            return {"present": False, "refused": refused}
+        from tendermint_tpu_torch.rpc.grpc_server import GRPCClient
+        be = CudaBackend()
+        raw, k1 = _RawRecorder(be), _K1Recorder(be)
+        node = Node(cfg, backend=be)
+        node.start()
+        t0 = time.perf_counter()
+        client = GRPCClient(node.grpc_server.laddr)
+        try:
+            ping = client.ping()
+            corpus = loadgen.build_corpus(
+                random.Random(SEED + 41), loadgen.Mix(
+                    unsigned=0, signed=GRPC_SIGNED, bad_sig=GRPC_FORGED,
+                    dup_frac=0.0), backend=None)
+            txs = [bytes.fromhex(e["tx"]) for e in corpus]
+            with ThreadPoolExecutor(4) as pool:
+                answers = list(pool.map(client.broadcast_tx, txs))
+            broadcast_s = time.perf_counter() - t0
+        finally:
+            client.close()
+            node.stop()
+        chain = _grpc_chain(be)
+    finally:
+        tmp.cleanup()
+    return {"present": True, "ping": ping, "txs": txs, "answers": answers,
+            "broadcast_s": broadcast_s, "k5": raw, "k1": k1, "backend": be,
+            "chain": chain}
+
+
+def _grpc_chain(be) -> dict:
+    """GRPC_BLOCKS blocks of a 4-validator kvstore chain applied through
+    a grpc:// app (`GRPCABCIServer` in process), each LastCommit verified
+    on `be`; the app hash after each block against the host kvstore's."""
+    from tendermint_tpu_torch.abci.app import create_app
+    from tendermint_tpu_torch.abci.grpc_app import GRPCABCIServer
+    from tendermint_tpu_torch.proxy import ClientCreator
+    from tendermint_tpu_torch.scenarios import fixtures
+    from tendermint_tpu_torch.state import execution
+    from tendermint_tpu_torch.state.state import get_state
+    from tendermint_tpu_torch.utils.db import MemDB
+    privs, vs = fixtures.make_validators(4, seed=SEED % 1000)
+    gen = fixtures.make_genesis("grpc-chain", privs)
+    hashes = fixtures.kvstore_app_hashes(GRPC_BLOCKS + 1, txs_per_block=4)
+    chain = fixtures.build_chain(privs, vs, "grpc-chain", GRPC_BLOCKS,
+                                 txs_per_block=4, app_hashes=hashes)
+    srv = GRPCABCIServer(create_app("kvstore"), "tcp://127.0.0.1:0")
+    srv.start()
+    t0 = time.perf_counter()
+    try:
+        st = get_state(MemDB(), gen)
+        conns = ClientCreator(srv.addr).new_app_conns()
+        got = []
+        for block, ps, _ in chain:
+            execution.apply_block(st, conns.consensus, block, ps.header,
+                                  execution.MockMempool(), backend=be)
+            got.append(st.app_hash)
+        info = conns.query.info()
+    finally:
+        srv.stop()
+    return {"got": got, "want": hashes[1:], "height": info.last_block_height,
+            "seconds": time.perf_counter() - t0}
+
+
+def check_grpc(ctx: dict, launches: dict) -> None:
+    """The gRPC phase's checks: without grpcio both refusals name it; with
+    it, `Ping`, every signed envelope committed and every forged one
+    refused by `check_tx` (ERR_BAD_SIG), K5 launched on the phase and
+    every K1 and K5 call equal to its plain version, and the grpc://
+    chain's app hashes equal to the host kvstore's."""
+    import numpy as np
+    from tendermint_tpu_torch.abci.types import ERR_BAD_SIG
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    if not ctx["present"]:
+        require(len(ctx["refused"]) == 2 and
+                all("grpcio" in e for e in ctx["refused"]),
+                f"grpc: refusals without grpcio {ctx['refused']}")
+        log(f"[grpc] absent: the node and a grpc:// app refused at start "
+            f"({ctx['refused'][0]!r})")
+        return
+    require(ctx["ping"], "grpc: Ping failed")
+    kinds = [_envelope_kind(tx) for tx in ctx["txs"]]
+    for kind, res in zip(kinds, ctx["answers"]):
+        if kind == "signed":
+            require(res["check_tx"]["code"] == 0 and
+                    res["deliver_tx"]["code"] == 0,
+                    f"grpc: a signed envelope got {res}")
+        else:
+            require(res["check_tx"]["code"] == ERR_BAD_SIG and
+                    res["deliver_tx"] == {"code": 0, "data": "", "log": ""},
+                    f"grpc: a forged envelope got {res}")
+    require(launches["K5"] >= 1, "grpc: K5 was not launched on BroadcastTx")
+    be, calls = ctx["backend"], ctx["k5"].calls
+    lanes = [np.concatenate([c[k] for c in calls]) for k in range(4)]
+    want = ed.verify_batch_plain(*map(be._t, lanes[:3]),
+                                 ed.base_table(be.device))
+    require(want.cpu().numpy().tolist() == lanes[3].tolist(),
+            "grpc: a K5 lane != plain")
+    k1_lanes, bad, _ = _plain_k1(be, ctx["k1"].calls)
+    require(bad == 0 and k1_lanes > 0,
+            f"grpc: {bad} of {k1_lanes} K1 lanes != plain")
+    chain = ctx["chain"]
+    require(chain["got"] == chain["want"] and
+            chain["height"] == GRPC_BLOCKS,
+            f"grpc: the grpc:// chain's app hashes {chain}")
+    log(f"[grpc] Ping; BroadcastTx of {kinds.count('signed')} signed "
+        f"(committed) and {kinds.count('forged')} forged (ERR_BAD_SIG) "
+        f"envelopes in {ctx['broadcast_s']:.3f} s; K5 {launches['K5']} "
+        f"launches, {len(lanes[3])} lanes == plain; {GRPC_BLOCKS} blocks "
+        f"through grpc:// in {chain['seconds']:.3f} s, app hashes == the "
+        f"host kvstore's; K1 {launches['K1']} launches, {k1_lanes} lanes "
+        f"== plain")
+
+
+# -- the stress tier, in a chip call of its own -------------------------------
+
+STRESS_TIER = ("batchplane-flood-isolation", "mempool-flood", "snapshot-join",
+               "snapshot-tamper")
+
+
+def stress_tier() -> int:
+    """`cli chaos soak --tier stress --scenarios <STRESS_TIER> --seed-range
+    0:1` in this process, on each scenario's default card backend, with
+    every `CudaBackend` a recording one (`_ChaosHooks`): per scenario its
+    verdict, wall, budget metrics and kernel launches, then every K1, K2,
+    K4 and K5 call held to its plain version.  Returns the soak's exit
+    code (non-zero on a failed invariant or a budget breach).  Run it
+    with `python3 chip_smoke.py --stress-tier` (not part of the smoke)."""
+    import tempfile
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from tendermint_tpu_torch.cli import main as cli_main
+    from tendermint_tpu_torch.ops import kernels
+    from tendermint_tpu_torch.scenarios import engine
+    log(card_line())
+    phase_build()
+    hooks = _ChaosHooks()
+    real_run = engine.run_scenario
+    runs = []
+
+    def counted(name, **kw):
+        l0 = dict(kernels.LAUNCHES)
+        r = real_run(name, **kw)
+        launches = {KERNEL_KEYS[k]: kernels.LAUNCHES[k] - l0[k]
+                    for k in kernels.LAUNCHES}
+        runs.append((r, launches))
+        log(f"[stress] {name} seed {r.seed} on {r.backend}: "
+            f"{'PASS' if r.ok else 'FAIL'}{' OVER-BUDGET' * bool(r.budget_breaches)}"
+            f" in {r.duration_s:.3f} s (budget {r.budget_s} s); launches "
+            f"{launches}; budget metrics {json.dumps(r.budget_metrics)}; "
+            f"failures {r.failures}; breaches {r.budget_breaches}; "
+            f"event_log_hash {r.event_log_hash}")
+        return r
+    tmp = tempfile.TemporaryDirectory(prefix="stress-tier-")
+    engine.run_scenario = counted
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(["chaos", "soak", "--tier", "stress", "--scenarios",
+                       ",".join(STRESS_TIER), "--seed-range", "0:1",
+                       "--budget-ledger", f"{tmp.name}/ledger.jsonl",
+                       "--artifacts", tmp.name, "--json"])
+    finally:
+        engine.run_scenario = real_run
+        hooks.close()
+        tmp.cleanup()
+    log(f"[stress] soak exit code {rc} in {time.perf_counter() - t0:.1f} s")
+    require([r.name for r, _ in runs] == list(STRESS_TIER),
+             f"stress: ran {[r.name for r, _ in runs]}")
+    held = hold_to_plain(hooks)
+    require(held["k1_lanes"] and held["k5_lanes"],
+            f"stress: nothing held to plain {held}")
+    log(card_line())
+    return rc
 
 
 # -- the kernels line ----------------------------------------------------
@@ -6552,8 +6925,10 @@ def main() -> int:
     from tendermint_tpu_torch.parallel import sharding
     card = card_line()
     log(card)
+    t_start = time.perf_counter()
     phase_build()
     phase_check()
+    log(f"[time] build and kernel checks {time.perf_counter() - t_start:.1f} s")
     kernels.reset_launches()                # the replay path starts here
     rp_ctx = phase_replay()
     mk_ctx = phase_merkle(rp_ctx["backend"])
@@ -6583,6 +6958,8 @@ def main() -> int:
     check_fastsync(fs_ctx)
     check_fastsync_doctor(fs_ctx["runs"][1])
     check_light(lt_ctx)
+    log(f"[time] replay to light, with their checks, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     t_cs = time.perf_counter()
     kernels.reset_launches()                # the consensus path starts here
     cs_ctx = phase_consensus()
@@ -6629,6 +7006,15 @@ def main() -> int:
     cell_f = read_launches("cell F", ("K1", "K2", "K5"))
     check_chaos(chaos_ctx, cell_f)
     log(f"[cell F] cell and checks {time.perf_counter() - t_f:.1f} s")
+    t_g = time.perf_counter()
+    presence = grpc_presence()
+    print(presence, flush=True)
+    kernels.reset_launches()                # the gRPC path starts here
+    grpc_ctx = phase_grpc(presence)
+    grpc_launches = read_launches(
+        "grpc", ("K1", "K5") if grpc_ctx["present"] else ())
+    check_grpc(grpc_ctx, grpc_launches)
+    log(f"[grpc] phase and checks {time.perf_counter() - t_g:.1f} s")
     # per kernel, its launches on the paths that run it at the shapes its
     # row is timed at: templated K1 on the replay path, K1 with per-lane
     # keys on the mempool path, K4 (part sets) and K7 (trees) on the
@@ -6644,6 +7030,7 @@ def main() -> int:
     # The consensus path's K1 stands in two rows of its own (1C, 6C),
     # each timed at the net's median call and counting the net's launches
     # at that call's shape; its other launches are logged there.
+    t_k = time.perf_counter()
     launches = {k: replay[k] + mempool[k] + fastsync[k] for k in replay}
     launches["K1"] = replay["K1"] + fastsync["K1"]
     launches["K1p"] = mempool["K1"]
@@ -6657,6 +7044,8 @@ def main() -> int:
     line += node_rows
     line.append(statesync_kernel_row(sync, cell_e, k4_also))
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
+    log(f"[time] kernels line {time.perf_counter() - t_k:.1f} s; the smoke "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
@@ -6666,4 +7055,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(stress_tier() if sys.argv[1:] == ["--stress-tier"] else main())

@@ -12,10 +12,10 @@ Copy of `tendermint_tpu/cli/__init__.py` with the commands `init`,
 `gen_validator`, `show_validator`, `unsafe_reset_all`, `replay`,
 `replay_console`, `wal-fsck`, `snapshot list | create | verify |
 restore`, `trace`, `doctor`, `timeline`, `bench-history`, `chaos list |
-run | replay` and `version`.  `init --warm-crypto`, `chaos smoke | soak |
-nightly` and the `lint` and `probe_upnp` commands wait for the modules
-they drive.  `chaos run` runs on the card unless `--backend` names a CPU
-backend ("python", "rig", "native"), and reads no environment
+run | replay | smoke | soak | nightly`, `probe_upnp` and `version`.
+`init --warm-crypto` and the `lint` command wait for the modules they
+drive.  Every `chaos` command runs on the card unless `--backend` names
+a CPU backend ("python", "rig", "native"), and reads no environment
 variable.  `trace`, `doctor` and `timeline` read a node's unsafe RPC
 routes or a dump, and print what the JAX commands print.  The snapshot commands hash
 chunks through `make_backend(base.crypto_backend)` (kernel K4 on the
@@ -819,8 +819,184 @@ def cmd_chaos_replay(args) -> int:
     return 1
 
 
+def _smoke_tier(scenarios: dict, smoke_order: list) -> list:
+    """The smoke tier in cheapest-first order: `SMOKE_ORDER`, then any
+    other smoke scenario by name."""
+    names = [n for n in smoke_order if n in scenarios]
+    return names + sorted(n for n, sc in scenarios.items()
+                          if sc.smoke and n not in names)
+
+
+def cmd_chaos_smoke(args) -> int:
+    """The fast smoke subset under a wall-clock budget: scenarios run in
+    cheapest-first order and the remainder is SKIPPED (reported, never
+    silently dropped) once the budget is spent.  The faults-tier CI
+    entry point."""
+    import time as _time
+    from tendermint_tpu_torch.scenarios import (SCENARIOS, SMOKE_ORDER,
+                                                run_scenario)
+    t0 = _time.time()
+    failed, skipped, results = [], [], []
+    for name in _smoke_tier(SCENARIOS, SMOKE_ORDER):
+        spent = _time.time() - t0
+        if args.budget and spent >= args.budget:
+            skipped.append(name)
+            continue
+        result = run_scenario(name, seed=args.seed,
+                              artifacts=args.artifacts or None,
+                              keep_artifacts=args.keep_artifacts,
+                              backend=getattr(args, "backend", "") or None)
+        results.append(result)
+        _print_scenario_result(result, args.json)
+        if not result.ok:
+            failed.append(name)
+    for name in skipped:
+        print(f"SKIP {name} (budget {args.budget:.0f}s spent)")
+    print(f"chaos smoke: {len(results) - len(failed)}/{len(results)} "
+          f"passed, {len(skipped)} skipped "
+          f"in {_time.time() - t0:.1f}s")
+    return 1 if failed else 0
+
+
+def _chaos_sweep(args, names: list, label: str, row: dict,
+                 summary: dict, per_run_ledger: bool) -> int:
+    """The seed sweep `chaos soak` and `chaos nightly` share: each of
+    `names` (or `--scenarios`, unknown names refused with 2) over
+    `--seed-range` until the global `--budget` is spent, the rest
+    reported SKIPPED; with `--budget-ledger` one aggregate row (`row`'s
+    fields first) and, with `per_run_ledger`, every seed's own entry;
+    the JSON summary (`summary`'s fields first) or the text report.
+    Non-zero on any invariant failure or budget breach."""
+    import time as _time
+    from tendermint_tpu_torch.scenarios import (SCENARIOS, parse_seed_range,
+                                                run_sweep)
+    from tendermint_tpu_torch.scenarios.engine import CHAOS_LEDGER_SCHEMA
+    from tendermint_tpu_torch.utils import ledger as ledgermod
+    seeds = parse_seed_range(args.seed_range)
+    if args.scenarios:
+        want = [s.strip() for s in args.scenarios.split(",") if s.strip()]
+        unknown = [w for w in want if w not in SCENARIOS]
+        if unknown:
+            print(f"unknown scenarios: {', '.join(unknown)} "
+                  f"(see `chaos list`)", file=sys.stderr)
+            return 2
+        names = want                       # an explicit list overrides
+    backend = getattr(args, "backend", "") or None
+    t0 = _time.time()
+    skipped: list[str] = []
+    all_results: list = []
+    configs: dict = {}
+    progress = (None if args.json
+                else lambda r: _print_scenario_result(r, False))
+    for name in names:
+        if args.budget and _time.time() - t0 >= args.budget:
+            skipped.append(name)
+            continue
+        # per-run ledger entries (the nightly's) carry each seed's
+        # per-metric budget verdicts: a regression bisects to the exact
+        # scenario and seed
+        out = run_sweep([name], seeds, artifacts=args.artifacts or None,
+                        keep_artifacts=args.keep_artifacts,
+                        ledger_path=(args.budget_ledger or None
+                                     if per_run_ledger else None),
+                        progress=progress, backend=backend)
+        configs.update(out["summary"]["configs"])
+        all_results.extend(out["results"])
+    failures = [r for r in all_results if not r.ok]
+    breaches = [r for r in all_results if r.budget_breaches]
+    triage = sorted({r.artifact_dir for r in failures + breaches
+                     if r.artifact_dir})
+    deltas: dict = {}
+    if args.budget_ledger:
+        prior = [e for e in ledgermod.load(args.budget_ledger)
+                 if e.get("schema") == CHAOS_LEDGER_SCHEMA]
+        deltas = ledgermod.compute_deltas(prior, configs)
+        ledgermod.append_entry(args.budget_ledger, {
+            "schema": CHAOS_LEDGER_SCHEMA, **row,
+            "seed_range": args.seed_range, "n_seeds": len(seeds),
+            "configs": configs, "skipped": skipped,
+            **({"backend": backend or ""} if per_run_ledger else {}),
+            "timestamp": _time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                        _time.gmtime())})
+    if args.json:
+        print(json.dumps({
+            **summary, "seed_range": args.seed_range, "configs": configs,
+            "skipped": skipped, "deltas": deltas,
+            "runs": len(all_results), "failures": len(failures),
+            "breaches": len(breaches), "triage": triage,
+            "duration_s": round(_time.time() - t0, 1)}, indent=1))
+        return 1 if failures or breaches else 0
+    for name in skipped:
+        print(f"SKIP {name} x{len(seeds)} seeds "
+              f"(global budget {args.budget:.0f}s spent)")
+    for d in triage:
+        print(f"triage: {d}")
+    regressions = sorted(n for n, r in deltas.items() if r.get("regression"))
+    if regressions:
+        print(f"rate regressions vs best prior: {', '.join(regressions)}")
+    print(f"chaos {label} seeds {args.seed_range}: "
+          f"{len(all_results) - len(failures)}/{len(all_results)} passed, "
+          f"{len(breaches)} over budget, {len(skipped)} scenarios "
+          f"skipped in {_time.time() - t0:.1f}s"
+          + (f" (ledger: {args.budget_ledger})"
+             if args.budget_ledger else ""))
+    return 1 if failures or breaches else 0
+
+
+def cmd_chaos_soak(args) -> int:
+    """Nightly seed-sweep soak: sweep a catalogue tier across a seed
+    range with per-scenario declared budgets and a global wall cap.
+    Never silent — scenarios that don't fit the global budget are
+    reported as SKIPPED, every failed or over-budget run prints its
+    triage bundle path, and per-scenario rates land in the chaos ledger
+    so a fault-path latency regression bisects like a bench regression.
+    Exits nonzero on any invariant failure or budget breach."""
+    from tendermint_tpu_torch.scenarios import SCENARIOS, SMOKE_ORDER
+    smoke = _smoke_tier(SCENARIOS, SMOKE_ORDER)
+    stress = sorted(n for n, sc in SCENARIOS.items() if not sc.smoke)
+    names = {"smoke": smoke, "stress": stress,
+             "all": smoke + stress}[args.tier]
+    return _chaos_sweep(args, names, f"soak [{args.tier}]",
+                        {"soak": True, "tier": args.tier},
+                        {"tier": args.tier}, per_run_ledger=False)
+
+
+def cmd_chaos_nightly(args) -> int:
+    """The nightly soak gate: sweep the FULL catalogue (smoke tier in
+    cheapest-first order, then every stress rig) across a seed range,
+    with per-seed metric-budget verdicts ledgered to the chaos ledger
+    and a durable triage bundle for every failed or over-budget run.
+    This is `chaos soak --tier all` hardened into a gate: per-run
+    ledger entries (schema tpu-bft-chaos-run/1) land for every seed so
+    a budget regression bisects to the exact scenario+seed, scenarios
+    that miss the global wall cap are reported as SKIPPED (a skip is
+    visible in the summary and the ledger, never silent), and the exit
+    code is nonzero on any invariant failure or metric/wall budget
+    breach."""
+    from tendermint_tpu_torch.scenarios import SCENARIOS, SMOKE_ORDER
+    names = _smoke_tier(SCENARIOS, SMOKE_ORDER) + sorted(
+        n for n, sc in SCENARIOS.items() if not sc.smoke)
+    return _chaos_sweep(args, names, "nightly", {"nightly": True}, {},
+                        per_run_ledger=True)
+
+
 def cmd_version(args) -> int:
     print(__version__)
+    return 0
+
+
+def cmd_probe_upnp(args) -> int:
+    """Test UPnP functionality (reference
+    `cmd/tendermint/commands/probe_upnp.go:1-35`)."""
+    import json as _json
+    from tendermint_tpu_torch.p2p import upnp
+    try:
+        caps = upnp.probe(int_port=args.int_port, ext_port=args.ext_port)
+    except upnp.UPnPError as e:
+        print(f"Probe failed: {e}")
+        return 1
+    print("Probe success!")
+    print(_json.dumps(caps))
     return 0
 
 
@@ -1001,11 +1177,12 @@ def main(argv=None) -> int:
                              "storms, device faults)")
     chaos_sub = sp.add_subparsers(dest="chaos_command", required=True)
 
-    def _chaos_common(csp):
+    def _chaos_common(csp, scenario_arg: bool):
         from tendermint_tpu_torch.scenarios.engine import (DEFAULT_SEED,
                                                            KNOWN_BACKENDS)
-        csp.add_argument("--scenario", required=True,
-                         help="scenario name (see `chaos list`)")
+        if scenario_arg:
+            csp.add_argument("--scenario", required=True,
+                             help="scenario name (see `chaos list`)")
         csp.add_argument("--seed", type=int, default=DEFAULT_SEED,
                          help="scenario seed; the same seed replays the "
                               "same fault schedule (default: %(default)s)")
@@ -1027,7 +1204,7 @@ def main(argv=None) -> int:
     csp.set_defaults(fn=cmd_chaos_list)
 
     csp = chaos_sub.add_parser("run", help="run one scenario")
-    _chaos_common(csp)
+    _chaos_common(csp, scenario_arg=True)
     csp.add_argument("--seed-range", dest="seed_range", default="",
                      help="sweep a half-open seed range A:B (e.g. 0:25) "
                           "instead of the single --seed")
@@ -1044,8 +1221,84 @@ def main(argv=None) -> int:
     csp.add_argument("--json", action="store_true")
     csp.set_defaults(fn=cmd_chaos_replay)
 
+    csp = chaos_sub.add_parser(
+        "smoke", help="run the smoke subset under a time budget")
+    _chaos_common(csp, scenario_arg=False)
+    csp.add_argument("--budget", type=float, default=300.0,
+                     help="wall-clock budget in seconds; scenarios that "
+                          "don't fit are reported as skipped "
+                          "(default: %(default)s)")
+    csp.set_defaults(fn=cmd_chaos_smoke)
+
+    from tendermint_tpu_torch.scenarios.engine import (
+        DEFAULT_CHAOS_LEDGER, KNOWN_BACKENDS as _KNOWN_BACKENDS)
+    csp = chaos_sub.add_parser(
+        "soak", help="nightly seed-sweep soak across a catalogue tier "
+                     "with budget enforcement and a chaos ledger")
+    csp.add_argument("--seed-range", dest="seed_range", default="0:3",
+                     help="half-open seed range A:B to sweep "
+                          "(default: %(default)s)")
+    csp.add_argument("--tier", choices=["smoke", "stress", "all"],
+                     default="smoke",
+                     help="catalogue tier to sweep (default: %(default)s)")
+    csp.add_argument("--scenarios", default="",
+                     help="comma-separated scenario names; overrides "
+                          "--tier when given")
+    csp.add_argument("--budget", type=float, default=0.0,
+                     help="global wall-clock cap in seconds; scenarios "
+                          "that don't fit are reported as SKIPPED, never "
+                          "silently dropped (0 = uncapped)")
+    csp.add_argument("--budget-ledger", dest="budget_ledger",
+                     default=DEFAULT_CHAOS_LEDGER,
+                     help="chaos ledger path for per-scenario rates and "
+                          "regression deltas; empty to disable "
+                          "(default: %(default)s)")
+    csp.add_argument("--backend", choices=list(_KNOWN_BACKENDS),
+                     default="",
+                     help="crypto backend for every run (default: the "
+                          "card twin of each scenario's declared one)")
+    csp.add_argument("--artifacts", default="")
+    csp.add_argument("--keep-artifacts", dest="keep_artifacts",
+                     action="store_true")
+    csp.add_argument("--json", action="store_true")
+    csp.set_defaults(fn=cmd_chaos_soak)
+
+    csp = chaos_sub.add_parser(
+        "nightly", help="the nightly soak gate: full-catalogue seed "
+                        "sweep with per-seed metric-budget verdicts "
+                        "ledgered and durable triage bundles on breach")
+    csp.add_argument("--seed-range", dest="seed_range", default="0:5",
+                     help="half-open seed range A:B to sweep "
+                          "(default: %(default)s)")
+    csp.add_argument("--scenarios", default="",
+                     help="comma-separated scenario names; overrides "
+                          "the full catalogue when given")
+    csp.add_argument("--budget", type=float, default=0.0,
+                     help="global wall-clock cap in seconds; scenarios "
+                          "that don't fit are reported as SKIPPED, never "
+                          "silently dropped (0 = uncapped)")
+    csp.add_argument("--budget-ledger", dest="budget_ledger",
+                     default=DEFAULT_CHAOS_LEDGER,
+                     help="chaos ledger path; every seed's run lands as "
+                          "its own entry with metric-budget verdicts, "
+                          "plus one aggregate row (default: %(default)s)")
+    csp.add_argument("--backend", choices=list(_KNOWN_BACKENDS),
+                     default="",
+                     help="crypto backend for every run (default: the "
+                          "card twin of each scenario's declared one)")
+    csp.add_argument("--artifacts", default="")
+    csp.add_argument("--keep-artifacts", dest="keep_artifacts",
+                     action="store_true")
+    csp.add_argument("--json", action="store_true")
+    csp.set_defaults(fn=cmd_chaos_nightly)
+
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)
+
+    sp = sub.add_parser("probe_upnp", help="test UPnP functionality")
+    sp.add_argument("--int-port", dest="int_port", type=int, default=20000)
+    sp.add_argument("--ext-port", dest="ext_port", type=int, default=20000)
+    sp.set_defaults(fn=cmd_probe_upnp)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -50,7 +50,7 @@ class BaseConfig:
 @dataclass
 class RPCConfig:
     laddr: str = "tcp://0.0.0.0:26657"
-    grpc_laddr: str = ""                 # refused by the port's `Node`
+    grpc_laddr: str = ""                 # the gRPC broadcast API (grpcio)
     unsafe: bool = False
 
 

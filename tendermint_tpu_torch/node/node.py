@@ -15,8 +15,9 @@ Copy of `tendermint_tpu/node/node.py` with the port's rules:
   backend itself.  The JAX node installs a process-wide backend instead.
 * Nothing hides the card or a fault.  No comb-table warmer runs in a
   daemon thread (the first verify builds the tables), the node does not
-  run solo when a p2p listen address is set, `rpc.grpc_laddr` is refused
-  (the gRPC transport is not ported), and `stop()` raises the fault kept
+  run solo when a p2p listen address is set, `rpc.grpc_laddr` without
+  grpcio raises at start naming it (the JAX node warns and runs without
+  the gRPC server), and `stop()` raises the fault kept
   by the switch (its reactors') or the consensus state.  `run_forever`
   stops the node, and so raises, as soon as one of them holds a fault.
   A demotion down the supervised ladder is counted in its
@@ -48,6 +49,8 @@ from tendermint_tpu_torch.crypto.supervised import (SupervisedBackend,
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.node.p2p_setup import build_p2p
 from tendermint_tpu_torch.proxy import ClientCreator
+from tendermint_tpu_torch.rpc.grpc_server import GRPCServer, require_grpc
+from tendermint_tpu_torch.rpc.routes import Routes
 from tendermint_tpu_torch.rpc.server import RPCServer
 from tendermint_tpu_torch.state.evidence import EvidencePool
 from tendermint_tpu_torch.state.state import get_state
@@ -112,10 +115,7 @@ class Node:
         base = config.base
         set_level_spec(base.log_level)
         if config.rpc.grpc_laddr:
-            raise ValueError(
-                f"rpc.grpc_laddr {config.rpc.grpc_laddr!r}: the gRPC "
-                "server is not ported; it waits until grpcio is on the "
-                "card's machine (ROADMAP A.4)")
+            require_grpc(f"rpc.grpc_laddr {config.rpc.grpc_laddr!r}")
         self.backend = (backend if backend is not None
                         else make_backend(base.crypto_backend,
                                           config.crypto))
@@ -192,6 +192,7 @@ class Node:
 
         # --- RPC ---
         self.rpc_server = None
+        self.grpc_server = None
         self._stopped = threading.Event()
 
     def _valset_at(self, height: int):
@@ -219,6 +220,10 @@ class Node:
         if self.config.rpc.laddr:
             self.rpc_server = RPCServer(self, self.config.rpc)
             self.rpc_server.start()
+        if self.config.rpc.grpc_laddr:
+            self.grpc_server = GRPCServer(Routes(self),
+                                          self.config.rpc.grpc_laddr)
+            self.grpc_server.start()
 
     def fault(self) -> BaseException | None:
         """The first fault kept by the switch, one of its reactors or the
@@ -237,6 +242,8 @@ class Node:
         self._stopped.set()
         if self.rpc_server is not None:
             self.rpc_server.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
         try:
             if self.switch is not None:
                 self.switch.stop()

@@ -1,9 +1,10 @@
 """P2P communication backend.
 
 Reference: `p2p/` (5,909 LoC Go) — Switch + MConnection + SecretConnection
-+ Peer + PEX/AddrBook.  Copy of `tendermint_tpu/p2p/__init__.py`'s
-exports without UPnP, which is not ported yet.  `switch.make_connected_switches` is the in-process multi-node
-harness (reference `p2p/switch.go:495-543`).
++ Peer + PEX/AddrBook + fuzzing.  Copy of `tendermint_tpu/p2p/__init__.py`'s
+exports; UPnP is its own module (`p2p.upnp`), as in the JAX package.
+`switch.make_connected_switches` is the in-process multi-node harness
+(reference `p2p/switch.go:495-543`).
 """
 
 from tendermint_tpu_torch.p2p.addrbook import AddrBook

@@ -11,9 +11,9 @@ the same serialization the reference's local client mutex provides.
 Remote socket apps (`tendermint_tpu_torch.abci.server/client`) get one
 socket per conn like the reference.
 
-Copy of `tendermint_tpu/proxy/__init__.py` without the gRPC branch, which
-waits until `grpcio` is on the card's machine: a `grpc://` spec is
-refused.
+Copy of `tendermint_tpu/proxy/__init__.py`.  A "grpc://host:port" spec
+attaches over gRPC (`abci/grpc_app.py`); without grpcio its
+`new_app_conns` raises `ImportError` naming it.
 """
 
 from __future__ import annotations
@@ -91,8 +91,9 @@ class AppConns:
 class ClientCreator:
     """Creates AppConns for an app spec (reference `proxy/client.go`).
 
-    spec: in-proc registry name ("kvstore", "counter", ...) or
-    "tcp://host:port" for a remote socket app, or an Application instance.
+    spec: in-proc registry name ("kvstore", "counter", ...),
+    "tcp://host:port" for a remote socket app, "grpc://host:port" for an
+    app served over gRPC, or an Application instance.
     """
 
     def __init__(self, spec):
@@ -105,9 +106,9 @@ class ClientCreator:
             from tendermint_tpu_torch.abci.client import new_socket_app_conns
             return new_socket_app_conns(self.spec)
         elif isinstance(self.spec, str) and self.spec.startswith("grpc://"):
-            raise ValueError(
-                f"ABCI over gRPC ({self.spec}) is not ported: it waits "
-                "until grpcio is on the card's machine (ROADMAP A.4)")
+            # ABCI over gRPC (reference proxy/client.go:75-79)
+            from tendermint_tpu_torch.abci.grpc_app import new_grpc_app_conns
+            return new_grpc_app_conns(self.spec)
         else:
             app = create_app(self.spec)
         lock = threading.Lock()

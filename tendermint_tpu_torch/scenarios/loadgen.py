@@ -25,7 +25,8 @@ import numpy as np
 from tendermint_tpu_torch.abci.types import (ERR_BAD_SIG, ERR_ENCODING,
                                              ERR_MEMPOOL_FULL, OK)
 from tendermint_tpu_torch.mempool.mempool import (TAG_ED25519,
-                                                  _priority_digest)
+                                                  _priority_digest,
+                                                  sign_tx_ed25519)
 from tendermint_tpu_torch.types import merkle
 
 OUTCOMES = ("admitted", "dup", "full", "backpressure", "bad_sig",
@@ -66,7 +67,9 @@ def build_corpus(rng, mix: Mix | None = None, *, backend) -> list[dict]:
     """Pre-built `broadcast_tx_*` params dicts, seed-deterministic in
     content AND order (the reference's draws, in its order).  All
     envelopes are signed in one `backend.sign_grouped_templated` call on
-    their 32-byte digests, so the flood loop never pays for signing."""
+    their 32-byte digests, so the flood loop never pays for signing;
+    `backend=None` signs each on the host (`sign_tx_ed25519`, the same
+    bytes), for corpora of a few envelopes."""
     mix = mix or Mix()
     entries: list[dict] = []
     for i in range(mix.unsigned):
@@ -85,7 +88,13 @@ def build_corpus(rng, mix: Mix | None = None, *, backend) -> list[dict]:
         payload = b"lg-b%08d-" % i + rng.randbytes(
             max(mix.payload_bytes - 14, 0))
         to_sign.append((seed, rng.choice(mix.priorities), payload, True))
-    if to_sign:
+    if to_sign and backend is None:
+        for seed, prio, payload, corrupt in to_sign:
+            tx = bytearray(sign_tx_ed25519(seed, payload, priority=prio))
+            if corrupt:
+                tx[40] ^= 0x01           # corrupt one signature byte
+            entries.append({"tx": bytes(tx).hex()})
+    elif to_sign:
         seeds = [t[0] for t in to_sign]
         digests = np.frombuffer(b"".join(
             _priority_digest(t[1], t[2]) for t in to_sign),

@@ -30,8 +30,7 @@ bootstrapped at the snapshot height so the reactor's request window
 starts there, not at genesis).
 
 Copy of `tendermint_tpu/statesync/restore.py`; the chunk checks take the
-backend given to `StateSyncer(backend=)` (`snapshot.hash_chunks`), and
-the metrics are dropped.
+backend given to `StateSyncer(backend=)` (`snapshot.hash_chunks`).
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ server and a JAX client to a port server, a full block included
 (`tests/test_abci_socket.py:39-63`)."""
 
 import socket
+import sys
 
 import pytest
 
@@ -217,7 +218,9 @@ def test_jax_block_over_a_port_server(chain):
         srv.stop()
 
 
-def test_app_error_propagates_and_grpc_is_refused():
+def test_app_error_propagates_and_grpc_is_refused(monkeypatch):
+    """An app error reaches the client; a grpc:// app without grpcio is
+    refused when its connections are made, naming grpcio."""
     srv = _server("port")
     try:
         conns = new_socket_app_conns(srv.addr)
@@ -226,7 +229,8 @@ def test_app_error_propagates_and_grpc_is_refused():
             conns.consensus.deliver_tx(b"x")
     finally:
         srv.stop()
-    with pytest.raises(ValueError, match="grpcio"):
+    monkeypatch.setitem(sys.modules, "grpc", None)     # grpcio absent
+    with pytest.raises(ImportError, match="grpcio"):
         ClientCreator("grpc://127.0.0.1:1").new_app_conns()
 
 

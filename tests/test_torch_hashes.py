@@ -21,6 +21,17 @@ from tendermint_tpu.types import merkle as jax_host_merkle
 from tendermint_tpu_torch.ops import kernels, merkle, sha256, sha512
 from tendermint_tpu_torch.types import merkle as host_merkle
 
+from torch_chains import share_cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cores():
+    """xdist runs several files at once: this worker's share of the cores
+    for torch (several torch pools on the same cores run ~20x slower)."""
+    n = share_cores()
+    yield
+    torch.set_num_threads(n)
+
 RNG = np.random.default_rng(17)
 
 

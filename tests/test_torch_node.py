@@ -10,6 +10,7 @@ no card, gRPC and the JAX-only backends."""
 
 import json
 import os
+import sys
 import time
 import urllib.request
 
@@ -431,12 +432,15 @@ def test_cuda_backend_refused_without_a_card():
      "port's backends"),
     ({"base__crypto_backend": "tpu"}, "port's backends"),
     ({"base__crypto_backend": "supervised"}, "port's backends")])
-def test_refused_settings(setting, match):
-    """gRPC and the JAX package's tpu backend raise, bare or as the
-    supervised ladder's primary, and so does "supervised" as a backend
-    name (the ladder is `crypto.supervised`): the port has none of them,
-    and no fallback runs."""
-    with pytest.raises(ValueError, match=match):
+def test_refused_settings(setting, match, monkeypatch):
+    """gRPC without grpcio and the JAX package's tpu backend raise, bare
+    or as the supervised ladder's primary, and so does "supervised" as a
+    backend name (the ladder is `crypto.supervised`): the port has none of
+    them, and no fallback runs.  (The JAX node warns and runs without its
+    gRPC server when grpcio is missing.)"""
+    monkeypatch.setitem(sys.modules, "grpc", None)     # grpcio absent
+    error = ImportError if "rpc__grpc_laddr" in setting else ValueError
+    with pytest.raises(error, match=match):
         _node(**setting)
 
 

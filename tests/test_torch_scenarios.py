@@ -1,15 +1,19 @@
 """The port's scenario engine and core catalogue held against the JAX
 package's (`tests/test_scenarios.py`'s contract, on the CPU backends):
 
-- the registry: every scenario the port registers has the JAX name,
-  description, tier, wall-clock and metric budgets and invariant names,
-  and `SMOKE_ORDER` is the JAX list;
-- the catalogue's smoke scenarios on `backend="python"`: each passes,
-  and its sealed plan stream, event-log hash and deterministic
-  observations equal the JAX run's on the same seed;
+- the registry: the port registers every JAX scenario (21) with the JAX
+  name, description, tier, wall-clock and metric budgets, declared
+  backend and invariant names, and `SMOKE_ORDER` is the JAX list;
+- the smoke tier on `backend="python"` (the catalogue's four, then
+  `snapshot-torn-tail`, `batchplane-isolation` and `eviction-storm`):
+  each passes, and its sealed plan stream, event-log hash and
+  deterministic observations equal the JAX run's on the same seed;
+- `snapshot-torn-tail` leaves no fail point armed and no crash callback
+  set, at either of its seed-chosen crash sites;
 - the engine's guarantees (seed determinism, registration checks,
   unknown names, the artifact bundle on failure, a crashing body, a
-  seed-range sweep) and `cli chaos list | run | replay`;
+  seed-range sweep) and `cli chaos list | run | replay | smoke | soak |
+  nightly` (their ledgers in the JAX schema);
 - the port's rules: a run that names no backend goes to the card (and
   raises here, where there is none), and "tpu" is refused.
 """
@@ -28,10 +32,6 @@ from tendermint_tpu_torch.scenarios import (SCENARIOS, SMOKE_ORDER,
 pytestmark = pytest.mark.faults
 
 SEED = 11
-# the JAX registry's tiers that the port has not registered yet
-LATER_TIERS = {"snapshot-torn-tail", "snapshot-join", "snapshot-tamper",
-               "batchplane-isolation", "batchplane-flood-isolation",
-               "eviction-storm", "mempool-flood"}
 PORTED = sorted(n for n in SCENARIOS if not n.startswith("_"))
 SMOKE = [n for n in SMOKE_ORDER if n in SCENARIOS]
 
@@ -44,6 +44,14 @@ DETERMINISTIC = {
                          "honest_heights"),
     "device-rung-walk": ("synced", "recovered", "chain_ok", "app_hash_ok",
                          "evicted"),
+    "snapshot-torn-tail": ("crashed", "crash_site", "valid_heights",
+                           "reject_reasons", "restored_height", "replayed",
+                           "parity_state", "parity_app", "blamed"),
+    "eviction-storm": ("offered", "outcomes", "filled", "evict_log_len",
+                       "rejected_delta", "evicted_delta", "recovery_exact",
+                       "recovered_count", "survivor_count",
+                       "resubmit_outcomes", "committed_resubmit"),
+    "batchplane-isolation": ("bad_lanes",),
 }
 
 
@@ -64,13 +72,16 @@ def _spec(s):
 
 def test_registry_equals_jax():
     jax_names = {n for n in jsc.SCENARIOS if not n.startswith("_")}
-    assert set(PORTED) == jax_names - LATER_TIERS
-    assert len(PORTED) == 14
+    assert set(PORTED) == jax_names
+    assert len(PORTED) == 21
     for name in PORTED:
         assert _spec(SCENARIOS[name]) == _spec(jsc.SCENARIOS[name]), name
     assert SMOKE_ORDER == jsc.SMOKE_ORDER
-    assert SMOKE == ["device-wrong-answer", "evidence-flood",
-                     "byz-equivocation", "device-rung-walk"]
+    assert SMOKE == [n for n in jsc.SMOKE_ORDER if n in jsc.SCENARIOS] == [
+        "device-wrong-answer", "evidence-flood", "byz-equivocation",
+        "device-rung-walk", "snapshot-torn-tail", "batchplane-isolation",
+        "eviction-storm"]
+    assert sorted(n for n in PORTED if SCENARIOS[n].smoke) == sorted(SMOKE)
     assert sc.KNOWN_BACKENDS == ("python", "rig", "cuda", "cuda-rig",
                                  "native", "ladder")
     assert (sc.DEFAULT_SEED, sc.CHAOS_RUN_SCHEMA, sc.DEFAULT_CHAOS_LEDGER) \
@@ -106,6 +117,22 @@ def test_smoke_scenario_matches_jax(name, tmp_path):
     assert r.backend == "python"
     for fname in ("trace.json", "metrics.json", "result.json"):
         assert os.path.exists(os.path.join(r.artifact_dir, fname))
+
+
+def test_torn_tail_leaves_no_fail_point_armed():
+    """Both crash sites (the seed chooses one): the crash fires, and after
+    the run no fail point is armed and no crash callback is set."""
+    from tendermint_tpu_torch.utils import fail
+    sites = {}
+    for seed in range(12):
+        r = run_scenario("snapshot-torn-tail", seed=seed, backend="python")
+        assert r.ok, r.failures
+        assert r.observations["crashed"]
+        assert fail._target is None and fail._callback is None
+        sites.setdefault(r.observations["crash_site"], seed)
+        if len(sites) == 2:
+            break
+    assert set(sites) == {"Snapshot.chunkWritten", "Snapshot.chunksWritten"}
 
 
 def test_event_log_hash_is_seed_deterministic():
@@ -237,12 +264,13 @@ def test_no_backend_means_the_card_and_raises_without_one():
     import torch
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default run would use it")
-    for name in SMOKE + ["live-rounds-100-chaos"]:
+    for name in SMOKE + ["live-rounds-100-chaos", "mempool-flood"]:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_scenario(name)
     assert sc.resolve_backend(SCENARIOS["device-wrong-answer"]) == "cuda"
     assert sc.resolve_backend(SCENARIOS["live-rounds-50"]) == "cuda-rig"
     assert sc.resolve_backend(SCENARIOS["live-rounds-50"], "rig") == "rig"
+    assert sc.resolve_backend(SCENARIOS["mempool-flood"]) == "cuda-rig"
 
 
 def test_tpu_is_refused_naming_cuda():
@@ -311,3 +339,150 @@ def test_cli_chaos_run_then_replay_matches(tmp_path, capsys):
     bad.write_text(json.dumps(m))
     assert main(["chaos", "replay", "--manifest", str(bad)]) == 1
     assert "DIVERGED" in capsys.readouterr().out
+
+
+def test_cli_chaos_smoke_reports_budget_skips(capsys):
+    """The smoke runner never silently drops scenarios: past the
+    wall-clock budget the remainder is reported as SKIP lines
+    (`tests/test_scenarios.py`'s case, on the python backend)."""
+    from tendermint_tpu_torch.cli import main
+    rc = main(["chaos", "smoke", "--budget", "0.05", "--backend", "python"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "PASS device-wrong-answer" in out
+    for name in SMOKE[1:]:
+        assert f"SKIP {name} (budget 0s spent)" in out
+    assert out.splitlines()[-1].startswith(
+        f"chaos smoke: 1/1 passed, {len(SMOKE) - 1} skipped in ")
+
+
+def _toy(name, body, budgets):
+    register(name, "toy", safety=[("s", lambda ctx, obs: None)],
+             liveness=[("l", lambda ctx, obs: None)], budgets=budgets,
+             backend="python")(body)
+
+
+def _ledger(path):
+    from tendermint_tpu.utils import ledger as jledger
+    from tendermint_tpu_torch.scenarios.engine import CHAOS_LEDGER_SCHEMA
+    from tendermint_tpu_torch.utils import ledger as ledgermod
+    entries = ledgermod.load(path)
+    assert entries == jledger.load(path)
+    runs = [e for e in entries if e.get("schema") == sc.CHAOS_RUN_SCHEMA]
+    aggs = [e for e in entries if e.get("schema") == CHAOS_LEDGER_SCHEMA]
+    assert len(runs) + len(aggs) == len(entries)
+    return runs, aggs
+
+
+def test_cli_chaos_nightly_green_path(tmp_path, capsys):
+    """The gate on a passing catalogue subset: per-seed run entries and
+    one aggregate row land in the ledger, with the JAX schemas and keys,
+    and the exit code is 0 (`tests/test_metric_budgets.py`'s case, on
+    the python backend)."""
+    from tendermint_tpu_torch.cli import main
+    ledger_path = str(tmp_path / "ledger.jsonl")
+    rc = main(["chaos", "nightly", "--backend", "python",
+               "--scenarios", "device-wrong-answer,byz-equivocation",
+               "--seed-range", "0:2", "--budget-ledger", ledger_path,
+               "--artifacts", str(tmp_path / "arts")])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "chaos nightly seeds 0:2: 4/4 passed" in out
+    runs, aggs = _ledger(ledger_path)
+    # a sweep row per scenario, then the nightly's own row
+    assert len(runs) == 4 and len(aggs) == 3
+    assert sorted((e["scenario"], e["seed"]) for e in runs) == [
+        (n, s) for n in ("byz-equivocation", "device-wrong-answer")
+        for s in (0, 1)]
+    assert all(e["backend"] == "python" and e["ok"] for e in runs)
+    nightly = [e for e in aggs if e.get("nightly")]
+    assert len(nightly) == 1
+    assert set(nightly[0]) == {"schema", "nightly", "seed_range", "n_seeds",
+                               "configs", "skipped", "backend", "timestamp"}
+    assert nightly[0]["backend"] == "python"
+    assert set(nightly[0]["configs"]) == {"device-wrong-answer",
+                                          "byz-equivocation"}
+
+
+def test_cli_chaos_nightly_exits_nonzero_on_breach(tmp_path, capsys):
+    """A metric breach anywhere in the sweep: nonzero exit and the
+    triage bundle path printed."""
+    from tendermint_tpu_torch.cli import main
+    _toy("_bgt-red", lambda ctx: {"budget_metrics": {"lat_p99": 9.0}},
+         budgets={"lat_p99": {"max": 2.0}})
+    try:
+        rc = main(["chaos", "nightly", "--scenarios", "_bgt-red",
+                   "--backend", "python", "--seed-range", "0:2",
+                   "--budget-ledger", str(tmp_path / "ledger.jsonl"),
+                   "--artifacts", str(tmp_path / "arts")])
+    finally:
+        SCENARIOS.pop("_bgt-red", None)
+    out = capsys.readouterr().out
+    assert rc == 1, out
+    assert "triage: " in out
+    assert "2 over budget" in out
+    runs, _ = _ledger(str(tmp_path / "ledger.jsonl"))
+    assert [e["budget_metrics"]["lat_p99"] for e in runs] == [
+        {"max": 2.0, "value": 9.0, "ok": False}] * 2
+
+
+def test_cli_chaos_nightly_skips_are_loud(tmp_path, capsys):
+    """A near-zero global budget: the first scenario spends it, the
+    rest are SKIPPED and SAY so."""
+    from tendermint_tpu_torch.cli import main
+    rc = main(["chaos", "nightly", "--backend", "python",
+               "--scenarios", "device-wrong-answer,byz-equivocation",
+               "--seed-range", "0:2", "--budget", "0.01",
+               "--budget-ledger", "",
+               "--artifacts", str(tmp_path / "arts")])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "PASS device-wrong-answer" in out
+    assert "SKIP byz-equivocation x2 seeds" in out
+    assert "1 scenarios skipped" in out
+
+
+@pytest.mark.parametrize("command", ["nightly", "soak"])
+def test_cli_chaos_sweeps_reject_unknown_scenario(command, capsys):
+    from tendermint_tpu.cli import main as jmain
+    from tendermint_tpu_torch.cli import main
+    args = ["chaos", command, "--scenarios", "no-such-rig"]
+    assert main(args) == 2 == jmain(args)
+    assert "unknown scenarios: no-such-rig" in capsys.readouterr().err
+
+
+def test_cli_chaos_soak_at_a_tiny_seed_range(tmp_path, capsys):
+    """`chaos soak` over one scenario and one seed: its JSON summary and
+    its aggregate ledger row have the JAX soak's keys, and the sweep's
+    hash is the JAX run's."""
+    from tendermint_tpu.cli import main as jmain
+    from tendermint_tpu_torch.cli import main
+    out = {}
+    for pkg, fn in (("port", main), ("jax", jmain)):
+        ledger_path = str(tmp_path / f"{pkg}.jsonl")
+        args = ["chaos", "soak", "--scenarios", "device-wrong-answer",
+                "--seed-range", "3:4", "--budget-ledger", ledger_path,
+                "--artifacts", str(tmp_path / pkg), "--keep-artifacts",
+                "--json"]
+        rc = fn(args + (["--backend", "python"] if pkg == "port" else []))
+        printed = capsys.readouterr().out
+        assert rc == 0, printed
+        out[pkg] = (json.loads(printed), ledger_path)
+    (got, path), (want, jpath) = out["port"], out["jax"]
+    assert set(got) == set(want)
+    assert (got["runs"], got["failures"], got["breaches"], got["skipped"]) \
+        == (1, 0, 0, []) == (want["runs"], want["failures"],
+                             want["breaches"], want["skipped"])
+    assert set(got["configs"]["device-wrong-answer"]) == \
+        set(want["configs"]["device-wrong-answer"])
+    runs, aggs = _ledger(path)
+    _, jaggs = _ledger(jpath)
+    assert runs == [] and len(aggs) == len(jaggs) == 1
+    assert set(aggs[0]) == set(jaggs[0])
+    assert aggs[0]["soak"] and aggs[0]["tier"] == "smoke"
+    hashes = []
+    for pkg in ("port", "jax"):
+        with open(tmp_path / pkg / "device-wrong-answer-seed3"
+                  / "result.json") as f:
+            hashes.append(json.load(f)["event_log_hash"])
+    assert hashes[0] == hashes[1]

@@ -5,7 +5,9 @@ out).  Each stress scenario runs on the CPU backend it declares
 passes, and its sealed plan stream and event-log hash are the JAX
 run's, so a wrong port of a body's plan (the adversary cast, the
 equivocation heights, the partition schedule) shows.  On the card the
-smoke's cell F runs the heaviest two.
+smoke's cell F runs the heaviest two, and `python3 chip_smoke.py
+--stress-tier` the four of the state-sync, batch-plane and mempool
+tiers.
 
 Run explicitly with:
 
@@ -32,12 +34,14 @@ STRESS = sorted(n for n, sc in SCENARIOS.items() if not sc.smoke
 
 
 def test_stress_catalog_is_what_we_think():
-    assert STRESS == ["crash-restart-storm", "device-storm-partition",
+    assert STRESS == ["batchplane-flood-isolation", "crash-restart-storm",
+                      "device-storm-partition",
                       "equivocation-crash-restart",
                       "live-rounds-100-chaos", "live-rounds-50",
-                      "partial-commit-replay", "partition-heal",
-                      "partition-heal-25", "stale-commit-replay",
-                      "stale-replay-partition"]
+                      "mempool-flood", "partial-commit-replay",
+                      "partition-heal", "partition-heal-25",
+                      "snapshot-join", "snapshot-tamper",
+                      "stale-commit-replay", "stale-replay-partition"]
 
 
 def test_every_stress_scenario_declares_metric_budgets():

@@ -29,6 +29,17 @@ import torch
 from tendermint_tpu.ops import sha256 as jax_sha256
 from tendermint_tpu_torch.ops import sha256
 
+from torch_chains import share_cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cores():
+    """xdist runs several files at once: this worker's share of the cores
+    for torch (several torch pools on the same cores run ~20x slower)."""
+    n = share_cores()
+    yield
+    torch.set_num_threads(n)
+
 SRC = (Path(__file__).resolve().parents[1] / "tendermint_tpu_torch" / "csrc"
        / "sha256_prefixed.cu").read_text()
 

@@ -15,6 +15,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from tendermint_tpu.abci.app import create_app as jcreate_app
 from tendermint_tpu.crypto import backend as jcb
@@ -43,7 +44,16 @@ from tendermint_tpu_torch.utils.db import MemDB
 
 from chainutil import (build_chain, kvstore_app_hashes, make_genesis,
                        make_validators)
-from torch_chains import port_chain
+from torch_chains import port_chain, share_cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cores():
+    """xdist runs several files at once: this worker's share of the cores
+    for torch (several torch pools on the same cores run ~20x slower)."""
+    n = share_cores()
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,17 @@ from tendermint_tpu.utils import tracing as jtracing
 from tendermint_tpu_torch.utils import attribution, trace, tracing
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
+from torch_chains import share_cores
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _share_cores():
+    """xdist runs several files at once: this worker's share of the cores
+    for torch (several torch pools on the same cores run ~20x slower)."""
+    n = share_cores()
+    yield
+    torch.set_num_threads(n)
+
 SEEDS = (0, 1, 2, 3, 4, 5)
 NAMES = ("fastsync.prepare", "fastsync.verify", "fastsync.apply",
          "verify.dispatch", "verify.collect", "transfer.h2d",
