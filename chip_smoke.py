@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, in order; any mismatch or exception exits non-zero:
 
 1. build the seven CUDA kernels from `tendermint_tpu_torch/csrc` with
-   nvcc (sm_90a) and print the card's name and power limit;
+   nvcc (sm_90a) and print the card's name and power limit; start nvcc
+   on the kernels line's four cycle microkernels in the background;
 2. hold each kernel against its plain PyTorch version on the card on small
    edge-case inputs, bytes and bools exactly equal (K4 also against
    hashlib on every row, on both of its routes: rows of 55 to 65,536
@@ -26,6 +27,15 @@ Phases, in order; any mismatch or exception exits non-zero:
    9, 12, 33 and 200 lanes (not multiples
    of its 4-thread quads or 32-lane blocks); K6 on edge lanes with mixed
    powers at 4,096 lanes in one row and 40 rows of 100);
+2b. the warm plane as a user runs it: `python -m
+   tendermint_tpu_torch.crypto.warmcompile` in a process of its own,
+   started once the kernels are built and run beside phase 2, on
+   `bench_config3_specs(100, 10_000, 625, 62_500)` (templated K1 at
+   65,536 lanes over a 128-key set, K2 for its tables, K3 at 65,536
+   lanes) and a per-lane K1 spec at 128 lanes, each spec's seconds and
+   launches printed, and each spec's outputs (K2's tables and mask, K1's
+   mask, K3's signatures) held byte for byte against the plain versions
+   on the same inputs in this process;
 3. the main paths, each with every launch count set to 0 just before it
    and read just after it:
    a. replay a fast-sync chain at BASELINE config 3's shape (100
@@ -34,7 +44,8 @@ Phases, in order; any mismatch or exception exits non-zero:
       final app hash against a host kvstore run; then BASELINE config
       2's Merkle cell: one `roots` call (K7) over 2,048 trees x 1,024
       leaves x 64 B and the part sets of those 2,048 blocks (K4);
-   b. mempool admission: a seeded ~12.4k-submission corpus through
+   b. mempool admission: a seeded ~6.2k-submission corpus (the JAX
+      load generator's mix at half its default counts) through
       `Mempool.check_tx` from 1,024 threads, signature lanes coalesced by
       the batch plane onto K5 (with the validators' prevotes riding the
       consensus class on K1), and one block per 2,048-entry round applied
@@ -60,7 +71,7 @@ Phases, in order; any mismatch or exception exits non-zero:
       K1 launches, device-idle share); the first pipelined run without a
       store also with the flight recorder cleared before it, its spans
       and the metrics kept;
-   e. BASELINE config 4 at its full 8 chains x 131,072 header+commit
+   e. BASELINE config 4 cut to 4 of its 8 chains x 131,072 header+commit
       pairs x 8 validators (signed by K3): `verify_chains_batched`
       through a `BatchPlane(CudaBackend())` twice (the first pass builds
       the tables), one K1 call of 1,048,576 lanes per chain, then a
@@ -76,7 +87,9 @@ Phases, in order; any mismatch or exception exits non-zero:
       `start()` (the node's boot); every mempool fed the same 300 kvstore
       txs of 64 bytes; run until every node has committed 4 heights, a
       forged vote (one flipped signature bit) put into every queue during
-      a burst; then BASELINE config 1's 4-validator testnet with WALs and
+      a burst, with the lock witness on for every lock the net builds
+      (the edges recorded printed; an inversion fails the smoke); then
+      BASELINE config 1's 4-validator testnet with WALs and
       `SQLiteDB` stores runs 3 heights, stops, restarts through the
       `Handshaker` and its WALs (each seen commit re-verified on K1) and
       commits 2 more, and `Playback` replays node 0's WAL;
@@ -89,7 +102,8 @@ Phases, in order; any mismatch or exception exits non-zero:
       `ConsensusConfig()` timeouts) dialing each other as persistent
       peers; 300 signed and 16 forged envelope txs (K3) submitted to
       node 0 and gossiped (K5 on every node); a forged vote sent on one
-      link; after 10 more heights a fifth node with an empty store
+      link, the lock witness on for every lock cell A builds; after 6
+      more heights a fifth node with an empty store
       fast-syncs through `BlockchainReactor` (K1 per 64-block window),
       switches to consensus and follows 3 more heights.  Cell B, BASELINE
       config 3's width cut to 500 blocks (100 validators, a 12 KB tx a
@@ -99,7 +113,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    h. the node as its users start it: cell C, BASELINE config 1 as `cli
       testnet --n 4` writes it, four `cli node` processes on the card
       (kvstore, SQLite stores, the JAX P2P, consensus and mempool
-      defaults), nodes 1-3 knowing node 0 only and meshing through PEX;
+      defaults), nodes 1-3 knowing node 0 only and meshing through PEX,
+      after `cli init --warm-crypto` on node 0's home wrote its set's comb
+      tables (K2) into the home's on-disk cache under this run's
+      temporary directory (the file held byte for byte against K2 and
+      its plain version on the card; node 0 boots on it with no K2
+      launch, each other node builds once, read from the scrapes; each
+      node's seconds from its start to its first commit printed);
       300 signed envelopes (K3 in this process), 20 of them over
       `broadcast_tx_commit` and the rest over `broadcast_tx_sync`, and
       20 forged ones, spread over the four RPC ports; node 3 SIGKILLed after 8 heights, down for 4,
@@ -130,8 +150,8 @@ Phases, in order; any mismatch or exception exits non-zero:
       on K4): create, verify, and a restore from three sources, one
       serving tampered chunks and one a forged manifest; then the user's
       path: `cli snapshot create`, `list`, `verify`, `restore` into a
-      fresh home (a second refused, a corrupt chunk flagged) and `cli
-      node` on the restored home;
+      fresh home (one into the source home refused, a corrupt chunk of a
+      copy flagged) and `cli node` on the restored home;
    j. cell F, the fault-scenario engine (`tendermint_tpu_torch/
       scenarios/`) on its default card backends, every `CudaBackend` it
       builds a recording one: the smoke tier (`device-wrong-answer`,
@@ -279,6 +299,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 
 # H100 SXM peaks for the bounds in the kernels line: HBM bandwidth from
 # NVIDIA's data sheet; 32-bit integer operations (multiply-add, add, logic,
@@ -288,10 +309,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 SEED = 20261017
+T0 = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print `msg` after the seconds since the script started."""
+    print(f"{time.perf_counter() - T0:7.1f} {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -667,6 +690,35 @@ def _sha256_rounds(st: list, kw: list) -> list:
     return [(x + y) & M32 for x, y in zip(st, (a, b, c, d, e, f, g, h))]
 
 
+# (csrc, kernel, flags) -> (the microkernel library's path, its nvcc)
+_MICRO_BUILDS = {}
+# the kernels whose builds the kernels line reads cycles from
+MICRO_KERNELS = ("sign_grouped", "verify_raw", "verify_tally",
+                 "sha256_prefixed")
+
+
+def start_micro_build(csrc, kernel: str, flags=()):
+    """Start nvcc on the microkernel of `kernel`'s source (`fe_mul_cycles`)
+    in the background, once; the library's path."""
+    import tempfile
+    from pathlib import Path
+    from tendermint_tpu_torch.ops import kernels
+    csrc = Path(csrc).resolve()
+    key = (csrc, kernel, tuple(flags))
+    if key not in _MICRO_BUILDS:
+        has_sha256 = '"tm_sha256.cuh"' in (csrc / f"{kernel}.cu").read_text()
+        nv_flags = [*flags, "-DMICRO_SHA256"] if has_sha256 else list(flags)
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="micro-", dir=kernels.BUILD_DIR))
+        (work / "micro.cu").write_text(MICRO_CU % {"kernel": kernel})
+        so = work / "micro.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *nv_flags, "-I",
+               str(csrc), "-shared", "-o", str(so), str(work / "micro.cu")]
+        _MICRO_BUILDS[key] = so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return _MICRO_BUILDS[key][0]
+
+
 def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
     """Build the microkernel with `kernel`'s source (`csrc/<kernel>.cu`)
     and extra nvcc `flags`, run it on card 0 and return the cycles of one
@@ -682,25 +734,17 @@ def fe_mul_cycles(csrc, kernel: str, flags=(), n: int = 256) -> dict:
     (`sha256_rounds_cycles`, as many steps).  Each chain's result is
     checked against Python integers."""
     import ctypes
-    import tempfile
     from pathlib import Path
     import numpy as np
     import torch
-    from tendermint_tpu_torch.ops import kernels
     from tendermint_tpu_torch.ops.sha256 import _compress as sha256_compress
     csrc = Path(csrc).resolve()
     has_sha256 = '"tm_sha256.cuh"' in (csrc / f"{kernel}.cu").read_text()
-    flags = [*flags, "-DMICRO_SHA256"] if has_sha256 else list(flags)
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="micro-", dir=kernels.BUILD_DIR))
-    (work / "micro.cu").write_text(MICRO_CU % {"kernel": kernel})
-    so = work / "micro.so"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", str(csrc),
-           "-shared", "-o", str(so), str(work / "micro.cu")]
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    if out.returncode:
-        raise RuntimeError(f"microkernel build failed:\n{out.stdout}"
-                           f"{out.stderr}")
+    so = start_micro_build(csrc, kernel, tuple(flags))
+    proc = _MICRO_BUILDS[csrc, kernel, tuple(flags)][1]
+    out, err = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"microkernel build failed:\n{out}{err}")
     lib = ctypes.CDLL(str(so))
     lib.tm_micro.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                      ctypes.c_void_p]
@@ -880,14 +924,22 @@ def check_k4(rng, dev, lengths=K4_CHECK_LENGTHS, counts=K4_CHECK_COUNTS,
         for name, rows, _ in batches:
             routes.setdefault(s256._k4_route(width, rows.data_ptr()),
                               []).append(name)
+        if width <= plain_max:
+            # the plain version (`sha256_prefixed_plain`: `sha256` of the
+            # prefixed rows) on both prefixes' rows in one call: its time is
+            # its steps, one per block, whatever the row count
+            rows = torch.as_tensor(host, device=dev)
+            pre = torch.zeros((2 * len(host), 1), dtype=torch.uint8,
+                              device=dev)
+            pre[len(host):] = 1
+            plain = s256.sha256(torch.cat([pre, torch.cat([rows, rows])], 1))
         for prefix in (0, 1):
             want = torch.as_tensor(np.stack([np.frombuffer(hashlib.sha256(
                 bytes([prefix]) + row.tobytes()).digest(), np.uint8)
                 for row in host]), device=dev)
             if width <= plain_max:
-                plain = s256.sha256_prefixed_plain(
-                    torch.as_tensor(host, device=dev), prefix)
-                require(torch.equal(plain, want),
+                require(torch.equal(plain[prefix * len(host):
+                                          (prefix + 1) * len(host)], want),
                         f"plain != hashlib at {width} B, prefix {prefix}")
             for name, rows, first in batches:
                 got = s256.sha256_prefixed(rows, prefix)
@@ -918,16 +970,24 @@ def phase_check() -> None:
     check_k4(rng, dev)
 
     # K2 at V = 1, 4 (key 2 undecodable), 100 (key 50 undecodable) and
-    # 128: ok masks equal, every valid key's table bytes equal
-    for v, bad in K2_CHECK_SETS:
-        _, _, _, _, set_v = _keys(v, invalid=bad)
+    # 128: ok masks equal, every valid key's table bytes equal.  The
+    # plain version builds each key's table from that key alone, so one
+    # plain call over the four sets' keys side by side gives each set's
+    # tables (its launch-bound steps once, not four times)
+    sets = [_keys(v, invalid=bad)[4] for v, bad in K2_CHECK_SETS]
+    ptbl_all, pok_all = ed.build_neg_comb_plain(t(np.concatenate(sets)))
+    first = 0
+    for (v, bad), set_v in zip(K2_CHECK_SETS, sets):
         tbl_v, ok_v = ed.build_neg_comb(t(set_v))
-        ptbl, pok = ed.build_neg_comb_plain(t(set_v))
+        ptbl, pok = (ptbl_all[:, :, first:first + v],
+                     pok_all[first:first + v])
+        first += v
         require(torch.equal(ok_v, pok) and ok_v.tolist() == [
             i != bad for i in range(v)], f"K2 ok mask at V = {v}")
         require(torch.equal(tbl_v[:, :, ok_v], ptbl[:, :, pok]),
                 f"K2 table bytes at V = {v}")
         del tbl_v, ptbl
+    del ptbl_all
     log(f"[check] K2 build_neg_comb == plain (ok mask + valid-key bytes) at "
         f"(V, undecodable key) = {K2_CHECK_SETS}")
     seeds, a, pre, pubs, set_pubs = _keys(4, invalid=2)
@@ -936,9 +996,12 @@ def phase_check() -> None:
     # K3 on ragged batches with lanes whose key or template index is out
     # of range mixed into the warps (zero signatures), and on 256 valid
     # lanes; sampled lanes also against the golden signer
+    # (the plain version signs each lane alone: one plain call over every
+    # size's lanes side by side, each size's K3 launch held to its slice)
     base = ed.base_table(dev)
     T = 8
     templates = rng.integers(0, 256, (T, 128), dtype=np.uint8)
+    batches = []
     for n in K3_CHECK_LANES:
         vi = rng.integers(0, 4, n).astype(np.int32)
         ti = rng.integers(0, T, n).astype(np.int32)
@@ -947,11 +1010,17 @@ def phase_check() -> None:
             vi[rng.random(n) < 0.05] = -1
             ti[rng.random(n) < 0.1] = T
             ti[rng.random(n) < 0.05] = -3
+        batches.append((n, vi, ti))
+    psigs_all = ed.sign_grouped_templated_plain(
+        t(a), t(pre), t(pubs), t(np.concatenate([b[1] for b in batches])),
+        t(np.concatenate([b[2] for b in batches])), t(templates), base)
+    first = 0
+    for n, vi, ti in batches:
         valid = (vi >= 0) & (vi < 4) & (ti >= 0) & (ti < T)
         sigs = ed.sign_grouped_templated(t(a), t(pre), t(pubs), t(vi),
                                          t(ti), t(templates), base)
-        psigs = ed.sign_grouped_templated_plain(
-            t(a), t(pre), t(pubs), t(vi), t(ti), t(templates), base)
+        psigs = psigs_all[first:first + n]
+        first += n
         require(torch.equal(sigs, psigs), f"K3 != plain at N = {n}")
         require(not bool(sigs[t(~valid)].any()), f"K3 signed a lane with "
                 f"no key or message at N = {n}")
@@ -1015,16 +1084,20 @@ def phase_check() -> None:
 
     # K5 on edge lanes, at both message lengths, at lane counts that are
     # not multiples of a quad (4 threads) or a block (32 lanes)
+    # (lane i of every size is edge lane i mod 12 and the plain version
+    # verifies each lane alone, so one plain call at the largest size
+    # holds every size: its first n lanes)
     for msg_len in (32, 96):
         lanes = edge_lanes(msg_len, rng)
         golden = [ref.verify(*x) for x in lanes]
+        raw_of = lambda n: tuple(t(np.frombuffer(  # noqa: E731
+            b"".join(lanes[i % len(lanes)][k] for i in range(n)),
+            np.uint8).reshape(n, -1).copy()) for k in range(3))
+        plain = ed.verify_batch_plain(*raw_of(max(K5_CHECK_LANES)), base)
         for n in K5_CHECK_LANES:
-            rows = [lanes[i % len(lanes)] for i in range(n)]
-            raw = tuple(t(np.frombuffer(b"".join(x[k] for x in rows),
-                                        np.uint8).reshape(n, -1).copy())
-                        for k in range(3))
+            raw = raw_of(n)
             got = ed.verify_batch(*raw, base)
-            require(torch.equal(got, ed.verify_batch_plain(*raw, base)),
+            require(torch.equal(got, plain[:n]),
                     f"K5 != plain (M {msg_len}, N {n})")
             require(got.tolist() == [golden[i % len(lanes)]
                                      for i in range(n)],
@@ -1052,9 +1125,11 @@ def phase_check() -> None:
         pw = t(pw)
         k5 = ed.verify_batch(*raw, base)
         passed = 0
+        # the plain version's verify once; its tally at each total
+        plain_ok = ed.verify_batch_plain(*raw, base)
         for total in (0, int(pw.sum()) // rows, 2**62):
             got = ed.verify_tally(*raw, pw, rows, total, base)
-            want = ed.verify_tally_plain(*raw, pw, rows, total, base)
+            want = ed.tally_plain(plain_ok, pw, rows, total)
             require(all(torch.equal(g, w) for g, w in zip(got, want)),
                     f"K6 != plain ({n} lanes, {rows} rows, total {total})")
             require(torch.equal(got[0], k5), "K6 mask != K5 mask")
@@ -1109,6 +1184,7 @@ def check_k1_lanes(tbl, ok, keys, tm, base, rng, sizes=None) -> None:
     t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     a, pre, pubs = keys
     T = len(tm)
+    batches = []
     for n in sizes or K1_CHECK_LANES:
         vi = rng.integers(0, 4, n).astype(np.int32)
         ti = rng.integers(0, T, n).astype(np.int32)
@@ -1116,15 +1192,28 @@ def check_k1_lanes(tbl, ok, keys, tm, base, rng, sizes=None) -> None:
                                        t(tm), base).cpu().numpy()
         if n > 1:
             _forge_lanes(sg, vi, ti, T, rng)
+        batches.append((n, vi, ti, sg))
+    # the plain versions verify each lane alone: one plain call per route
+    # over every size's lanes side by side, each launch held to its slice
+    cat = lambda k: np.concatenate([b[k] for b in batches])  # noqa: E731
+    vi_all, ti_all, sg_all = cat(1), cat(2), cat(3)
+    plain_t = ed.verify_grouped_templated_plain(
+        tbl, ok, t(pubs), t(vi_all), t(ti_all), t(tm), t(sg_all), base)
+    plain_l = ed.verify_grouped_plain(
+        tbl, ok, t(vi_all), t(pubs[vi_all.clip(0, 3)]),
+        t(tm[ti_all.clip(0, T - 1)]), t(sg_all), base)
+    first = 0
+    for n, vi, ti, sg in batches:
         targs = (tbl, ok, t(pubs), t(vi), t(ti), t(tm), t(sg), base)
         got = ed.verify_grouped_templated(*targs)
-        require(torch.equal(got, ed.verify_grouped_templated_plain(*targs)),
+        require(torch.equal(got, plain_t[first:first + n]),
                 f"K1 != plain at N = {n}")
         vc, tc = vi.clip(0, 3), ti.clip(0, T - 1)
         largs = (tbl, ok, t(vi), t(pubs[vc]), t(tm[tc]), t(sg), base)
         got_l = ed.verify_grouped(*largs)
-        require(torch.equal(got_l, ed.verify_grouped_plain(*largs)),
+        require(torch.equal(got_l, plain_l[first:first + n]),
                 f"K1 (per-lane keys) != plain at N = {n}")
+        first += n
         inside = (vi >= 0) & (vi < 4) & (ti >= 0) & (ti < T)
         require(not bool(got[t(~inside)].any()) and
                 not bool(got_l[t((vi < 0) | (vi >= 4))].any()),
@@ -1150,25 +1239,42 @@ def check_k7(rng, dev=None, leaves=K7_CHECK_LEAVES) -> None:
     shared = [n for n in leaves if 2 * n * 32 <= merkle.MAX_SHARED_BYTES]
     require(len(shared) < len(leaves), "no K7 check past the shared-memory "
             "limit")
+    from tendermint_tpu_torch.ops.sha256 import sha256_prefixed_plain
+    batches = {}                            # n -> ([data per width], h)
+    for n in leaves:
+        data = [torch.as_tensor(rng.integers(0, 256, (2, 3, n, width),
+                                             dtype=np.uint8), device=dev)
+                for width in K7_CHECK_LEAF_LENS]
+        batches[n] = data, torch.as_tensor(rng.integers(
+            0, 256, (2, 3, n, 32), dtype=np.uint8), device=dev)
+    # `roots_plain` is the plain leaf hashes, then the plain tree over
+    # them; both work on each row or tree alone, so the plain leaf hashes
+    # run once per width over every n's leaves side by side, and the
+    # plain tree once per n over every width's trees and the given
+    # hashes stacked
+    leaf = {}
+    for k in range(len(K7_CHECK_LEAF_LENS)):
+        rows = [batches[n][0][k].reshape(6 * n, K7_CHECK_LEAF_LENS[k])
+                for n in leaves]
+        hashed = sha256_prefixed_plain(torch.cat(rows), merkle.LEAF_PREFIX)
+        for n, part in zip(leaves, hashed.split([len(r) for r in rows])):
+            leaf[n, k] = part.reshape(2, 3, n, 32)
     hosted = 0
     for n in leaves:
-        for width in K7_CHECK_LEAF_LENS:
-            data = torch.as_tensor(rng.integers(0, 256, (2, 3, n, width),
-                                                dtype=np.uint8), device=dev)
-            got = merkle.roots(data)
-            require(got.shape == (2, 3, 32) and
-                    torch.equal(got, merkle.roots_plain(data)),
+        data, h = batches[n]
+        plain = merkle.root_from_leaf_hashes_plain(torch.stack(
+            [leaf[n, k] for k in range(len(data))] + [h]))
+        for k, width in enumerate(K7_CHECK_LEAF_LENS):
+            got = merkle.roots(data[k])
+            require(got.shape == (2, 3, 32) and torch.equal(got, plain[k]),
                     f"K7 != plain at n = {n}, L = {width}")
             if width in (0, 119) and hosted < 8:
-                host = data[1, 2].cpu().numpy()
+                host = data[k][1, 2].cpu().numpy()
                 require(got[1, 2].cpu().numpy().tobytes() == host_merkle.root(
                     [host[i].tobytes() for i in range(n)]),
                     f"K7 != host tree at n = {n}, L = {width}")
                 hosted += 1
-        h = torch.as_tensor(rng.integers(0, 256, (2, 3, n, 32),
-                                         dtype=np.uint8), device=dev)
-        require(torch.equal(merkle.root_from_leaf_hashes(h),
-                            merkle.root_from_leaf_hashes_plain(h)),
+        require(torch.equal(merkle.root_from_leaf_hashes(h), plain[-1]),
                 f"K7 (given leaf hashes) != plain at n = {n}")
     require(hosted == 8, f"{hosted} K7 roots held against the host tree")
     log(f"[check] K7 roots == plain on [2, 3, n, L] at n = {leaves} "
@@ -1551,7 +1657,9 @@ def _roots_cost(trees: int, leaves: int, leaf_len: int) -> tuple:
 # the JAX package's defaults (`scenarios/ingress.py`): kvstore app,
 # MempoolConfig(), the batch plane's 1,024-lane target and 4,096-lane
 # flush cap, and Tendermint's MaxBlockSizeTxs (tendermint_tpu/config.py:126)
-MEMPOOL_MIX = dict(unsigned=2048, signed=8192, bad_sig=512, dup_frac=0.15,
+# the load generator's mix at half its default counts (2,048 unsigned,
+# 8,192 signed, 512 forged): the smoke's time limit
+MEMPOOL_MIX = dict(unsigned=1024, signed=4096, bad_sig=256, dup_frac=0.15,
                    payload_bytes=64, priorities=(0, 1, 2, 5, 9))
 MEMPOOL_ROUND, MEMPOOL_WORKERS = 2048, 1024
 
@@ -1664,9 +1772,9 @@ def check_mempool(mp_ctx: dict, launches: dict) -> None:
     digests = rows(lambda p: _priority_digest(p[4], p[3]), 32)
     base = ed.base_table(dev)
     valid = []
-    for lo in range(0, len(lanes), 4096):
+    for lo in range(0, len(lanes), 65536):
         valid += ed.verify_batch_plain(
-            *(torch.as_tensor(a[lo:lo + 4096].copy(), device=dev)
+            *(torch.as_tensor(a[lo:lo + 65536].copy(), device=dev)
               for a in (pubs, digests, sigs)), base).tolist()
     valid = dict(zip(lanes, valid))
     n_gold = min(64, len(lanes))
@@ -2400,9 +2508,9 @@ def check_restart(be, chain, want_hash: bytes) -> None:
 
 # -- the main path: the light client's multi-chain grid (config 4) --------
 
-LIGHT_CHAINS, LIGHT_HEADERS, LIGHT_VALS = 8, 131_072, 8
+LIGHT_CHAINS, LIGHT_HEADERS, LIGHT_VALS = 4, 131_072, 8
 LIGHT_SIGN_HEADERS = 8192               # 65,536 lanes per K3 call
-LIGHT_TAMPER = (5, 77_777, 3)           # chain, header index, lane
+LIGHT_TAMPER = (2, 77_777, 3)           # chain, header index, lane
 LC_HEADERS, LC_CHANGE, LC_GROW = 6, 3, 2   # the follower's short chain
 
 
@@ -2513,8 +2621,9 @@ def follow(plane, cid: str, headers: list, genesis_set) -> list:
 
 
 def phase_light() -> dict:
-    """BASELINE config 4 at full scale: 8 chains x 131,072 header+commit
-    pairs x 8 validators (8,388,608 lanes) signed by K3, verified twice
+    """BASELINE config 4 cut to LIGHT_CHAINS of its 8 chains, each at full
+    width: 131,072 header+commit pairs x 8 validators (1,048,576 lanes a
+    chain) signed by K3, verified twice
     through `verify_chains_batched` on a `BatchPlane(CudaBackend())` —
     the first pass builds each chain's tables (K2), both run one K1 call
     of 1,048,576 lanes per chain — then a `LightClient` follows a short
@@ -3086,11 +3195,12 @@ def _plain_k1(be, calls: list) -> tuple:
     t0 = time.perf_counter()
     checked = bad = 0
     groups = {}
-    for c in calls:
-        groups.setdefault((c[0], c[1]), []).append(c)
+    for c in calls:                 # by kind, key set and message width
+        groups.setdefault((c[0], c[1], c[3][1 if c[0] == "grouped" else 2]
+                           .shape[1]), []).append(c)
     base = ed.base_table(be.device)
     step = 65536
-    for (kind, set_key), cs in groups.items():
+    for (kind, set_key, _), cs in groups.items():
         val_pubs = cs[0][2]
         tbl, ok, _, vp = be.tables(set_key, val_pubs)
         got = np.concatenate([c[4] for c in cs])
@@ -3958,7 +4068,8 @@ def phase_p2p() -> dict:
     rec = _K1Recorder(be)
     plane = BatchPlane(be)
     try:
-        a = phase_p2p_testnet(be, plane)
+        with witnessed("p2p A"):
+            a = phase_p2p_testnet(be, plane)
     finally:
         plane.stop()
     calls_a = list(rec.calls)
@@ -4001,10 +4112,17 @@ def check_p2p(ctx: dict, launches: dict) -> list:
     checked_b, bad_b, plain_b = _plain_k1(be, [window] + lanes_b)
     require(bad_b == 0, f"cell B: {bad_b} of {checked_b} K1 lanes != plain")
     # K2 at both sets, K3 at one height of cell B, K5 at cell A's envelopes
-    for gen in (ctx["a"]["gen"], ctx["b"]["gen"]):
-        vals = gen.validator_set()
+    # (the plain version once over both sets' keys: each key's tables are
+    # its own)
+    sets = [gen.validator_set() for gen in (ctx["a"]["gen"], ctx["b"]["gen"])]
+    ptbl_all, pok_all = ed.build_neg_comb_plain(be._t(np.concatenate(
+        [vals.pubs_matrix() for vals in sets])))
+    first = 0
+    for vals in sets:
         tbl, ok, v, _ = be.tables(vals.set_key(), vals.pubs_matrix())
-        ptbl, pok = ed.build_neg_comb_plain(be._t(vals.pubs_matrix()))
+        ptbl, pok = (ptbl_all[:, :, first:first + v],
+                     pok_all[first:first + v])
+        first += v
         require(torch.equal(tbl[:, :, :v], ptbl) and torch.equal(ok[:v], pok),
                 f"K2 != plain at the {vals.size()}-key set")
     privs = ctx["b"]["privs"]
@@ -4287,6 +4405,12 @@ def check_scrapes(net, backend: str = "cuda") -> list:
         rungs = sorted({k.split('rung="', 1)[1].split('"', 1)[0]
                         for k in m if 'rung="' in k})
         info = next(k for k in m if k.startswith("tendermint_build_info"))
+        # K2 runs only on a table build: node 0 boots on the tables
+        # `init --warm-crypto` wrote, every other node builds its set once
+        builds = int(float(m["tendermint_table_build_seconds_count"]))
+        if backend in ("cuda", "cpu"):
+            require(builds == (0 if i == 0 else 1), f"node{i} /metrics: "
+                    f"{builds} comb-table builds (K2)")
         require(committed >= h and sigs > 0 and flushes > 0 and
                 set(rungs) <= {"cuda"} and
                 f'crypto_backend="{backend}"' in info,
@@ -4294,13 +4418,14 @@ def check_scrapes(net, backend: str = "cuda") -> list:
                 f"{h}, sigs_verified {sigs}, flushes {flushes}, rungs "
                 f"{rungs}, {info}")
         out.append({"height": h, "committed": committed, "sigs": sigs,
-                    "flushes": flushes, "series": len(m),
+                    "flushes": flushes, "series": len(m), "k2": builds,
                     "h2d": int(m["tendermint_h2d_bytes"])})
     log("[cli C] GET /metrics of the 4 nodes: "
         + "; ".join(f"node{i} height {o['height']}, blocks_committed "
                     f"{o['committed']}, sigs_verified {o['sigs']}, "
                     f"batchplane_flushes {o['flushes']}, h2d_bytes "
-                    f"{o['h2d']} ({o['series']} series)"
+                    f"{o['h2d']}, table builds (K2) {o['k2']} "
+                    f"({o['series']} series)"
                     for i, o in enumerate(out))
         + f"; no crypto rung but cuda, build info crypto_backend="
         f"{backend}")
@@ -4340,10 +4465,17 @@ def cli_timeline_doctor(net, out_dir: str) -> dict:
     sum to its wall, per node and for the merged row, and the doctor
     answers a report."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
     addrs = ",".join(f"http://127.0.0.1:{p}" for p in net.ports)
     t0 = time.perf_counter()
-    rc, out, err = _cli_json("timeline", "--rpc", addrs, "--json", "--out",
-                             os.path.join(out_dir, "timeline_trace.json"))
+    with ThreadPoolExecutor(2) as pool:     # the two commands at once
+        timeline = pool.submit(_cli_json, "timeline", "--rpc", addrs,
+                               "--json", "--out", os.path.join(
+                                   out_dir, "timeline_trace.json"))
+        doctor = pool.submit(_cli_json, "doctor", "--rpc",
+                             f"http://127.0.0.1:{net.ports[0]}", "--json",
+                             "--ledger", "")
+        (rc, out, err), doctor = timeline.result(), doctor.result()
     require(rc == 0, f"cli timeline exited {rc}: {out[-2000:]}{err[-2000:]}")
     doc = json.loads(out)
     rows = doc["timeline"]["heights"]
@@ -4353,9 +4485,7 @@ def cli_timeline_doctor(net, out_dir: str) -> dict:
             doc["doctor"]["sums_to_wall"] and not doc["dropped"],
             f"cli timeline: {len(rows)} heights, residual {resid:.3e} s, "
             f"dropped {doc['dropped']}")
-    rc, out, err = _cli_json("doctor", "--rpc",
-                             f"http://127.0.0.1:{net.ports[0]}", "--json",
-                             "--ledger", "")
+    rc, out, err = doctor
     require(rc == 0, f"cli doctor exited {rc}: {err[-2000:]}")
     report = json.loads(out)
     require(report["schema"] == "tpu-bft-doctor/1", f"cli doctor: {report}")
@@ -4403,6 +4533,8 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
     require(rc == 0, f"cli testnet exited with {rc}")
     net = _CliNet(tmp.name, base, node_flags)
     _unsafe_rpc(net.homes)
+    warm = warm_node0(net, node_flags)
+    firsts = _FirstCommits(net)
     corpus = loadgen.build_corpus(random.Random(SEED + 12), loadgen.Mix(
         unsigned=0, signed=CLI_SIGNED, bad_sig=CLI_FORGED, dup_frac=0.0),
         backend=be)
@@ -4414,6 +4546,7 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
         t0 = time.perf_counter()
         for i in range(CLI_NODES):
             net.start(i)
+            firsts.started(i)
         up = [net.wait_up(i) for i in range(CLI_NODES)]
         t_up = time.perf_counter()
         log(f"[cli C] {CLI_NODES} `cli node` processes on ports "
@@ -4499,6 +4632,11 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
         scrapes = check_scrapes(net, flags[flags.index("--crypto-backend")
                                            + 1]
                                 if "--crypto-backend" in flags else "cuda")
+        first = firsts.stop()
+        require(None not in first, f"first commits {first}")
+        log(f"[cli C] each node's seconds from its start to its first "
+            f"commit: {', '.join(f'node{i} {s:.3f}' for i, s in enumerate(first))}"
+            f" (node 0 on the tables `init --warm-crypto` wrote)")
         t_kill = time.perf_counter()
         h_kill = net.height(0)
         run_s = t_kill - t_up
@@ -4540,8 +4678,10 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
             f"before the nodes {apps_before}; the nodes' pids {pids}, "
             f"each with libcuda mapped and the card open: "
             f"{contexts}")
-        reading = read_cli_testnet(net, signed, forged)
-        timeline = cli_timeline_doctor(net, tmp.name)
+        with ThreadPoolExecutor(1) as pool:  # both only read over RPC
+            timeline = pool.submit(cli_timeline_doctor, net, tmp.name)
+            reading = read_cli_testnet(net, signed, forged)
+            timeline = timeline.result()
         for i in range(CLI_NODES):
             net.alive(i)
             net.procs[i].send_signal(signal.SIGINT)
@@ -4556,6 +4696,7 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
         require(_kernel_builds() == builds,
                 "build/kernels changed while the node processes ran")
         return {**reading, "pids": pids, "apps": apps, "rcs": rcs,
+                "warm": warm, "first_commit_s": first,
                 "contexts": contexts, "dtrace": dtrace, "scrapes": scrapes,
                 "timeline": timeline,
                 "lat": lat, "mesh_s": mesh["s"], "rate": rate,
@@ -4568,6 +4709,7 @@ def phase_cli_testnet(be, node_flags=()) -> dict:
             log(f"[cli C] {lg}:\n{_tail(lg)}")
         raise
     finally:
+        firsts.stop()
         net.kill_all()
         tmp.cleanup()
 
@@ -5505,10 +5647,10 @@ def phase_snapshot_cli(crypto_backend: str = "cuda") -> dict:
     """Cell E (e), the user's path: a validator home (`persistent_kvstore`,
     SQLite) runs SNAP_HEIGHTS heights with txs in this process on the
     card; then `python -m tendermint_tpu_torch.cli snapshot create`;
-    `list` and `verify` on it and `snapshot restore` into a fresh home
-    given the same genesis and another key, at once; a chunk corrupted,
-    then a second restore (refused) and `verify` (exits 1) at once; and
-    `cli node` on the restored home,
+    `list` and `verify` on it, `snapshot restore` into a fresh home given
+    the same genesis and another key, a restore into the source home
+    (refused: it holds a chain) and `verify` of a copy with a chunk
+    corrupted (exits 1), all at once; and `cli node` on the restored home,
     read over RPC and stopped with SIGINT.  Both homes' `crypto_backend`
     is `crypto_backend` ("cpu" to rehearse without a card)."""
     import os
@@ -5580,21 +5722,27 @@ def phase_snapshot_cli(crypto_backend: str = "cuda") -> dict:
         dcfg.base.proxy_app = "persistent_kvstore"
         dcfg.base.crypto_backend = crypto_backend
         save_config_file(dcfg, config_file(dst))
-        # in three rounds, each round's commands at once
+        # in two rounds, each round's commands at once: the second verifies
+        # a copy of the snapshot with a chunk corrupted, and restores into
+        # the source home, which holds a chain
         cli((src, 0, ("snapshot", "create")))
-        listed, _, _ = cli((src, 0, ("snapshot", "list")),
-                           (src, 0, ("snapshot", "verify", snaps)),
-                           (dst, 0, ("snapshot", "restore", "--dir", snaps)))
-        require(f"height {height}:" in listed, f"cell E (e): list {listed}")
-        chunk = os.path.join(snaps, f"snapshot-{height:010d}",
+        bad = os.path.join(tmp.name, "corrupt-snapshots")
+        shutil.copytree(snaps, bad)
+        chunk = os.path.join(bad, f"snapshot-{height:010d}",
                              "chunk-000000.bin")
         data = bytearray(open(chunk, "rb").read())
         data[0] ^= 0xFF
         open(chunk, "wb").write(bytes(data))
-        refused, corrupt = cli(
-            (dst, 1, ("snapshot", "restore", "--dir", snaps)),
-            (src, 1, ("snapshot", "verify", snaps)))
+        listed, _, _, refused, corrupt = cli(
+            (src, 0, ("snapshot", "list")),
+            (src, 0, ("snapshot", "verify", snaps)),
+            (dst, 0, ("snapshot", "restore", "--dir", snaps)),
+            (src, 1, ("snapshot", "restore", "--dir", snaps)),
+            (src, 1, ("snapshot", "verify", bad)))
+        require(f"height {height}:" in listed, f"cell E (e): list {listed}")
         require("corrupt" in corrupt, f"cell E (e): verify said {corrupt}")
+        require("already at height" in refused,
+                f"cell E (e): the restore into a chain said {refused}")
         base = _free_base_port(2)
         log_path = os.path.join(dst, "node.log")
         t1 = time.perf_counter()
@@ -5629,7 +5777,8 @@ def phase_snapshot_cli(crypto_backend: str = "cuda") -> dict:
         log(f"[snapshot E] a {height}-height persistent kvstore home; cli "
             f"commands (exit code, s): "
             + ", ".join(f"{c} {r} {s:.1f}" for c, r, s in runs)
-            + f"; the second restore refused ({refused.strip()[:60]!r}); "
+            + f"; the restore into the source home refused "
+            f"({refused.strip()[:60]!r}); "
             f"`cli node` on the restored home answered status at height "
             f"{height} with the source's app hash {up_s:.1f} s after its "
             f"start and exited 0 on SIGINT")
@@ -6049,28 +6198,35 @@ def hold_to_plain(hooks) -> dict:
     if sets:
         all_tbl, all_ok = ed.build_neg_comb_plain(
             torch.cat(list(sets.values())))
-    for be in hooks.backends:
-        checked, bad, _ = _plain_k1(be, be.k1.calls)
+    # the backends' K1, K5 and K4 calls held together, so each plain call
+    # covers every backend's lanes of one kind, key set and width
+    be0 = hooks.backends[0] if hooks.backends else None
+    if be0 is not None:
+        checked, bad, _ = _plain_k1(be0, [c for be in hooks.backends
+                                          for c in be.k1.calls])
         require(bad == 0, f"{bad} of {checked} K1 lanes != plain")
         k1_lanes += checked
-        if be.k5.calls:
-            lanes = [np.concatenate([c[k] for c in be.k5.calls])
-                     for k in range(4)]
-            want = ed.verify_batch_plain(*map(be._t, lanes[:3]),
-                                         ed.base_table(be.device))
-            require(want.cpu().numpy().tolist() == lanes[3].tolist(),
-                    "a K5 lane != plain")
-            k5_lanes += len(lanes[3])
-        by_len = {}
+    k5_by_len, k4_by_len = {}, {}
+    for be in hooks.backends:
+        for c in be.k5.calls:
+            k5_by_len.setdefault(c[1].shape[1], []).append(c)
         for rows, out in be.k4.calls:
-            by_len.setdefault(rows.shape[1], []).append((rows, out))
-        for calls in by_len.values():
-            rows = np.concatenate([c[0] for c in calls])
-            want = sha256.sha256_prefixed_plain(be._t(rows), 0)
-            require(np.array_equal(want.cpu().numpy(),
-                                   np.concatenate([c[1] for c in calls])),
-                    "a K4 row != plain")
-            k4_rows += len(rows)
+            k4_by_len.setdefault(rows.shape[1], []).append((rows, out))
+    for calls in k5_by_len.values():
+        lanes = [np.concatenate([c[k] for c in calls]) for k in range(4)]
+        want = ed.verify_batch_plain(*map(be0._t, lanes[:3]),
+                                     ed.base_table(be0.device))
+        require(want.cpu().numpy().tolist() == lanes[3].tolist(),
+                "a K5 lane != plain")
+        k5_lanes += len(lanes[3])
+    for calls in k4_by_len.values():
+        rows = np.concatenate([c[0] for c in calls])
+        want = sha256.sha256_prefixed_plain(be0._t(rows), 0)
+        require(np.array_equal(want.cpu().numpy(),
+                               np.concatenate([c[1] for c in calls])),
+                "a K4 row != plain")
+        k4_rows += len(rows)
+    for be in hooks.backends:
         for set_key, (tbl, ok, nv, _) in be._tables.items():
             lo, hi = offs[set_key]
             require(torch.equal(tbl[:, :, :nv], all_tbl[:, :, lo:hi]) and
@@ -6274,7 +6430,7 @@ def stress_tier() -> int:
     from tendermint_tpu_torch.cli import main as cli_main
     from tendermint_tpu_torch.ops import kernels
     from tendermint_tpu_torch.scenarios import engine
-    log(card_line())
+    print(card_line(), flush=True)
     phase_build()
     hooks = _ChaosHooks()
     real_run = engine.run_scenario
@@ -6311,7 +6467,7 @@ def stress_tier() -> int:
     held = hold_to_plain(hooks)
     require(held["k1_lanes"] and held["k5_lanes"],
             f"stress: nothing held to plain {held}")
-    log(card_line())
+    print(card_line(), flush=True)
     return rc
 
 
@@ -6820,18 +6976,24 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
     log(f"[kernels] one replay window ({len(mask)} lanes) on one device, "
         f"single-device templated path, whole call: {ms:.3f} ms")
 
+    # each function's plain version runs once, on the first mesh: a mesh
+    # function computes the same result on any mesh, so the later meshes'
+    # kernels are held to (and their rows report) that run where their
+    # inputs are the same, which is checked
+    plain_runs = {}                         # name -> (inputs, ms, result)
     for ctx in mesh_ctxs:
         label, lc = ctx["label"], ctx["launches"]
         rows = (
             ("sharded_verify_fn", 95, lambda: ctx["verify_fn"](*flat), (k6,),
-             lc["verify"]["K6"], flat_cost, f"{n} lanes"),
+             lc["verify"]["K6"], flat_cost, f"{n} lanes", flat),
             ("sharded_merkle_fn", 109, lambda: ctx["merkle_fn"](mk_ctx["data"]),
              (k7,), lc["merkle"]["K7"], trees_cost,
-             f"{TREES} trees x {LEAVES} leaves"),
+             f"{TREES} trees x {LEAVES} leaves", mk_ctx["data"]),
             ("training_step_fn", 119, lambda: ctx["step_fn"](
                 *grid, mesh_in["leaves"], mesh_in["total"]), (k6, k7),
              lc["step"]["K6"] + lc["step"]["K7"], grid_cost,
-             f"{nb} blocks x {N_VALS} lanes + {MESH_LEAVES} leaves"),
+             f"{nb} blocks x {N_VALS} lanes + {MESH_LEAVES} leaves",
+             (grid, mesh_in["leaves"], mesh_in["total"])),
         )
         args, mask = ctx["calls"][0]
         be, gargs = ctx["backend"], ctx["grouped_args"]
@@ -6840,19 +7002,27 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
              lambda: be.verify_grouped(*gargs), (k1,),
              lc["grouped"]["K1"], _window_cost(gargs),
              f"one replay window via CudaBackend.verify_grouped, "
-             f"{len(mask)} lanes, messages assembled on the host"),
+             f"{len(mask)} lanes, messages assembled on the host", gargs),
             ("sharded_grouped_templated_verify_fn", 146,
              lambda: be.verify_grouped_templated(*args), (k1t,),
              lc["replay"]["K1"], _templated_cost(be.templated_args(*args)),
              f"one replay window via CudaBackend.verify_grouped_"
-             f"templated, {len(mask)} lanes"),
+             f"templated, {len(mask)} lanes", args),
         )
-        for name, line, fn, swaps, n_launch, cost, what in rows:
+        for name, line, fn, swaps, n_launch, cost, what, inputs in rows:
             ms, times, got = median_ms(fn, MESH_REPEATS)
             log(f"[kernels] {name} [{label}] whole call, {MESH_REPEATS} "
                 f"calls: median {ms:.3f} ms, sorted "
                 f"{[round(t, 3) for t in times]}")
-            plain_ms, want = plain_cuda_ms(fn, swaps)
+            if name in plain_runs and _same_inputs(plain_runs[name][0],
+                                                   inputs):
+                plain_ms, want = plain_runs[name][1:]
+                log(f"[kernels] {name} [{label}]: its plain version's run "
+                    f"on [{mesh_ctxs[0]['label']}] at the same inputs "
+                    f"({plain_ms:.1f} ms)")
+            else:
+                plain_ms, want = plain_cuda_ms(fn, swaps)
+                plain_runs.setdefault(name, (inputs, plain_ms, want))
             got, want = _flat_tuple(got), _flat_tuple(want)
             require(all(_same(g, w) for g, w in zip(got, want)),
                     f"{name} on {label}: kernels != plain")
@@ -6866,6 +7036,24 @@ def phase_mesh_kernels(mesh_ctxs: list, mesh_in: dict, mk_ctx: dict,
 
 def _flat_tuple(x) -> tuple:
     return x if isinstance(x, tuple) else (x,)
+
+
+def _same_inputs(a, b) -> bool:
+    """Whether two call inputs (tensors, arrays, scalars, bytes and tuples
+    or lists of them) hold the same values."""
+    import numpy as np
+    import torch
+    if isinstance(a, (tuple, list)) or isinstance(b, (tuple, list)):
+        return (isinstance(a, (tuple, list)) and
+                isinstance(b, (tuple, list)) and len(a) == len(b) and
+                all(_same_inputs(x, y) for x, y in zip(a, b)))
+    if isinstance(a, (torch.Tensor, np.ndarray)) or isinstance(
+            b, (torch.Tensor, np.ndarray)):
+        a, b = (x.cpu() if isinstance(x, torch.Tensor)
+                else torch.as_tensor(np.asarray(x)) for x in (a, b))
+        return a.shape == b.shape and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    return type(a) is type(b) and a == b
 
 
 def _same(a, b) -> bool:
@@ -6886,6 +7074,238 @@ def _window_cost(args) -> tuple:
     return _grouped_verify_cost(_pad_rows(sigs, b), val_pubs[vi], msgs, vi,
                                 4 + 32 + msgs.shape[1] + 64 + 1,
                                 len(val_pubs))
+
+
+# -- the warm plane and the lock witness ---------------------------------------
+
+WARM_PLAIN_SPEC = {"kind": "plain", "vb": 128, "shape": [128, 128]}
+WARM_S = 600.0                     # the warmer process must end by then
+
+
+def start_warm() -> dict:
+    """Start the warmer as a user runs it, in a process of its own on the
+    fast-sync cell's shapes (`bench_config3_specs(100, 10_000, 625,
+    62_500)`: templated K1 at 65,536 lanes over Vb 128 with K2 for the
+    tables, K3 at 65,536 lanes) and the mempool prevotes' per-lane K1
+    shape, once the kernel library is built; a thread waits for it and
+    notes when it ended.  `phase_warm` reads it."""
+    import os
+    import threading
+    from tendermint_tpu_torch.crypto import warmcompile
+    specs = warmcompile.bench_config3_specs(100, 10_000, 625, 62_500) + [
+        WARM_PLAIN_SPEC]
+    run = {"specs": specs, "t0": time.perf_counter()}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tendermint_tpu_torch.crypto.warmcompile",
+         json.dumps(specs)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=_repo_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def wait():
+        try:
+            run["stdout"], run["stderr"] = proc.communicate(timeout=WARM_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            run["stdout"], run["stderr"] = proc.communicate()
+        run["wall"] = time.perf_counter() - run["t0"]
+        run["rc"] = proc.returncode
+    run["thread"] = threading.Thread(target=wait, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def phase_warm(run: dict) -> dict:
+    """The warmer's run (`start_warm`), beside the kernel checks: its
+    lines, and each spec's outputs held against the plain versions on
+    the same inputs here (their digests equal)."""
+    from tendermint_tpu_torch.crypto import warmcompile
+    from tendermint_tpu_torch.crypto.backend import CudaBackend
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    from types import SimpleNamespace
+    run["thread"].join()
+    specs, wall = run["specs"], run["wall"]
+    out = SimpleNamespace(returncode=run["rc"], stdout=run["stdout"],
+                          stderr=run["stderr"])
+    require(out.returncode == 0, f"warmcompile exited {out.returncode}:\n"
+            f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    require([ln["kind"] for ln in lines] == [s["kind"] for s in specs],
+            f"warmcompile printed {out.stdout[-2000:]}")
+    for spec, ln, want in zip(specs, lines, (
+            ("build_neg_comb", "verify_grouped"), ("sign_grouped",),
+            ("verify_grouped",))):
+        require(all(ln["launches"].get(k, 0) > 0 for k in want),
+                f"warmcompile {spec}: launches {ln['launches']}")
+    log(f"[warm] `python -m tendermint_tpu_torch.crypto.warmcompile` on "
+        f"{len(specs)} specs in {wall:.3f} s (the process, its torch "
+        f"import and CUDA context included; run beside the kernel "
+        f"checks): "
+        + "; ".join(f"{ln['kind']} {s.get('shape')} (vb/v "
+                    f"{s.get('vb', s.get('v'))}): {ln['compile_seconds']} s"
+                    f"{' with the library load' if i == 0 else ''}, of it "
+                    f"{ln['launch_seconds']} s of first launches and "
+                    f"read-back, launches {ln['launches']}"
+                    for i, (s, ln) in enumerate(zip(specs, lines))))
+    swaps = [(ed, "build_neg_comb", ed.build_neg_comb_plain),
+             (ed, "verify_grouped", ed.verify_grouped_plain),
+             (ed, "verify_grouped_templated",
+              ed.verify_grouped_templated_plain),
+             (ed, "sign_grouped_templated", ed.sign_grouped_templated_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    t1 = time.perf_counter()
+    be = CudaBackend()
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
+    try:
+        plain = [warmcompile._warm_one(spec, be)[1] for spec in specs]
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+    for spec, ln, digest in zip(specs, lines, plain):
+        require(ln["digest"] == digest, f"warmcompile {spec}: outputs "
+                f"{ln['digest']} != the plain versions' {digest}")
+    log(f"[warm] every spec's outputs (K2's mask and its valid keys' "
+        f"tables, K1's masks, K3's signatures) == the plain versions' on "
+        f"the same inputs "
+        f"(SHA-256 {', '.join(d[:12] for d in plain)}; the plain run "
+        f"{time.perf_counter() - t1:.1f} s)")
+    return {"wall": wall, "lines": lines}
+
+
+def warm_node0(net, node_flags) -> dict:
+    """`cli init --warm-crypto` on node 0's home, as an operator runs it
+    before the node's first boot: its set's comb tables into the home's
+    on-disk cache (`BaseConfig.table_cache_dir()`, under this run's
+    temporary directory).  Returns the file's arrays, the set, the
+    command's seconds and output."""
+    import os
+    import numpy as np
+    from tendermint_tpu_torch.config import (config_file, load_config_file,
+                                             save_config_file)
+    from tendermint_tpu_torch.types import GenesisDoc
+    flags = list(node_flags)
+    backend = (flags[flags.index("--crypto-backend") + 1]
+               if "--crypto-backend" in flags else "cuda")
+    for h in net.homes:           # the nodes' backend, in their config
+        cf = config_file(h)
+        cfg = load_config_file(cf)
+        cfg.base.crypto_backend = backend
+        save_config_file(cfg, cf)
+    t0 = time.perf_counter()
+    p = _cli("--home", net.homes[0], "init", "--warm-crypto",
+             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out, _ = p.communicate(timeout=CLI_UP_S)
+    secs = time.perf_counter() - t0
+    require(p.returncode == 0, f"init --warm-crypto exited "
+            f"{p.returncode}:\n{out[-3000:]}")
+    cfg = load_config_file(config_file(net.homes[0]))
+    cfg.base.home = net.homes[0]
+    d = cfg.base.table_cache_dir()
+    vals = GenesisDoc.load(cfg.base.genesis_file()).validator_set()
+    want = f"v1-{vals.set_key().hex()}.npz"
+    if backend in ("python", "native"):
+        require("nothing to warm" in out and not os.path.exists(d),
+                f"init --warm-crypto on a {backend} home: {out}")
+        return {"secs": secs, "out": out, "npz": None}
+    require(os.listdir(d) == [want], f"table cache {d}: {os.listdir(d)}")
+    with np.load(os.path.join(d, want)) as z:
+        npz = {k: z[k] for k in z.files}
+    log(f"[cli C] `cli init --warm-crypto` on node 0's home in {secs:.3f} s "
+        f"(the process included): {d}/{want}, "
+        f"{os.path.getsize(os.path.join(d, want))} bytes, tbl "
+        f"{npz['tbl'].shape}; its output: "
+        f"{' | '.join(ln for ln in out.splitlines() if ln.strip())[-300:]}")
+    return {"secs": secs, "out": out, "npz": npz,
+            "set_key": vals.set_key(), "pubs": vals.pubs_matrix()}
+
+
+def check_warm_tables(warm: dict, dev: str = "cuda") -> None:
+    """The table file `init --warm-crypto` wrote, byte for byte against
+    K2 on the card (the backend's build: the real keys, the padded
+    columns copies of key 0) and K2's plain version over the padded key
+    matrix (the JAX package's build)."""
+    import numpy as np
+    import torch
+    from tendermint_tpu_torch.crypto.backend import _bucket, _pad_rows
+    from tendermint_tpu_torch.ops import ed25519 as ed
+    npz = warm["npz"]
+    if npz is None:
+        return
+    dev = torch.device(dev)
+    pubs = warm["pubs"]
+    v, vb = len(pubs), _bucket(len(pubs))
+    padded = _pad_rows(pubs, vb)
+    tbl, ok = ed.build_neg_comb(torch.tensor(pubs, device=dev))
+    tbl = torch.cat([tbl, tbl[:, :, :1].expand(-1, -1, vb - v, -1, -1)],
+                    dim=2).cpu().numpy()
+    ok = torch.cat([ok, ok[:1].expand(vb - v)]).cpu().numpy()
+    t0 = time.perf_counter()
+    ptbl, pok = ed.build_neg_comb_plain(torch.tensor(padded, device=dev))
+    ptbl, pok = ptbl.cpu().numpy(), pok.cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    digest = hashlib.sha256(padded.tobytes()).digest()
+    for name, (t, o) in (("K2", (tbl, ok)), ("K2's plain version",
+                                             (ptbl, pok))):
+        require(np.array_equal(npz["tbl"], t) and
+                np.array_equal(npz["ok"], o), f"the table file != {name}")
+    require(npz["pubs_sha256"].tobytes() == digest, "pubs_sha256")
+    log(f"[cli C] node 0's table file == K2 on the card and == K2's plain "
+        f"version over the padded key matrix ({plain_s:.1f} s), byte for "
+        f"byte ({npz['tbl'].nbytes} table bytes, {v} keys padded to {vb}); "
+        f"pubs_sha256 the padded keys' digest")
+
+
+class _FirstCommits:
+    """Each node's seconds from its start to the first block it commits,
+    read from its log (`cli node` prints "committed block height=..." as
+    it commits) by a thread polling the four logs."""
+
+    def __init__(self, net):
+        import threading
+        self.net = net
+        self.t_start = [None] * len(net.logs)
+        self.first = [None] * len(net.logs)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def started(self, i: int) -> None:
+        self.t_start[i] = time.perf_counter()
+        if not self._thread.is_alive() and not self._stop.is_set():
+            self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set() and None in self.first:
+            for i, lg in enumerate(self.net.logs):
+                if self.first[i] is None and self.t_start[i] is not None:
+                    with open(lg, errors="replace") as f:
+                        if "committed block height=" in f.read():
+                            self.first[i] = (time.perf_counter()
+                                             - self.t_start[i])
+            time.sleep(0.05)
+
+    def stop(self) -> list:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
+        return list(self.first)
+
+
+@contextmanager
+def witnessed(label: str):
+    """The lock witness on for every lock built in the block (the port's
+    eight wired roles); after it, the order edges recorded are printed
+    and an inversion, raised or caught in a thread, fails the smoke."""
+    from tendermint_tpu_torch.utils import lockwitness
+    lockwitness.reset()
+    with lockwitness.witnessing():
+        yield
+    inv = lockwitness.inversions()
+    edges = lockwitness.edges()
+    require(not inv, f"[{label}] lock-order inversions: {inv}")
+    log(f"[{label}] lock witness on: {len(edges)} order edges recorded "
+        f"({', '.join(f'{a} -> {b}' for a, b in sorted(edges))}), no "
+        f"inversion")
 
 
 KERNEL_KEYS = {"verify_grouped": "K1", "build_neg_comb": "K2",
@@ -6924,11 +7344,17 @@ def main() -> int:
     from tendermint_tpu_torch.ops import kernels
     from tendermint_tpu_torch.parallel import sharding
     card = card_line()
-    log(card)
+    print(card, flush=True)
     t_start = time.perf_counter()
     phase_build()
+    for kernel in MICRO_KERNELS:            # nvcc beside the checks
+        start_micro_build(kernels.CSRC, kernel)
+    warmer = start_warm()                   # the warmer beside them too
     phase_check()
     log(f"[time] build and kernel checks {time.perf_counter() - t_start:.1f} s")
+    t_w = time.perf_counter()
+    phase_warm(warmer)
+    log(f"[warm] phase and checks {time.perf_counter() - t_w:.1f} s")
     kernels.reset_launches()                # the replay path starts here
     rp_ctx = phase_replay()
     mk_ctx = phase_merkle(rp_ctx["backend"])
@@ -6962,7 +7388,8 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     t_cs = time.perf_counter()
     kernels.reset_launches()                # the consensus path starts here
-    cs_ctx = phase_consensus()
+    with witnessed("consensus"):
+        cs_ctx = phase_consensus()
     consensus = read_launches("consensus", ("K1", "K2"))
     check_consensus(cs_ctx, consensus)
     log(f"[consensus] phase and checks {time.perf_counter() - t_cs:.1f} s")
@@ -6979,6 +7406,7 @@ def main() -> int:
     # count (each holds its CUDA context: `check_cli_testnet`); here only
     # the envelopes' signing (K3)
     read_launches("cli", ("K3",))
+    check_warm_tables(cli_ctx["warm"])
     check_cli_testnet(cli_ctx)
     log(f"[cli C] cell and checks {time.perf_counter() - t_cli:.1f} s")
     t_node = time.perf_counter()
@@ -7046,7 +7474,7 @@ def main() -> int:
     line += phase_mesh_kernels(mesh_ctxs, mesh_in, mk_ctx, launches)
     log(f"[time] kernels line {time.perf_counter() - t_k:.1f} s; the smoke "
         f"{time.perf_counter() - t_start:.1f} s")
-    log(card)
+    print(card, flush=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

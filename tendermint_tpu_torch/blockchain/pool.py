@@ -9,7 +9,8 @@ unresponsive peers evicted (`removeTimedoutPeers` `:100-118`),
 reactor's pool routine drives (`schedule()` returns what to request),
 which batches naturally with the device-verify window.  Copy of
 `tendermint_tpu/blockchain/pool.py` (its `pool.evict` / `pool.redo`
-instants kept) without the lock witness, and with two differences: when
+instants kept), its lock the lock witness's "blockpool.lock" role, and
+with two differences: when
 a request is redone, and how a young peer's rate is read.
 
 The JAX pool redoes a request REQUEST_TIMEOUT after it was sent, and
@@ -38,7 +39,7 @@ from __future__ import annotations
 import threading
 import time
 
-from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils import lockwitness, tracing
 from tendermint_tpu_torch.utils.flowrate import Meter
 from tendermint_tpu_torch.utils.log import get_logger
 
@@ -77,7 +78,8 @@ class BlockPool:
         # peer_id -> (monotonic time of its last delivery, the sending
         # time of the request that delivery answered)
         self._peer_last: dict[str, tuple[float, float]] = {}
-        self._lock = threading.Lock()
+        self._lock = lockwitness.new_lock("blockpool.lock",
+                                          reentrant=False)
         self.on_evict = None                  # cb(peer_id, reason)
 
     # -- peers ----------------------------------------------------------

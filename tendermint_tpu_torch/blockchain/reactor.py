@@ -107,6 +107,9 @@ class _Lookahead:
                                                         items)
             if window:
                 templates, tmpl_idx, sigs, idxs = self.lanes[:4]
+                # the next window verified ahead on the backend's own
+                # stream: one whole K1 call, nothing to coalesce with
+                # tmlint: disable=batchplane-producer
                 self.collect = backend.verify_grouped_templated_async(
                     vals.set_key(), vals.pubs_matrix(), idxs, tmpl_idx,
                     templates, sigs)

@@ -334,6 +334,9 @@ def _dispatch(blocks, commits, lo: int, hi: int, vals, vals_hash: bytes,
     w.prepare_s = t1 - t0
     if w.blocks and w.error is None:
         templates, tmpl_idx, sigs, idxs = w.lanes[:4]
+        # a replay window is one whole K1 call dispatched ahead of the
+        # applied one: nothing to coalesce with, on the backend's stream
+        # tmlint: disable=batchplane-producer
         w.collect = backend.verify_grouped_templated_async(
             vals.set_key(), vals.pubs_matrix(), idxs, tmpl_idx, templates,
             sigs)

@@ -11,10 +11,13 @@ Copy of `tendermint_tpu/cli/__init__.py` with the commands `init`,
 `node` (the supervised-ladder flags among its flags), `testnet`,
 `gen_validator`, `show_validator`, `unsafe_reset_all`, `replay`,
 `replay_console`, `wal-fsck`, `snapshot list | create | verify |
-restore`, `trace`, `doctor`, `timeline`, `bench-history`, `chaos list |
-run | replay | smoke | soak | nightly`, `probe_upnp` and `version`.
-`init --warm-crypto` and the `lint` command wait for the modules they
-drive.  Every `chaos` command runs on the card unless `--backend` names
+restore`, `trace`, `doctor`, `timeline`, `bench-history`, `lint`,
+`chaos list | run | replay | smoke | soak | nightly`, `probe_upnp` and
+`version` — every JAX command.  `init --warm-crypto` warms the backend
+the home's config names into the home's on-disk comb-table cache, which
+the node reads (`BaseConfig.table_cache_dir()`), and raises if the
+warm-up fails; `lint` runs the port's tmlint (`analysis/`) over
+`tendermint_tpu_torch/`.  Every `chaos` command runs on the card unless `--backend` names
 a CPU backend ("python", "rig", "native"), and reads no environment
 variable.  `trace`, `doctor` and `timeline` read a node's unsafe RPC
 routes or a dump, and print what the JAX commands print.  The snapshot commands hash
@@ -98,6 +101,37 @@ def cmd_init(args) -> int:
         save_config_file(cfg, cf)
         print(f"config written to {cf}")
     print(f"priv validator at {pv_file} ({pv.address.hex()})")
+    if getattr(args, "warm_crypto", False):
+        _warm_crypto(cfg)
+    return 0
+
+
+def _warm_crypto(cfg) -> int:
+    """Warm the crypto plane for this home's genesis validator set, so the
+    node's FIRST boot is already warm: the kernel library built (or
+    loaded), the set's comb tables built on K2 and written to the home's
+    on-disk cache (`BaseConfig.table_cache_dir()`, which the node reads),
+    and K1 launched at the shapes the node produces
+    (`precompile_for_validators`, the one shared derivation).  The node
+    itself runs no warmer.  A no-op on the host backends; a failed build
+    or launch raises."""
+    import time
+    from tendermint_tpu_torch.node.node import make_backend
+    from tendermint_tpu_torch.types import GenesisDoc
+    # warm the backend the HOME is configured to run
+    be = make_backend(cfg.base.crypto_backend, cfg.crypto,
+                      table_cache_dir=cfg.base.table_cache_dir())
+    if not hasattr(be, "precompile_for_validators"):
+        print(f"crypto backend {cfg.base.crypto_backend!r} has no device "
+              "plane; nothing to warm")
+        return 0
+    doc = GenesisDoc.load(cfg.base.genesis_file())
+    vals = doc.validator_set()
+    t0 = time.time()
+    print(f"warming crypto plane for {vals.size()} validators "
+          f"(one-time; lands in the on-disk caches)...", flush=True)
+    be.precompile_for_validators(vals)
+    print(f"crypto warm done in {time.time() - t0:.1f}s")
     return 0
 
 
@@ -717,6 +751,54 @@ def cmd_bench_history(args) -> int:
     return 1 if not entries else 0
 
 
+def cmd_lint(args) -> int:
+    """Run the tmlint static checks (tendermint_tpu_torch/analysis/): lock
+    discipline, torch hot-path hygiene, RPC route gating, span/metric
+    conventions, the batch plane.  Exit 0 when every finding is
+    baselined or suppressed, 1 when fresh findings exist, 2 when a lint
+    path is missing."""
+    from tendermint_tpu_torch.analysis import (all_rules, baseline_path,
+                                               lint_paths, load_baseline,
+                                               save_baseline)
+    if args.list_rules:
+        for name, desc in all_rules():
+            print(f"{name:24s} {desc}")
+        return 0
+    import tendermint_tpu_torch
+    pkg_dir = os.path.dirname(os.path.abspath(tendermint_tpu_torch.__file__))
+    if args.paths:
+        paths, root = args.paths, None
+    else:
+        paths, root = [pkg_dir], os.path.dirname(pkg_dir)
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        print(f"lint: no such path: {', '.join(missing)}",
+              file=sys.stderr)
+        return 2
+    result = lint_paths(paths, root=root,
+                        rules=args.rules.split(",") if args.rules
+                        else None)
+    bl_path = args.baseline or baseline_path()
+    if args.update_baseline:
+        save_baseline(result.findings, bl_path)
+        print(f"baseline written: {len(result.findings)} findings "
+              f"grandfathered at {bl_path}")
+        return 0
+    baseline = load_baseline(bl_path)
+    fresh = result.fresh(baseline)
+    if args.json:
+        print(json.dumps(result.to_dict(baseline), indent=1))
+    else:
+        for f in result.findings:
+            tag = "" if f.fingerprint not in baseline else " [baselined]"
+            print(f.render() + tag)
+        print(f"{result.files} files, {len(result.findings)} findings "
+              f"({len(fresh)} fresh, {result.suppressed} suppressed)")
+        for e in result.errors:
+            print(f"parse error: {e}", file=sys.stderr)
+    return 1 if fresh or result.errors else 0
+
+
 def _print_scenario_result(result, as_json: bool) -> None:
     if as_json:
         print(json.dumps(result.to_dict(), indent=1))
@@ -1008,6 +1090,12 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser("init", help="initialize home dir")
     sp.add_argument("--chain-id", default="")
+    sp.add_argument("--warm-crypto", dest="warm_crypto",
+                    action="store_true",
+                    help="build the kernel library and the genesis "
+                         "validator set's comb tables into the home's "
+                         "on-disk cache (one-time; makes the first node "
+                         "boot verify-warm)")
     sp.set_defaults(fn=cmd_init)
 
     sp = sub.add_parser("node", help="run the node")
@@ -1170,6 +1258,27 @@ def main(argv=None) -> int:
     sp.add_argument("--ledger", default="BENCH_LEDGER.jsonl",
                     help="ledger JSONL path (tpu-bft-bench-ledger/1)")
     sp.set_defaults(fn=cmd_bench_history)
+
+    sp = sub.add_parser("lint",
+                        help="run the tmlint static invariant checks "
+                             "(lock discipline, torch hot-path hygiene, "
+                             "route gating, span/metric conventions)")
+    sp.add_argument("paths", nargs="*",
+                    help="files/dirs to lint (default: the "
+                         "tendermint_tpu_torch package)")
+    sp.add_argument("--json", action="store_true",
+                    help="machine-readable findings document")
+    sp.add_argument("--rules", default="",
+                    help="comma-separated rule subset to run")
+    sp.add_argument("--baseline", default="",
+                    help="baseline file (default: "
+                         "tendermint_tpu_torch/analysis/baseline.json)")
+    sp.add_argument("--update-baseline", action="store_true",
+                    dest="update_baseline",
+                    help="grandfather the current findings and exit 0")
+    sp.add_argument("--list-rules", action="store_true",
+                    dest="list_rules", help="print the rule catalog")
+    sp.set_defaults(fn=cmd_lint)
 
     sp = sub.add_parser("chaos",
                         help="deterministic fault-scenario harness "

@@ -46,6 +46,12 @@ class BaseConfig:
     def db_dir(self) -> str:
         return os.path.join(self.root(), "data")
 
+    def table_cache_dir(self) -> str:
+        """The on-disk comb-table cache the node and `init --warm-crypto`
+        share (outside `data/`, so `unsafe_reset_all` keeps it: a file is
+        named by its key set's digest and cannot go stale)."""
+        return os.path.join(self.root(), "comb_tables")
+
 
 @dataclass
 class RPCConfig:

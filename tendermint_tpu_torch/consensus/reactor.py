@@ -350,10 +350,14 @@ class ConsensusReactor(Reactor):
 
     def switch_to_consensus(self, state) -> None:
         """Fast-sync is caught up: boot the live state machine
-        (reference `SwitchToConsensus` :78-90)."""
-        self.fast_sync = False
+        (reference `SwitchToConsensus` :78-90).  The flag turns off once
+        the state is the synced one and its last commit rebuilt, as in
+        the reference: whoever sees `fast_sync` off (the receive path,
+        a reader of the node's status) sees the consensus height that
+        goes with it.  The JAX package turns it off first."""
         self.cs._update_to_state(state)
         self.cs._reconstruct_last_commit(state)
+        self.fast_sync = False
         self.cs.start()
 
     # -- core -> network -----------------------------------------------

@@ -57,7 +57,7 @@ from tendermint_tpu_torch.types.priv_validator import DoubleSignError
 from tendermint_tpu_torch.types.proposal import Heartbeat, Proposal
 from tendermint_tpu_torch.types.vote import (ErrVoteConflict, Vote, VoteSet,
                                              batch_verify_vote_sigs)
-from tendermint_tpu_torch.utils import tracing
+from tendermint_tpu_torch.utils import lockwitness, tracing
 from tendermint_tpu_torch.utils.fail import fail_point
 from tendermint_tpu_torch.utils.fmt import bits_str
 from tendermint_tpu_torch.utils.log import get_logger
@@ -188,7 +188,7 @@ class ConsensusState:
         self._ticker = TimeoutTicker(self._on_timeout_fire)
         self._thread: threading.Thread | None = None
         self._stopped = threading.Event()
-        self._mtx = threading.RLock()
+        self._mtx = lockwitness.new_lock("consensus.mtx")
 
         self.wal = WAL(wal_path, light=cfg.wal_light) if wal_path else None
         self._replay_mode = False

@@ -19,7 +19,11 @@ replicated on every mesh device; a templated batch keeps its device-side
 gather of keys and messages on every shard.  Unlike the JAX package's
 `TpuBackend`, it builds no mesh of its own on a multi-card host: on four
 H100s one replay window verified more slowly split over the cards than
-on one.
+on one.  Given `table_cache_dir`, it keeps the JAX package's on-disk
+comb-table cache (`v1-<set_key hex>.npz`, either package reads the
+other's files), and `precompile_for_validators` warms a set at the
+shapes a node produces (`cli init --warm-crypto`); unlike `TpuBackend` it
+spawns no warmer on a cold set, since nothing compiles per shape.
 
 Its calls are instrumented at the JAX package's sites and under its
 names: the `verify.batch`, `verify.grouped`, `verify.dispatch` /
@@ -40,8 +44,10 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import os
 import threading
 import time
+import zipfile
 from contextlib import contextmanager
 from typing import Protocol
 
@@ -236,9 +242,22 @@ class CudaBackend:
     # parallelism buys (single gossiped votes stay on one device)
     MIN_LANES_PER_DEVICE = 1024
 
+    # bump when the comb-table layout changes: a versioned filename turns
+    # stale-format cache files into misses (the JAX package's format 1)
+    TABLE_CACHE_FORMAT = 1
+    TABLE_DISK_CACHE_BYTES = 8 << 30     # on-disk cap, oldest-mtime evicted
+
     def __init__(self, device: str | torch.device = "cuda",
-                 mesh: sharding.Mesh | None = None):
+                 mesh: sharding.Mesh | None = None,
+                 table_cache_dir: str | None = None):
         self.device = torch.device(device)
+        # the on-disk comb-table cache (None: off); files and their
+        # checks are the JAX package's, so either package reads the other's
+        self.table_cache_dir = table_cache_dir
+        # disk reads: hits, misses (no file) and rejected files (digest
+        # or shape mismatch, corrupt archive), each rebuilt on K2
+        self.table_disk = {"hits": 0, "misses": 0, "rejected": 0,
+                           "writes": 0}
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CudaBackend: no CUDA device available (pass device='cpu' "
@@ -327,36 +346,131 @@ class CudaBackend:
                 f"{len(val_pubs)})")
         return ent
 
+    def _table_cache_path(self, set_key: bytes) -> str | None:
+        """Disk location of a set's comb tables, or None when the on-disk
+        cache is off.  Tables are pure functions of the member keys and
+        set_key digests those, so a file named by set_key can never serve
+        STALE tables.  TRUST: the directory must be exactly as trusted as
+        the kernel library beside the checkout (anyone who can write
+        either can subvert verification)."""
+        if not self.table_cache_dir:
+            return None
+        return os.path.join(
+            self.table_cache_dir,
+            f"v{self.TABLE_CACHE_FORMAT}-{set_key.hex()}.npz")
+
+    def _read_table_file(self, path: str, digest: bytes, vb: int):
+        """(tbl, ok) numpy arrays from a cache file, or None: no file, or
+        one whose key digest or table shape does not match, or a corrupt
+        archive — each a miss, counted, that K2 then rebuilds."""
+        if not os.path.exists(path):
+            self.table_disk["misses"] += 1
+            return None
+        want = (curve.COMB_WINDOWS, curve.COMB_DIGITS, vb, 3, 32)
+        try:
+            with np.load(path) as z:
+                if z["pubs_sha256"].tobytes() == digest:
+                    tbl = z["tbl"]       # NpzFile re-reads per access
+                    ok = z["ok"]
+                    if tbl.shape == want and tbl.dtype == np.uint8 and \
+                            ok.shape == (vb,):
+                        self.table_disk["hits"] += 1
+                        return tbl, ok
+        except (OSError, ValueError, KeyError, EOFError,
+                zipfile.BadZipFile):
+            pass                         # a corrupt file: rebuilt below
+        self.table_disk["rejected"] += 1
+        return None
+
+    def _write_table_file(self, path: str, tbl: np.ndarray, ok: np.ndarray,
+                          digest: bytes) -> None:
+        """Write a set's tables atomically (a temporary file moved into
+        place: a concurrent reader sees the whole file or none), then
+        evict the oldest files past TABLE_DISK_CACHE_BYTES."""
+        d = os.path.dirname(path)
+        os.makedirs(d, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            with open(tmp, "wb") as f:   # a file object: savez must not
+                np.savez(f, tbl=tbl, ok=ok,  # append .npz
+                         pubs_sha256=np.frombuffer(digest, np.uint8))
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self.table_disk["writes"] += 1
+        self._prune_table_cache(d)
+
+    def _prune_table_cache(self, d: str) -> None:
+        """Oldest-mtime eviction past TABLE_DISK_CACHE_BYTES — the disk
+        mirror of the in-memory byte bound.  A file another process
+        removed meanwhile is skipped."""
+        entries = []
+        for name in os.listdir(d):
+            if not name.endswith(".npz"):
+                continue
+            p = os.path.join(d, name)
+            try:
+                st = os.stat(p)
+            except FileNotFoundError:
+                continue
+            entries.append((st.st_mtime, st.st_size, p))
+        total = sum(e[1] for e in entries)
+        entries.sort()
+        while entries and total > self.TABLE_DISK_CACHE_BYTES:
+            _, size, p = entries.pop(0)
+            try:
+                os.unlink(p)
+            except FileNotFoundError:
+                pass
+            total -= size
+
     def _build(self, set_key: bytes, val_pubs: np.ndarray) -> tuple:
-        """Build a set's tables (K2) on the caller's current stream and
-        install them."""
+        """A set's tables: read from the on-disk cache when it holds them
+        (installed through `tables_from_numpy`), else built (K2) on the
+        caller's current stream, installed and written to the cache."""
         v = len(val_pubs)
         vb = _bucket(v)
+        padded = _pad_rows(np.asarray(val_pubs, np.uint8), vb)
+        digest = hashlib.sha256(padded.tobytes()).digest()
+        path = self._table_cache_path(set_key)
+        if path is not None:
+            got = self._read_table_file(path, digest, vb)
+            if got is not None:
+                return self.tables_from_numpy(set_key, val_pubs, *got,
+                                              np.frombuffer(digest, np.uint8))
         t0 = time.perf_counter()
         pubs = self._t(val_pubs)
-        with _firstcall("build_neg_comb",
-                        _note_dispatch("build_neg_comb", pubs)):
+        # K2 builds the v real keys only: the padded columns are copies
+        # of column 0, and a launch at a new set size compiles nothing
+        # tmlint: disable=torch-launch-bucket
+        first = _note_dispatch("build_neg_comb", pubs)
+        with _firstcall("build_neg_comb", first):
             tbl, ok = ed.build_neg_comb(pubs)
         if vb > v:
             tbl = torch.cat([tbl, tbl[:, :, :1].expand(
                 -1, -1, vb - v, -1, -1)], dim=2).contiguous()
             ok = torch.cat([ok, ok[:1].expand(vb - v)])
-        ent = self._install(set_key, tbl, ok, v, _pad_rows(val_pubs, vb))
+        ent = self._install(set_key, tbl, ok, v, padded)
         if self.device.type == "cuda":     # the build's time, not its enqueue
             torch.cuda.current_stream(self.device).synchronize()
         REGISTRY.table_build_seconds.observe(time.perf_counter() - t0)
+        if path is not None:
+            self._write_table_file(path, tbl.cpu().numpy(),
+                                   ok.cpu().numpy(), digest)
         return ent
 
     def tables_from_numpy(self, set_key: bytes, val_pubs: np.ndarray,
                           tbl: np.ndarray, ok: np.ndarray,
-                          pubs_sha256: np.ndarray | None = None) -> None:
+                          pubs_sha256: np.ndarray | None = None) -> tuple:
         """Install comb tables built elsewhere — the reference's
         `build_neg_comb` output or the arrays of its `.npz` table cache
         (keys `tbl`, `ok`, `pubs_sha256`) — as this backend's tables for
         `set_key`.  `tbl` is uint8[26, 1024, Vb, 3, 32] with Vb >= the set
         size; `val_pubs` are the set's real keys, padded here to Vb by
         repeating key 0 (the reference's padding), and `pubs_sha256`, when
-        given, must be the SHA-256 of that padded key matrix."""
+        given, must be the SHA-256 of that padded key matrix.  Returns the
+        installed entry, as `tables` does."""
         v = len(val_pubs)
         want = (curve.COMB_WINDOWS, curve.COMB_DIGITS)
         if tbl.dtype != np.uint8 or tbl.ndim != 5 or tbl.shape[:2] != want \
@@ -372,8 +486,8 @@ class CudaBackend:
                 np.asarray(pubs_sha256, np.uint8).tobytes() != \
                 hashlib.sha256(padded.tobytes()).digest():
             raise ValueError("pubs_sha256 does not match the key set")
-        self._install(set_key, self._t(tbl), self._t(ok.astype(bool)), v,
-                      padded)
+        return self._install(set_key, self._t(tbl), self._t(ok.astype(bool)),
+                             v, padded)
 
     # -- verification ----------------------------------------------------
     @staticmethod
@@ -663,3 +777,42 @@ class CudaBackend:
         """Merkle leaf hashes SHA-256(0x00 || chunk) of equal-size chunks
         uint8[n, L] -> uint8[n, 32] (kernel K4)."""
         return merkle.leaf_hashes(self._t(chunks)).cpu().numpy()
+
+    # -- warm-up ---------------------------------------------------------
+    def precompile_for_validators(self, vals) -> None:
+        """Warm the crypto plane for a ValidatorSet: THE shared derivation
+        of which (lanes, templates) shapes a node produces, as in the JAX
+        package — `cli init --warm-crypto` and the node's first verifies
+        meet on the same set's tables (the on-disk cache) and shapes."""
+        from tendermint_tpu_torch.blockchain.reactor import DEFAULT_BATCH
+        from tendermint_tpu_torch.types import canonical
+        v = max(vals.size(), 1)
+        # a single gossiped vote, one commit (V lanes / 1 template), and
+        # a full fast-sync verify window (DEFAULT_BATCH blocks x V lanes,
+        # ~one template per block when commits are unanimous)
+        shapes = sorted({(MIN_BUCKET, 1), (_bucket(v), 1),
+                         (_bucket(DEFAULT_BATCH * v), DEFAULT_BATCH)})
+        self.precompile(vals.set_key(), vals.pubs_matrix(), shapes,
+                        canonical.SIGN_BYTES_LEN)
+
+    def precompile(self, set_key: bytes, val_pubs: np.ndarray,
+                   shapes: list[tuple[int, int]], msg_len: int) -> None:
+        """Build (or load) the set's comb tables and launch K1 once on
+        each route at each (lanes, templates) shape, through the real
+        entry points on zero signatures.  Template counts are the
+        PRE-bucket values the real workload produces (the launch shape is
+        the bucketed count, derived identically here).  A failed build
+        or launch raises."""
+        n_vals = len(val_pubs)
+        for n, t in shapes:
+            idx = (np.arange(n) % n_vals).astype(np.int32)
+            sigs = np.zeros((n, 64), dtype=np.uint8)
+            # the per-lane route serves VoteSet.add_votes_batched ...
+            self.verify_grouped(set_key, val_pubs, idx,
+                                np.zeros((n, msg_len), dtype=np.uint8),
+                                sigs)
+            # ... and the templated route commits and fast-sync windows
+            t = max(1, t)
+            self.verify_grouped_templated(
+                set_key, val_pubs, idx, (np.arange(n) % t).astype(np.int32),
+                np.zeros((t, msg_len), dtype=np.uint8), sigs)

@@ -33,7 +33,9 @@ does.  Every demotion is counted twice: in the rung counters that
 `supervisor_status` reports, and in the JAX package's `crypto_*`
 metrics (the rung label `cuda` where the JAX package writes `tpu`),
 with a `crypto.call` span (no category: the backend's own spans inside
-it carry them).
+it carry them).  `precompile_for_validators` warms the first rung that
+has it and raises its fault (the JAX ladder logs it and goes on): a
+warm-up that failed on the card is a card fault, not a cold start.
 
 THE INVARIANT: an infrastructure error is never reported as "bad
 signature".  Every verify returns the reference answer (computed on a
@@ -101,16 +103,17 @@ class _Rung:
                 "latency_mean_s": round(mean, 6)}
 
 
-def make_rung(name: str):
+def make_rung(name: str, table_cache_dir: str | None = None):
     """The backend of a ladder rung by name: "cuda" the kernels on the card
     (raises without one), "cpu" their plain PyTorch versions, "native" the
-    C++ host rung, "python" the golden floor."""
+    C++ host rung, "python" the golden floor.  `table_cache_dir` is the
+    kernel rungs' on-disk comb-table cache (None: off)."""
     from tendermint_tpu_torch.crypto.backend import CudaBackend, PythonBackend
     from tendermint_tpu_torch.crypto.native import NativeBackend
     if name == "cuda":
-        return CudaBackend()
+        return CudaBackend(table_cache_dir=table_cache_dir)
     if name == "cpu":
-        return CudaBackend(device="cpu")
+        return CudaBackend(device="cpu", table_cache_dir=table_cache_dir)
     if name == "native":
         return NativeBackend()
     if name == "python":
@@ -156,13 +159,15 @@ class SupervisedBackend:
 
     # -- ladder construction -------------------------------------------
     @classmethod
-    def build(cls, primary: str = "cuda", **knobs) -> "SupervisedBackend":
+    def build(cls, primary: str = "cuda", table_cache_dir: str | None = None,
+              **knobs) -> "SupervisedBackend":
         """Construct the standard ladder starting at `primary` and ending
         on the python floor (a primary outside LADDER_ORDER gives
         (primary, "python")).  A rung that fails to construct raises."""
         names = (LADDER_ORDER[LADDER_ORDER.index(primary):]
                  if primary in LADDER_ORDER else (primary, "python"))
-        return cls([(n, make_rung(n)) for n in names], **knobs)
+        return cls([(n, make_rung(n, table_cache_dir)) for n in names],
+                   **knobs)
 
     @property
     def leaf_hashes(self):
@@ -453,6 +458,16 @@ class SupervisedBackend:
         return rung.backend if rung is not None else None
 
     # -- passthroughs ---------------------------------------------------
+    def precompile_for_validators(self, vals) -> None:
+        """Warm the first rung that can be warmed (the device rung; the
+        host rungs have nothing to warm).  Its fault is raised, not
+        logged: nothing hides the card (ROADMAP C.6)."""
+        for rung in self._rungs:
+            fn = getattr(rung.backend, "precompile_for_validators", None)
+            if fn is not None:
+                fn(vals)
+                return
+
     def tables_cached(self, set_key: bytes) -> bool:
         """True when the ACTIVE rung would serve this set without a table
         build: device rungs delegate; CPU rungs need no tables, so a

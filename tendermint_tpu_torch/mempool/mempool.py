@@ -16,8 +16,9 @@ in exactly one outcome.
 
 That outcome is counted (the JAX package's metrics): the pool, or
 `mempool_rejected{reason}`; every eviction in `mempool_evicted{reason}`;
-`mempool_admit_seconds` histograms the admission latency.  The port
-drops the reference's lock witness.  Its scalar-verify fallback catches only
+`mempool_admit_seconds` histograms the admission latency.  Its lock is
+the lock witness's "mempool.lock" role (`utils/lockwitness`, on only
+when enabled).  Its scalar-verify fallback catches only
 `DeviceFault`: the tx is then checked on the native scalar path rather
 than rejected.  None of the port's own backends lets one out (a
 supervised ladder's floor answers or raises its own error), so the
@@ -44,6 +45,7 @@ from tendermint_tpu_torch.crypto.supervised import DeviceFault
 from tendermint_tpu_torch.types import merkle
 from tendermint_tpu_torch.types.keys import PrivKey, _verify_memo
 from tendermint_tpu_torch.types.tx import Tx
+from tendermint_tpu_torch.utils import lockwitness
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
 # -- signed-tx envelope ----------------------------------------------------
@@ -135,7 +137,7 @@ class Mempool:
         self._cache_size = cache_size
         # re-entrant: update() runs under the lock consensus holds across
         # app Commit, and _prio_floor_locked re-takes it
-        self._lock = threading.RLock()
+        self._lock = lockwitness.new_lock("mempool.lock")
         self._height = 0
         self._notified_available = False
         self._txs_available_cb = None

@@ -14,7 +14,10 @@ Copy of `tendermint_tpu/node/node.py` with the port's rules:
   consensus state; the blockchain reactor and the handshake verify on the
   backend itself.  The JAX node installs a process-wide backend instead.
 * Nothing hides the card or a fault.  No comb-table warmer runs in a
-  daemon thread (the first verify builds the tables), the node does not
+  daemon thread: the first verify reads the set's tables from the home's
+  on-disk cache (`BaseConfig.table_cache_dir()`, which `cli init
+  --warm-crypto` fills; off on a memdb node) and builds them (K2) only on
+  a miss.  The node does not
   run solo when a p2p listen address is set, `rpc.grpc_laddr` without
   grpcio raises at start naming it (the JAX node warns and runs without
   the gRPC server), and `stop()` raises the fault kept
@@ -66,24 +69,28 @@ from tendermint_tpu_torch.utils.log import get_logger
 log = get_logger("node")
 
 
-def make_backend(name: str, crypto: CryptoConfig | None = None):
+def make_backend(name: str, crypto: CryptoConfig | None = None,
+                 table_cache_dir: str | None = None):
     """The backend `base.crypto_backend` names: "cuda" the kernels on the
     card (raises without one), "cpu" their plain PyTorch versions,
     "native" the C++ host rung, "python" the golden bigint verifier.  With
     `crypto.supervised` set, the supervised ladder from that rung down to
     the python floor (`SupervisedBackend.build`, which raises when a rung
-    fails to construct)."""
+    fails to construct).  `table_cache_dir` is the kernel rungs' on-disk
+    comb-table cache (`BaseConfig.table_cache_dir()` for a home; None:
+    off)."""
     if name not in CRYPTO_BACKENDS:
         raise ValueError(
             f"crypto_backend {name!r} is not one of the port's backends "
             f"{CRYPTO_BACKENDS}")
     if crypto is not None and crypto.supervised:
         return SupervisedBackend.build(
-            name, breaker_threshold=crypto.breaker_threshold,
+            name, table_cache_dir=table_cache_dir,
+            breaker_threshold=crypto.breaker_threshold,
             breaker_cooldown_s=crypto.breaker_cooldown_s,
             call_timeout_s=crypto.call_timeout_s, retries=crypto.retries,
             spot_check_every=crypto.spot_check_every)
-    return make_rung(name)
+    return make_rung(name, table_cache_dir)
 
 
 PERSISTENT_APPS = ("persistent_kvstore", "persistent_dummy")
@@ -117,8 +124,11 @@ class Node:
         if config.rpc.grpc_laddr:
             require_grpc(f"rpc.grpc_laddr {config.rpc.grpc_laddr!r}")
         self.backend = (backend if backend is not None
-                        else make_backend(base.crypto_backend,
-                                          config.crypto))
+                        else make_backend(
+                            base.crypto_backend, config.crypto,
+                            table_cache_dir=(base.table_cache_dir()
+                                             if base.db_backend != "memdb"
+                                             else None)))
         self.plane = BatchPlane(self.backend)
         metrics.set_build_info(crypto_backend=(
             f"supervised:{base.crypto_backend}"

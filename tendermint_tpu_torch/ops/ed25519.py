@@ -85,7 +85,12 @@ def verify_tally_plain(pubkeys, msgs, sigs, powers, rows, total_power,
     total_power * 2 (reference `sharding.training_step_fn`'s step, whose
     int32 sums the port does not copy) -> (ok[N], tallied[rows],
     block_ok[rows])."""
-    ok = verify_batch_plain(pubkeys, msgs, sigs, base_tbl)
+    return tally_plain(verify_batch_plain(pubkeys, msgs, sigs, base_tbl),
+                       powers, rows, total_power)
+
+
+def tally_plain(ok, powers, rows, total_power) -> tuple:
+    """`verify_tally_plain`'s step after the verify, on its mask `ok`."""
     shape = (rows, ok.shape[0] // rows)
     grid_ok, grid_pw = ok.view(shape), powers.view(shape)
     tallied = torch.where(grid_ok, grid_pw, 0).sum(-1, dtype=torch.int64)

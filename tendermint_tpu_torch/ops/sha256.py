@@ -1,7 +1,8 @@
 """Batched SHA-256 — the plain PyTorch twin of `tendermint_tpu/ops/sha256.py`,
 and the wrapper of kernel K4 (`csrc/sha256_prefixed.cu`).
 
-32-bit words are held in int64 and masked after every add and shift.
+32-bit words are held in int64 and masked back to 32 bits after every
+sum and after each sigma's rotations.
 `sha256_prefixed` hashes prefix_byte || msg for N equal-length messages:
 Merkle leaves (prefix 0x00) and inner nodes (0x01 || left || right).  On a
 CUDA tensor it launches K4; on a CPU tensor it runs the plain twin.  K4
@@ -33,10 +34,6 @@ _H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
 _M32 = 0xFFFFFFFF
 
 
-def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & _M32
-
-
 def pad(nbytes: int) -> np.ndarray:
     """The static SHA-256 padding suffix for an nbytes message (uint8[...])."""
     padlen = (56 - (nbytes + 1)) % 64
@@ -48,26 +45,50 @@ def pad(nbytes: int) -> np.ndarray:
     return tail
 
 
-def _compress(state: list, w: list) -> list:
+# A rotation of a 32-bit word x held in int64 is (x >> n) | (x << (32 - n))
+# in its low 32 bits; the bits above stay below 2**62 and are masked off
+# once, after the three rotations of a sigma are XORed.
+
+def _schedule(w: list) -> list:
+    """The 64-word message schedule of a block from its 16 words (ints, or
+    tensors of one word per row)."""
     w = list(w)
     for t in range(16, 64):
-        s0 = _rotr(w[t - 15], 7) ^ _rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
-        s1 = _rotr(w[t - 2], 17) ^ _rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
-        w.append((w[t - 16] + s0 + w[t - 7] + s1) & _M32)
+        x, y = w[t - 15], w[t - 2]
+        s0 = ((x >> 7) | (x << 25)) ^ ((x >> 18) | (x << 14)) ^ (x >> 3)
+        s1 = ((y >> 17) | (y << 15)) ^ ((y >> 19) | (y << 13)) ^ (y >> 10)
+        w.append((w[t - 16] + (s0 & _M32) + w[t - 7] + (s1 & _M32)) & _M32)
+    return w
+
+
+def _rounds(state: list, kw: list) -> list:
+    """The 64 rounds on K[t] + W[t] (`kw`), added to `state`."""
     a, b, c, d, e, f, g, h = state
     for t in range(64):
-        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ ((e ^ _M32) & g)
-        t1 = h + s1 + ch + _K[t] + w[t]
-        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
+        s1 = (((e >> 6) | (e << 26)) ^ ((e >> 11) | (e << 21))
+              ^ ((e >> 25) | (e << 7))) & _M32
+        t1 = h + s1 + (g ^ (e & (f ^ g))) + kw[t]
+        s0 = (((a >> 2) | (a << 30)) ^ ((a >> 13) | (a << 19))
+              ^ ((a >> 22) | (a << 10))) & _M32
+        maj = (a & b) | (c & (a | b))
         a, b, c, d, e, f, g, h = ((t1 + s0 + maj) & _M32, a, b, c,
                                   (d + t1) & _M32, e, f, g)
     return [(s + n) & _M32 for s, n in zip(state, (a, b, c, d, e, f, g, h))]
 
 
+def _compress(state: list, w: list) -> list:
+    """One compression of a block's 16 words into `state`."""
+    return _rounds(state, [k + x for k, x in zip(_K, _schedule(w))])
+
+
+# blocks whose schedules are worked out together, ahead of their rounds
+_SCHEDULE_BLOCKS = 64
+
+
 def sha256(msg: torch.Tensor) -> torch.Tensor:
-    """uint8[..., N] -> digest uint8[..., 32]."""
+    """uint8[..., N] -> digest uint8[..., 32].  The schedules of up to
+    _SCHEDULE_BLOCKS blocks are computed at once (they depend on the
+    message alone); the rounds then run block after block."""
     n = msg.shape[-1]
     tail = torch.as_tensor(pad(n), device=msg.device)
     padded = torch.cat([msg, tail.expand(msg.shape[:-1] + tail.shape)],
@@ -77,8 +98,12 @@ def sha256(msg: torch.Tensor) -> torch.Tensor:
     words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
     zero = torch.zeros(msg.shape[:-1], dtype=torch.int64, device=msg.device)
     state = [zero + h0 for h0 in _H0]
-    for i in range(nblocks):
-        state = _compress(state, [words[..., i, j] for j in range(16)])
+    for lo in range(0, nblocks, _SCHEDULE_BLOCKS):
+        blocks = words[..., lo:lo + _SCHEDULE_BLOCKS, :]
+        kw = torch.stack([w + k for k, w in zip(_K, _schedule(
+            blocks.unbind(-1)))], dim=-1).movedim(-2, 0)
+        for block in kw:
+            state = _rounds(state, block.unbind(-1))
     out = torch.stack(state, dim=-1)
     parts = [(out >> s) & 0xFF for s in (24, 16, 8, 0)]
     return torch.stack(parts, dim=-1).reshape(

@@ -8,7 +8,8 @@ persistent peers reconnect with exponential backoff (`:402-434`);
 test suite builds multi-node consensus on.
 
 Copy of `tendermint_tpu/p2p/switch.py` (its peer, reconnect and eviction
-metrics kept) without the lock witness.  Seeds come from the caller, not
+metrics kept), its four locks `utils/lockwitness` roles (`switch.peers`,
+`.threads`, `.ban`, `.reconnect_rng`).  Seeds come from the caller, not
 from an installed chaos config: the reconnect jitter draws from a
 `random.Random` seeded with `derive_seed(chaos_seed, "p2p.reconnect",
 node id)`, and with
@@ -38,6 +39,7 @@ from tendermint_tpu_torch.p2p.secret import SecretConnection
 from tendermint_tpu_torch.p2p.types import NetAddress, NodeInfo
 from tendermint_tpu_torch.types.keys import PrivKey
 from tendermint_tpu_torch.utils import chaos as chaosmod
+from tendermint_tpu_torch.utils import lockwitness
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
 
@@ -88,26 +90,29 @@ class Switch:
         self._reactors_by_ch: dict[int, Reactor] = {}
         self._chan_descs: list = []
         self._peers: dict[str, Peer] = {}
-        self._peers_lock = threading.RLock()
+        self._peers_lock = lockwitness.new_lock("switch.peers")
         self._listener: transport.Listener | None = None
         self._stopped = threading.Event()
         self._dialing: set[str] = set()
         self._threads: list[threading.Thread] = []
-        self._threads_lock = threading.Lock()
+        self._threads_lock = lockwitness.new_lock("switch.threads",
+                                                  reentrant=False)
         self._persistent_addrs: dict[str, NetAddress] = {}
         # misbehavior scoring + temporary bans, keyed by peer id so
         # strikes survive reconnects (a liar can't reset its tally by
         # redialing); guarded by one lock, never held across I/O
         self._misbehavior: dict[str, float] = {}
         self._banned: dict[str, float] = {}      # id -> monotonic expiry
-        self._ban_lock = threading.Lock()
+        self._ban_lock = lockwitness.new_lock("switch.ban",
+                                              reentrant=False)
         # reconnect jitter RNG derived from the chaos seed + our node
         # id, so scenario runs replay the exact backoff schedule while
         # distinct nodes still de-correlate
         self.chaos_seed = chaos_seed
         self._reconnect_rng = random.Random(chaosmod.derive_seed(
             chaos_seed, "p2p.reconnect", self.node_info.id))
-        self._rng_lock = threading.Lock()
+        self._rng_lock = lockwitness.new_lock("switch.reconnect_rng",
+                                              reentrant=False)
         self._fuzz_links = 0         # links wrapped so far (fuzz seeds)
         self._sleep = time.sleep     # fake-clock hook for reconnect tests
         # the first fault of this node on a peer's well-formed message

@@ -52,8 +52,8 @@ to what they build (planes, ladders, switches).  The backend names are
 the port's (`KNOWN_BACKENDS`), and a run that names none runs on the
 card: a scenario declared on "python" runs on "cuda", one declared on
 "rig" on "cuda-rig" (`resolve_backend`), and without a card
-`CudaBackend()` raises before the body runs.  The event log's lock is a
-plain `threading.Lock` (no lock witness), no environment variable is
+`CudaBackend()` raises before the body runs.  The event log's lock is
+the witness's "scenarios.eventlog" role, no environment variable is
 read (`TM_SCENARIO_BACKEND`, `TM_SCENARIO_ARTIFACTS`), and the timeline
 and consensus-doctor files of the bundle are written without a `try`
 around them.  A crashing body is still a failed scenario with its
@@ -70,6 +70,7 @@ import threading
 import time
 
 from tendermint_tpu_torch.utils import chaos as chaosmod
+from tendermint_tpu_torch.utils import lockwitness
 from tendermint_tpu_torch.utils import tracing
 from tendermint_tpu_torch.utils.log import get_logger
 from tendermint_tpu_torch.utils.metrics import REGISTRY
@@ -101,7 +102,8 @@ class EventLog:
         self._plan: list[dict] = []
         self._notes: list[dict] = []
         self._sealed = False
-        self._lock = threading.Lock()
+        self._lock = lockwitness.new_lock("scenarios.eventlog",
+                                          reentrant=False)
 
     def plan(self, event: str, **fields) -> None:
         """Record one planned injection.  Fields must be JSON-safe and

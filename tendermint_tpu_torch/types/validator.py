@@ -485,6 +485,9 @@ class ValidatorSet:
         one grouped `backend` call against this set's cached comb tables."""
         templates, tmpl_idx, sigs, powers, idxs, foreign_power = \
             self.commit_verify_lanes(chain_id, block_id, height, commit)
+        # the caller hands the backend in (the handshake, restore, light
+        # bisection); a plane caller passes its plane, which has this method
+        # tmlint: disable=batchplane-producer
         ok = backend.verify_grouped_templated(
             self.set_key(), self.pubs_matrix(), idxs, tmpl_idx,
             templates, sigs)
@@ -653,6 +656,9 @@ def verify_commits_batched(val_set: ValidatorSet, chain_id: str,
         return 0, np.zeros(0, dtype=np.int64)
     templates, tmpl_idx, sigs, idxs, counts, tallied, foreign = \
         window_commit_lanes(val_set, chain_id, items)
+    # one whole window in one grouped call on the backend the caller
+    # passes (fast-sync, replay): nothing to coalesce with
+    # tmlint: disable=batchplane-producer
     ok = backend.verify_grouped_templated(
         val_set.set_key(), val_set.pubs_matrix(), idxs,
         tmpl_idx, templates, sigs)

@@ -79,9 +79,13 @@ def _jax_python_backend():
 @pytest.fixture(scope="module")
 def be():
     """One plain-kernel backend per worker: the 4-key set's comb tables
-    (the plain K2, a few seconds) are built once."""
+    (the plain K2, a few seconds alone, 40 s and more under a full run's
+    load) are built here, once, outside every test's deadline."""
     old = share_cores()
-    yield CudaBackend(device="cpu")
+    backend = CudaBackend(device="cpu")
+    _, vs = fixtures.make_validators(4)
+    backend.tables(vs.set_key(), vs.pubs_matrix())
+    yield backend
     import torch
     torch.set_num_threads(old)
 
@@ -522,8 +526,12 @@ def test_port_syncer_fast_syncs_from_a_jax_source(be, chains):
     y.sw.start()
     try:
         _connect(y.sw, src)
-        assert _wait(lambda: y.store.height >= N_BLOCKS - 1), \
-            f"synced only to {y.store.height}: {y.bc.pool.status()}"
+        # the state, not the store: a block is stored before it is
+        # applied (the crash-recovery discipline)
+        assert _wait(lambda: y.bc.state.last_block_height >= N_BLOCKS - 1), \
+            (f"synced only to {y.store.height} (state "
+             f"{y.bc.state.last_block_height}, fault {y.bc.fault!r}): "
+             f"{y.bc.pool.status()}")
         for h in range(1, N_BLOCKS - 1):
             assert y.store.load_block(h).encode() == \
                 src_store.load_block(h).encode()
