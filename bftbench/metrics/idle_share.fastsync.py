@@ -1,0 +1,7 @@
+"""The card in the fastsync cells: 100 x (1 - the union of its kernels and
+copies in the profiler's trace over the window).  Moves `blocks_per_s`."""
+
+from bftbench.metrics._shared import idle_share
+
+UNIT = "%"
+read = idle_share
